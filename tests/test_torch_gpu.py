@@ -1,0 +1,114 @@
+"""The port's CUDA kernels and its main path on a GPU, against the plain
+torch versions on the same inputs.
+
+Every test here needs a CUDA GPU (marker ``gpu``) and skips where torch
+sees none. The file imports no jax, so it also runs where jax is not
+installed:
+
+    python -m pytest tests/test_torch_gpu.py -q --noconftest
+
+Tolerance: exact equality (integer statistics, pair lists, labels).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, stats
+from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def synth_fasta(tmp_path_factory):
+    from bench_scale import synth_proteins
+
+    seq_buf, offsets, classes = synth_proteins(1200, seed=3)
+    path = tmp_path_factory.mktemp("synth") / "synth.fasta"
+    with open(path, "w") as f:
+        for i in range(1200):
+            seq = seq_buf[offsets[i] : offsets[i + 1]].tobytes().decode()
+            f.write(f">S{i:05d}|FEATURES|UNIPROT|c{classes[i]}|g{i}\n{seq}\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("i0", [0, 512])
+@pytest.mark.parametrize("signed", [False, True])
+@pytest.mark.parametrize("tile", [512, 96])
+def test_k1_matches_reference(cuda, i0, signed, tile):
+    """Strip blocks at (i0, i0), counts in [0, 40) or signed in [-50, 400)
+    with w_thresh 5; tile 96 takes the kernel's scalar-load path."""
+    rng = np.random.default_rng(i0 + 7 * signed + tile)
+    n, s = 1500, 1536 - i0 - (1536 - i0) % tile
+    lo, hi, thr, wt = (-50, 400, 100, 5) if signed else (0, 40, 10, 1)
+    counts = torch.from_numpy(
+        rng.integers(lo, hi, (tile * 2, s)).astype(np.int32)
+    ).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 4, s).astype(np.int32)).to(cuda)
+    kw = dict(i_off=i0, j_off=i0, n=n, threshold=thr, w_thresh=wt, tile=tile)
+    before = stats.stats_from_counts.launches
+    rs, th, _ = stats.stats_from_counts(counts, cls[: tile * 2], cls, **kw)
+    rs_ref, th_ref, _ = stats.stats_from_counts_reference(
+        counts, cls[: tile * 2], cls, **kw
+    )
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts.launches == before + 1
+    assert torch.equal(rs, rs_ref)
+    assert torch.equal(th, th_ref)
+    assert int(th.sum()) > 0
+
+
+def test_k1_refuses_what_it_cannot_take(cuda):
+    counts = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    cls = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        stats.stats_from_counts(counts, cls, cls, i_off=0, j_off=0, n=64,
+                                threshold=1, tile=16)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        stats.stats_from_counts(counts.t(), cls, cls, i_off=0, j_off=0,
+                                n=64, threshold=1, tile=32)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sweep_mxu_gpu_matches_cpu(cuda, weighted):
+    rng = np.random.default_rng(5)
+    n_pad, w, n = 1536, 64, 1500
+    words = rng.integers(0, 2**32, size=(n_pad, w), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(n_pad, w), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(n_pad, w), dtype=np.uint32)
+    words[n:] = 0
+    cls = rng.integers(0, 4, size=n_pad).astype(np.int32)
+    wts = rng.integers(1, 50, size=w * 32).astype(np.int8) if weighted else None
+    thr = 900 if weighted else 35
+    t = torch.from_numpy(words.view(np.int32))
+    for strip in (512, 1536):
+        got = bitmul.sweep_mxu(t.to(cuda), torch.from_numpy(cls).to(cuda), n,
+                               thr, strip=strip, weights=wts)
+        want = bitmul.sweep_mxu(t, torch.from_numpy(cls), n, thr,
+                                strip=strip, weights=wts)
+        assert np.array_equal(want[0], got[0])
+        assert np.array_equal(want[1], got[1])
+
+
+@pytest.mark.parametrize("weighting", ["none", "blosum62"])
+def test_pipeline_gpu_matches_cpu(cuda, synth_fasta, weighting):
+    """5 strips of 256 rows, tile 128: K1 launches once per strip."""
+    cfg = PipelineConfig(engine="mxu", tile=128, strip=256,
+                         weighting=weighting)
+    before = stats.stats_from_counts.launches
+    gpu = run_pipeline(synth_fasta, cfg, device=cuda)
+    assert stats.stats_from_counts.launches == before + 5
+    cpu = run_pipeline(synth_fasta, cfg, device="cpu")
+    assert gpu.parity_report() == cpu.parity_report()
+    assert gpu.parity_report()["pairs_over_threshold"] > 0
+    assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
+    assert np.array_equal(gpu.cluster_labels, cpu.cluster_labels)

@@ -1,0 +1,166 @@
+"""The port's slice as a whole against the JAX package: run_pipeline,
+the `cli run` artifacts, checkpoints across packages, the import
+boundary and the no-silent-CPU rule.
+
+Tolerance: exact equality (parity counters, pair lists, labels, and the
+pairs.tsv / clusters.tsv bytes).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
+from uniprot_kmer_based_clustering_tpu.pipeline import run_pipeline as jrun
+from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline as trun
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOY = dict(engine="mxu", tile=16, strip=32, threshold=2)
+
+
+@pytest.fixture(scope="module")
+def synth_fasta(tmp_path_factory):
+    """bench_scale's template-mutation corpus, 1200 proteins, headers in
+    the reference's format."""
+    from bench_scale import synth_proteins
+
+    seq_buf, offsets, classes = synth_proteins(1200, seed=3)
+    path = tmp_path_factory.mktemp("synth") / "synth.fasta"
+    with open(path, "w") as f:
+        for i in range(1200):
+            seq = seq_buf[offsets[i] : offsets[i + 1]].tobytes().decode()
+            f.write(f">S{i:05d}|FEATURES|UNIPROT|c{classes[i]}|g{i}\n{seq}\n")
+    return str(path)
+
+
+def _same(a, b):
+    assert a.parity_report() == b.parity_report()
+    assert np.array_equal(a.pairwise.pairs, b.pairwise.pairs)
+    assert np.array_equal(a.cluster_labels, b.cluster_labels)
+
+
+def test_pipeline_multi_strip_matches_jax(synth_fasta):
+    """1200 proteins, tile 128, strip 256: 5 strips, 55 tiles, thousands of
+    pairs through the two-pass extraction."""
+    cfg = PipelineConfig(engine="mxu", tile=128, strip=256)
+    got = trun(synth_fasta, cfg, device="cpu")
+    assert got.bitset.n_pad == 1280
+    assert got.parity_report()["pairs_over_threshold"] > 1000
+    _same(jrun(synth_fasta, cfg), got)
+    assert list(got.timings) == ["ingest", "encode", "index", "pack",
+                                 "sweep", "cluster"]
+
+
+def _cli_outputs(out):
+    with open(os.path.join(out, "stats.json")) as f:
+        stats = json.load(f)
+    with open(os.path.join(out, "pairs.tsv"), "rb") as f:
+        pairs = f.read()
+    with open(os.path.join(out, "clusters.tsv"), "rb") as f:
+        clusters = f.read()
+    return stats, pairs, clusters
+
+
+@pytest.mark.parametrize("extra", [[], ["--all-pairs", "--threshold", "3"],
+                                   ["--weighting", "blosum62"]])
+def test_cli_run_matches_jax_cli(toy_fasta, tmp_path, capsys, extra):
+    from uniprot_kmer_based_clustering_tpu.cli import main as jmain
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jmain(["run", toy_fasta, "--engine", "mxu", "--cpu", "--out",
+                  jout, *extra]) == 0
+    assert tmain(["run", toy_fasta, "--engine", "mxu", "--device", "cpu",
+                  "--out", tout, *extra]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == json.loads(lines[-2])
+    js, jp, jc = _cli_outputs(jout)
+    ts, tp, tc = _cli_outputs(tout)
+    assert tp == jp and tc == jc
+    assert ts["parity"] == js["parity"] and ts["clusters"] == js["clusters"]
+    assert ts["parity"]["pairs_over_threshold"] > 0
+    assert ts["device"] == "cpu"
+    assert set(ts["timings_s"]) == set(js["timings_s"])
+
+
+def test_checkpoints_cross_packages(toy_fasta, tmp_path):
+    """A checkpoint directory written by one package resumes in the other
+    (same cache keys, same artifacts): the resumed run skips the sweep."""
+    cfg = PipelineConfig(**TOY)
+    j_dir, t_dir = str(tmp_path / "from_jax"), str(tmp_path / "from_torch")
+    j1 = jrun(toy_fasta, cfg, checkpoint_dir=j_dir)
+    t2 = trun(toy_fasta, cfg, checkpoint_dir=j_dir, device="cpu")
+    assert "sweep" not in t2.timings and "index" not in t2.timings
+    _same(j1, t2)
+    t1 = trun(toy_fasta, cfg, checkpoint_dir=t_dir, device="cpu")
+    assert "sweep" in t1.timings
+    j2 = jrun(toy_fasta, cfg, checkpoint_dir=t_dir)
+    assert "sweep" not in j2.timings and "index" not in j2.timings
+    _same(t1, j2)
+    assert sorted(os.listdir(j_dir)) == sorted(os.listdir(t_dir))
+
+
+def test_port_never_imports_jax(toy_fasta):
+    """In a fresh interpreter (this one has jax from conftest) the port's
+    whole pipeline and CLI run without loading jax."""
+    code = (
+        "import sys\n"
+        "from uniprot_kmer_based_clustering_tpu_torch import cluster_fasta\n"
+        "from uniprot_kmer_based_clustering_tpu_torch.cli import main\n"
+        f"r = cluster_fasta({toy_fasta!r}, device='cpu', engine='mxu', "
+        "tile=16, strip=32, threshold=2)\n"
+        "assert r.pairwise.pairs.shape[0] > 0\n"
+        f"assert main(['run', {toy_fasta!r}, '--device', 'cpu', "
+        "'--out', sys.argv[1]]) == 0\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "print('NOJAX_OK')\n"
+    )
+    out_dir = os.path.join(os.path.dirname(toy_fasta), "nojax_out")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, out_dir], cwd=REPO,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "NOJAX_OK" in proc.stdout
+
+
+def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
+    """No silent fallback: asking for CUDA where there is none raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible")
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+    from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        trun(toy_fasta, PipelineConfig(**TOY))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tmain(["run", toy_fasta, "--out", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cluster", "tree"], ["--engine", "stream"], ["--devices", "4"],
+    ["--mesh-shape", "2x4"], ["--align", "sw"], ["--dump-kmers"],
+])
+def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    with pytest.raises(SystemExit, match="not yet ported"):
+        tmain(["run", toy_fasta, "--device", "cpu", "--out",
+               str(tmp_path / "o"), *flags])
+
+
+def test_cluster_fasta_api(toy_fasta):
+    from uniprot_kmer_based_clustering_tpu_torch import cluster_fasta
+
+    got = cluster_fasta(toy_fasta, device="cpu", **TOY)
+    _same(jrun(toy_fasta, PipelineConfig(**TOY)), got)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cluster_fasta(toy_fasta, device="cpu", cluster="agglomerative")

@@ -1,0 +1,37 @@
+"""PyTorch/CUDA port of uniprot_kmer_based_clustering_tpu.
+
+The same pipeline as the JAX package — FASTA → k-mer index → packed
+bitsets → pairwise sweep → exact pair list → clusters — on one torch
+device. The host stages are the JAX package's numpy/C++ modules, shared
+by import; the device stages are PyTorch, with each TPU kernel rewritten
+by hand for Hopper. This package never imports jax.
+
+Layout:
+  device.py   explicit device selection (no silent CPU fallback)
+  state.py    packed words / classes / weights onto a torch device
+  csrc/       CUDA C++ kernels, built at first use by ops/_build.py
+  ops/        int8-GEMM sweep (bitmul) and the K1 statistics epilogue
+              (stats), each kernel beside its plain PyTorch version
+  similarity/ sweep + two-pass exact pair extraction
+  models/     connected components
+  pipeline.py run_pipeline; cli.py the `run` command
+"""
+
+__version__ = "0.1.0"
+
+from uniprot_kmer_based_clustering_tpu.config import PipelineConfig  # noqa: F401
+
+
+def cluster_fasta(fasta_path: str, device="cuda", **config_kwargs):
+    """One-call library entry point: FASTA → similarity pairs + clusters
+    on ``device`` ("cuda" raises when no GPU is visible; "cpu" runs the
+    plain versions).
+
+    ``config_kwargs`` are :class:`PipelineConfig` fields. Returns the
+    :class:`~uniprot_kmer_based_clustering_tpu_torch.pipeline.PipelineResult`.
+    """
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+
+    return run_pipeline(
+        fasta_path, PipelineConfig(**config_kwargs), device=device
+    )

@@ -1,0 +1,189 @@
+"""Command-line interface of the PyTorch port.
+
+  python -m uniprot_kmer_based_clustering_tpu_torch.cli run <fasta>
+      [--device {cuda,cpu}] [--k {5,7}] [--threshold N]
+      [--weighted-threshold N] [--sampling {all,random10}] [--seed N]
+      [--weighting {none,blosum62}] [--cluster {components,none}]
+      [--engine {auto,mxu,native}] [--extract {auto,two_pass}]
+      [--all-pairs] [--checkpoint-dir DIR] [--out DIR] [--verbose]
+
+writes pairs.tsv, clusters.tsv and stats.json to --out in the same
+format as the JAX package's ``cli run``. The remaining flags of that CLI
+are accepted and refused with the ROADMAP item that will bring them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+
+def _refuse_unported(args) -> None:
+    """Raise SystemExit for a flag the port does not carry yet."""
+    refused = [
+        (args.devices > 1 or args.shard_axis != "rows" or args.distributed,
+         "--devices/--shard-axis/--distributed: the mesh engines "
+         "(ROADMAP queue 1, item 14)"),
+        (args.mesh_shape is not None,
+         "--mesh-shape: the mesh engines (ROADMAP queue 1, item 14)"),
+        (args.align != "none" or args.diamond,
+         "--align/--diamond: pair alignment (ROADMAP queue 1, item 12)"),
+        (args.cluster in ("tree", "agglomerative"),
+         f"--cluster {args.cluster}: tree/agglomerative clustering "
+         "(ROADMAP queue 1, item 13)"),
+        (args.engine in ("popcount", "xla"),
+         f"--engine {args.engine}: the popcount engines (ROADMAP queue 1, "
+         "item 6)"),
+        (args.engine == "stream" or args.stream_source != "host",
+         "--engine stream/--stream-source: the out-of-core stream engine "
+         "(ROADMAP queue 1, item 9)"),
+        (args.extract == "fused",
+         "--extract fused: the scan-schedule sweep (ROADMAP queue 1, "
+         "item 8)"),
+        (args.extract == "onepass",
+         "--extract onepass: the stream engine (ROADMAP queue 1, item 9)"),
+        (args.index_engine != "host",
+         "--index-engine device: the device index build (ROADMAP queue 1, "
+         "item 11)"),
+        (args.dump_kmers or args.dump_proteins or args.dump_debug,
+         "--dump-*: the k-mer dumps, whose JAX-package modules load jax "
+         "through similarity/__init__ (ROADMAP queue 1, item 1)"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise SystemExit(f"not yet ported to the torch package: {what}")
+
+
+def cmd_run(args) -> int:
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    config = PipelineConfig(
+        k=args.k,
+        threshold=args.threshold,
+        weighted_threshold=args.weighted_threshold,
+        sampling=args.sampling,
+        seed=args.seed,
+        cross_amr_only=not args.all_pairs,
+        weighting=args.weighting,
+        cluster=args.cluster,
+        min_shared=args.min_shared,
+        engine=args.engine,
+        index_engine=args.index_engine,
+        extract=args.extract,
+        extract_k=args.extract_k,
+    )
+    result = run_pipeline(
+        args.fasta,
+        config,
+        checkpoint_dir=args.checkpoint_dir,
+        device=device,
+        echo_timings=args.verbose,
+    )
+
+    os.makedirs(args.out, exist_ok=True)
+    table = result.table
+    pairs = result.pairwise.pairs
+
+    with open(os.path.join(args.out, "pairs.tsv"), "w") as f:
+        score_col = "weighted_score" if config.weighting != "none" else "shared_kmers"
+        f.write(f"protein_i\tprotein_j\tid_i\tid_j\tclass_i\tclass_j\t{score_col}\n")
+        for i, j, c in pairs:
+            f.write(
+                f"{i}\t{j}\t{table.ids[i]}\t{table.ids[j]}\t"
+                f"{table.amr_classes[i]}\t{table.amr_classes[j]}\t{c}\n"
+            )
+
+    if result.cluster_labels is not None:
+        with open(os.path.join(args.out, "clusters.tsv"), "w") as f:
+            f.write("protein\tid\tamr_class\tcluster\n")
+            for i in range(table.n):
+                f.write(
+                    f"{i}\t{table.ids[i]}\t{table.amr_classes[i]}\t"
+                    f"{result.cluster_labels[i]}\n"
+                )
+
+    stats = {
+        "config": {
+            k: v for k, v in vars(args).items()
+            if k not in ("func", "out", "verbose")
+        },
+        "parity": result.parity_report(),
+        "clusters": result.cluster_summary(),
+        "timings_s": {k: round(v, 4) for k, v in result.timings.items()},
+        "device": str(device),
+        "device_name": (
+            torch.cuda.get_device_name(device)
+            if device.type == "cuda" else "cpu"
+        ),
+        "n_devices": 1,
+    }
+    with open(os.path.join(args.out, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+
+    print(json.dumps(stats["parity"]))
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="uniprot-kmer-cluster-torch",
+        description="protein k-mer clustering on one torch device",
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("run", help="run the full pipeline")
+    r.add_argument("fasta")
+    r.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda raises when no GPU is visible; the CPU "
+                        "runs the kernels' plain versions")
+    r.add_argument("--k", type=int, default=5, choices=(5, 7))
+    r.add_argument("--threshold", type=int, default=10,
+                   help="keep pairs sharing > threshold k-mers")
+    r.add_argument("--weighted-threshold", type=int, default=None)
+    r.add_argument("--sampling", default="all", choices=("all", "random10"))
+    r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--weighting", default="none", choices=("none", "blosum62"))
+    r.add_argument("--min-shared", type=int, default=1)
+    r.add_argument("--cluster", default="components",
+                   choices=("components", "tree", "agglomerative", "none"))
+    r.add_argument("--engine", default="auto",
+                   choices=("auto", "mxu", "popcount", "xla", "native",
+                            "stream"),
+                   help="auto = mxu on CUDA; native (C++ host sweep) on "
+                        "the CPU when built, else mxu")
+    r.add_argument("--extract", default="auto",
+                   choices=("auto", "two_pass", "fused", "onepass"))
+    r.add_argument("--extract-k", type=int, default=0)
+    r.add_argument("--stream-source", default="host", choices=("host", "csr"))
+    r.add_argument("--index-engine", default="host",
+                   choices=("host", "device"))
+    r.add_argument("--all-pairs", action="store_true",
+                   help="keep same-AMR-class pairs too")
+    r.add_argument("--devices", type=int, default=0)
+    r.add_argument("--shard-axis", default="rows", choices=("rows", "kmers"))
+    r.add_argument("--mesh-shape", default=None, metavar="HxC")
+    r.add_argument("--distributed", action="store_true")
+    r.add_argument("--checkpoint-dir", default=None)
+    r.add_argument("--out", default="ukc_out")
+    r.add_argument("--diamond", action="store_true")
+    r.add_argument("--align", default="none",
+                   choices=("none", "diamond", "sw", "auto"))
+    r.add_argument("--dump-kmers", action="store_true")
+    r.add_argument("--dump-proteins", action="store_true")
+    r.add_argument("--dump-debug", action="store_true")
+    r.add_argument("-v", "--verbose", action="store_true")
+    r.set_defaults(func=cmd_run)
+
+    args = p.parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,230 @@
+"""End-to-end pipeline on one torch device: FASTA → index → bitsets →
+sweep → clusters.
+
+The counterpart of the JAX package's ``pipeline.run_pipeline`` with the
+same stage order, checkpoint keys and result fields. The host stages
+(ingest, k-mer encode, doc-freq index, bit packing) are the JAX
+package's own numpy/C++ modules, imported — they load no JAX. The same
+``PipelineConfig.cache_key`` and ``CheckpointStore`` are used, so a
+checkpoint directory written by either package resumes in the other.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import os
+from typing import Dict, Optional
+
+import numpy as np
+
+from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
+from uniprot_kmer_based_clustering_tpu.io.fasta import ProteinTable, read_fasta
+from uniprot_kmer_based_clustering_tpu.kmers.bitset import (
+    BitsetMatrix,
+    pack_bitsets,
+)
+from uniprot_kmer_based_clustering_tpu.kmers.encode import encode_kmers
+from uniprot_kmer_based_clustering_tpu.kmers.index import KmerIndex, build_index
+from uniprot_kmer_based_clustering_tpu.utils.checkpoint import CheckpointStore
+from uniprot_kmer_based_clustering_tpu.utils.timing import StageTimers
+from uniprot_kmer_based_clustering_tpu_torch.device import (
+    resolve_device,
+    synchronize,
+)
+from uniprot_kmer_based_clustering_tpu_torch.models.components import (
+    connected_components,
+)
+from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+    PairwiseResult,
+    check_supported,
+    pairwise_similarity,
+)
+
+
+@dataclasses.dataclass
+class PipelineResult:
+    table: ProteinTable
+    index: KmerIndex
+    bitset: BitsetMatrix
+    pairwise: PairwiseResult
+    cluster_labels: Optional[np.ndarray]
+    timings: Dict[str, float]
+    dendrogram: Optional[np.ndarray] = None
+
+    def parity_report(self) -> Dict[str, int]:
+        """The counters the reference prints to stderr, plus the pair
+        gate."""
+        report = {
+            "proteins": self.table.n,
+            "distinct_kmers": self.index.n_distinct,
+            "unique_kmers": self.index.n_unique,
+            "repeated_kmers": self.index.n_repeated,
+            "incidences": self.index.nnz,
+            "multigraph_edges": self.index.multigraph_edge_count(),
+        }
+        if self.pairwise is not None:
+            report.update(self.pairwise.parity_counters())
+        return report
+
+    def cluster_summary(self) -> Dict[str, int]:
+        if self.cluster_labels is None:
+            return {}
+        uniq, counts = np.unique(self.cluster_labels, return_counts=True)
+        return {
+            "clusters": int(uniq.shape[0]),
+            "largest_cluster": int(counts.max()),
+            "singletons": int((counts == 1).sum()),
+        }
+
+
+def _row_multiple(config: PipelineConfig, n: int) -> int:
+    """N_pad granularity, as the JAX pipeline pads: tile-padded up to one
+    strip; past that a multiple of lcm(strip, tile), with the ~3584-row
+    strip when the strip is automatic."""
+    strip = 3584 if config.strip is None else config.strip
+    if config.strip is None and n <= 3584:
+        return config.tile
+    return (strip * config.tile) // math.gcd(strip, config.tile)
+
+
+def _fasta_fingerprint(fasta_path: str) -> str:
+    """Checkpoint-key component for the input file's contents (path,
+    size, mtime) — the same key the JAX pipeline writes."""
+    st = os.stat(fasta_path)
+    return f"{fasta_path}:{st.st_size}:{st.st_mtime_ns}"
+
+
+def run_pipeline(
+    fasta_path: str,
+    config: Optional[PipelineConfig] = None,
+    checkpoint_dir: Optional[str] = None,
+    device="cuda",
+    echo_timings: bool = False,
+) -> PipelineResult:
+    """Run the pipeline on one torch ``device`` ("cuda" or "cpu").
+
+    With ``checkpoint_dir``, the index and pairs artifacts persist and a
+    rerun resumes from them. Each stage's time is closed after the
+    device has finished its work, so it measures the work and not the
+    launches.
+    """
+    config = config or PipelineConfig()
+    check_supported(config)
+    if config.cluster not in ("components", "none"):
+        raise NotImplementedError(
+            f"cluster={config.cluster!r} is not yet ported (ROADMAP queue "
+            "1, item 13); use components or none"
+        )
+    device = resolve_device(device)
+    store = CheckpointStore(checkpoint_dir)
+    timers = StageTimers(echo=echo_timings)
+
+    @contextlib.contextmanager
+    def stage(name):
+        with timers.stage(name):
+            yield
+            synchronize(device)
+
+    with stage("ingest"):
+        table = read_fasta(fasta_path)
+
+    fingerprint = _fasta_fingerprint(fasta_path)
+    key_index = config.cache_key("index", fingerprint)
+    cached = store.load(key_index)
+    index = None
+    if cached is not None:
+        index = KmerIndex(k=config.k, sampling=config.sampling, **cached)
+    if index is None:
+        with stage("encode"):
+            codes, koff = encode_kmers(
+                table.seq_buf,
+                table.offsets,
+                config.k,
+                sampling=config.sampling,
+                seed=config.seed,
+            )
+        with stage("index"):
+            index = build_index(codes, koff, config.k)
+            index.sampling = config.sampling
+        extra = (
+            {"unique_owner": index.unique_owner}
+            if index.unique_owner is not None
+            else {}
+        )
+        store.save(
+            key_index,
+            codes=index.codes,
+            doc_freq=index.doc_freq,
+            repeated_codes=index.repeated_codes,
+            incidence_protein=index.incidence_protein,
+            incidence_rank=index.incidence_rank,
+            hash_doc_freq=index.hash_doc_freq,
+            **extra,
+        )
+
+    with stage("pack"):
+        bitset = pack_bitsets(
+            index.incidence_protein,
+            index.incidence_rank,
+            table.n,
+            index.n_repeated,
+            row_multiple=_row_multiple(config, table.n),
+        )
+
+    weights = None
+    if config.weighting == "blosum62":
+        from uniprot_kmer_based_clustering_tpu.utils.blosum import (
+            rank_weights_int8,
+        )
+
+        weights = rank_weights_int8(
+            index.repeated_codes, config.k, bitset.w_pad * 32
+        )
+
+    key_pairs = config.cache_key("pairs", fingerprint)
+    cached_pairs = store.load(key_pairs)
+    if cached_pairs is not None:
+        s = cached_pairs["stats"]
+        pairwise = PairwiseResult(
+            *(int(v) for v in s), pairs=cached_pairs["pairs"],
+            cross_amr_only=config.cross_amr_only,
+        )
+    else:
+        with stage("sweep"):
+            pairwise = pairwise_similarity(
+                bitset, table.amr_class_ids, config,
+                weights=weights, index=index, device=device,
+            )
+        store.save(
+            key_pairs,
+            pairs=pairwise.pairs,
+            stats=np.array(
+                [
+                    pairwise.cross_weight,
+                    pairwise.cross_pairs,
+                    pairwise.cross_over,
+                    pairwise.cross_max,
+                    pairwise.same_weight,
+                    pairwise.same_pairs,
+                    pairwise.same_over,
+                    pairwise.same_max,
+                ],
+                dtype=np.int64,
+            ),
+        )
+
+    labels = None
+    if config.cluster == "components":
+        with stage("cluster"):
+            labels = connected_components(table.n, pairwise.pairs)
+
+    return PipelineResult(
+        table=table,
+        index=index,
+        bitset=bitset,
+        pairwise=pairwise,
+        cluster_labels=labels,
+        timings=timers.as_dict(),
+    )
