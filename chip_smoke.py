@@ -4,17 +4,25 @@
     python3 chip_smoke.py        # from the root of a checkout
 
 Builds the port's CUDA kernels from ``uniprot_kmer_based_clustering_tpu_torch/
-csrc`` with nvcc, then:
+csrc`` with nvcc (one process per source, in parallel), then:
 
-1. kernel phase — each kernel's wrapper against its plain PyTorch
-   version on the card, at the main path's shapes; exact equality;
-2. pipeline phase — the port's ``cli run --device cuda`` on a synthetic
-   corpus of 10,619 proteins (``bench_scale.synth_proteins``, seed 0),
-   with every kernel launch counter reset just before the run and read
-   just after; the pair list and the four parity counters must equal an
-   independent scipy ``B·Bᵀ`` oracle exactly;
-3. timing phase — warm sweep, extraction, per-layer and per-kernel times,
-   peak device memory.
+1. kernel phase — K1 against its plain PyTorch version on the card at the
+   strip shapes of the 10,619-protein path; exact equality;
+2. pipeline phase — the port's ``cli run --device cuda`` on synthetic
+   corpora (``bench_scale.synth_proteins``, seed 0), each run with every
+   kernel launch counter reset just before it and read just after; the
+   pair list and the four parity counters must equal an independent
+   scipy ``B·Bᵀ`` oracle (taken in row chunks) exactly:
+   a. 10,619 proteins, default engine (strip schedule, K1 once a strip);
+   b. the same corpus with ``--engine popcount`` (K4 once);
+   c. 30,000 proteins (9 strips → block-pair scan, K2 once a step) with
+      ``--extract two_pass`` and with ``--extract fused``;
+   then K4 against its plain version on the first two tile rows of the
+   10,619 corpus and against the MXU sweep's statistics on all of it, and
+   K2 against its plain version on a diagonal and an off-diagonal
+   3,584² block of the 30k corpus, unweighted and weighted;
+3. timing phase — warm sweeps and extractions of both corpora, per-layer
+   and per-kernel times against the plain versions, peak device memory.
 
 Prints the card's name and power limit (nvidia-smi), a JSON line
 describing each kernel, and as the last line
@@ -36,6 +44,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "uniprot_kmer_based_clustering_tpu_torch"
 N_PROTEINS = 10619
+N_SCALE = 30000  # the JAX package's scale point (bench_scale.py)
 THRESHOLD = 10
 TOL = 0  # integer statistics: kernel and plain version must agree exactly
 
@@ -129,25 +138,26 @@ def kernel_phase(dev, stats):
     return worst
 
 
-def write_fasta(path: str) -> None:
-    """The synthetic corpus, with headers in the reference's format
-    ``>ID|FEATURES|UNIPROT|<class>|gene`` so the class parses."""
+def write_fasta(path: str, n: int) -> None:
+    """The synthetic corpus of n proteins, with headers in the
+    reference's format ``>ID|FEATURES|UNIPROT|<class>|gene`` so the class
+    parses."""
     for k in [k for k in os.environ if k.startswith("UKC_SCALE_")]:
         del os.environ[k]
     from bench_scale import synth_proteins
 
-    seq_buf, offsets, classes = synth_proteins(N_PROTEINS, seed=0)
+    seq_buf, offsets, classes = synth_proteins(n, seed=0)
     with open(path, "w") as f:
-        for i in range(N_PROTEINS):
+        for i in range(n):
             seq = seq_buf[offsets[i] : offsets[i + 1]].tobytes().decode()
             f.write(f">SYN{i:06d}|FEATURES|UNIPROT|class{classes[i]}|"
                     f"gene{i}\n{seq}\n")
 
 
-def scipy_oracle(index, class_ids, n: int):
+def scipy_oracle(index, class_ids, n: int, chunk: int = 4096):
     """Independent pairwise stage: triu(B·Bᵀ, 1) from the incidence
-    lists, split by class. Returns (counters, cross pairs over threshold
-    as int64 [M, 3] sorted by (i, j))."""
+    lists, in row chunks, split by class. Returns (counters, cross pairs
+    over threshold as int64 [M, 3] sorted by (i, j))."""
     import numpy as np
     import scipy.sparse as sp
 
@@ -156,18 +166,29 @@ def scipy_oracle(index, class_ids, n: int):
          (index.incidence_protein, index.incidence_rank)),
         shape=(n, index.n_repeated),
     )
-    c = sp.triu(b @ b.T, k=1).tocoo()
-    i, j, v = c.row.astype(np.int64), c.col.astype(np.int64), c.data
-    cross = class_ids[i] != class_ids[j]
-    vc = v[cross]
+    bt = b.T.tocsr()
+    weight = pairs_any = over = 0
+    top = 0
+    kept = []
+    for r0 in range(0, n, chunk):
+        c = sp.triu(b[r0 : r0 + chunk] @ bt, k=1 + r0).tocoo()
+        i, j, v = c.row.astype(np.int64) + r0, c.col.astype(np.int64), c.data
+        cross = class_ids[i] != class_ids[j]
+        vc = v[cross]
+        weight += int(vc.sum())
+        pairs_any += int(cross.sum())
+        over += int((vc > THRESHOLD).sum())
+        top = max(top, int(vc.max()) if len(vc) else 0)
+        keep = cross & (v > THRESHOLD)
+        kept.append(np.stack([i[keep], j[keep], v[keep].astype(np.int64)],
+                             axis=1))
     counters = {
-        "edges_after_amr_filter": int(vc.sum()),
-        "pairs_after_merge": int(cross.sum()),
-        "pairs_over_threshold": int((vc > THRESHOLD).sum()),
-        "max_shared_kmers": int(vc.max()),
+        "edges_after_amr_filter": weight,
+        "pairs_after_merge": pairs_any,
+        "pairs_over_threshold": over,
+        "max_shared_kmers": top,
     }
-    keep = cross & (v > THRESHOLD)
-    pairs = np.stack([i[keep], j[keep], v[keep].astype(np.int64)], axis=1)
+    pairs = np.concatenate(kept)
     pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
     return counters, pairs
 
@@ -183,74 +204,344 @@ def read_pairs_tsv(path: str):
     ).reshape(-1, 3)
 
 
-def pipeline_phase(dev, tmp, stats):
-    """The port's `cli run --device cuda`, held against the oracle."""
+def kernel_counters():
+    """The launch counter of each kernel wrapper, by kernel id."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount, stats
+
+    return {"K1": stats.stats_from_counts,
+            "K2": stats.stats_from_counts_traced,
+            "K4": popcount.popcount_sweep}
+
+
+def host_state(fasta: str):
+    """The port pipeline's host stages (ingest, encode, index, pack) with
+    its default config: (table, index, bitset)."""
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch import pipeline as pl
+
+    cfg = PipelineConfig()
+    table = pl.read_fasta(fasta)
+    codes, koff = pl.encode_kmers(table.seq_buf, table.offsets, cfg.k)
+    index = pl.build_index(codes, koff, cfg.k)
+    bitset = pl.pack_bitsets(
+        index.incidence_protein, index.incidence_rank, table.n,
+        index.n_repeated, row_multiple=pl._row_multiple(cfg, table.n),
+    )
+    return table, index, bitset
+
+
+def oracle(state, label: str):
+    table, index, _ = state
+    t0 = time.perf_counter()
+    want, want_pairs = scipy_oracle(index, table.amr_class_ids, table.n)
+    print(f"scipy oracle ({label}) {time.perf_counter() - t0:.3f} s: "
+          f"{want}", flush=True)
+    return want, want_pairs
+
+
+def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
+    """One `cli run --device cuda` of the main path: every launch counter
+    is set to 0 just before it and read just after; each kernel must have
+    launched exactly as ``expect`` says, and pairs.tsv and the parity
+    counters must equal the oracle. Returns the launch counts."""
     import numpy as np
 
-    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig, cli
-    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
-        resolve_schedule,
-    )
-    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+    from uniprot_kmer_based_clustering_tpu_torch import cli
 
-    fasta = os.path.join(tmp, "synth.fasta")
-    out = os.path.join(tmp, "out")
+    fns = kernel_counters()
+    for fn in fns.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    write_fasta(fasta)
-    print(f"corpus: {N_PROTEINS} proteins written in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-
-    stats.stats_from_counts.launches = 0
-    t0 = time.perf_counter()
-    rc = cli.main(["run", fasta, "--out", out, "--device", dev.type])
+    rc = cli.main(["run", fasta, "--out", out, "--device", dev.type, *flags])
     cli_s = time.perf_counter() - t0
-    launches = stats.stats_from_counts.launches
+    launches = {k: fn.launches for k, fn in fns.items()}
     if rc != 0:
-        raise AssertionError(f"cli run returned {rc}")
-
+        raise AssertionError(f"cli run {flags} returned {rc}")
     with open(os.path.join(out, "stats.json")) as f:
         run_stats = json.load(f)
     pairs = read_pairs_tsv(os.path.join(out, "pairs.tsv"))
-
-    # the host stages again for the oracle's incidence lists, plus the
-    # geometry and device state the timing phase needs
-    res = run_pipeline(fasta, PipelineConfig(cluster="none"), device=dev)
-    n_pad = res.bitset.n_pad
-    _, strip, ns = resolve_schedule(n_pad, 512)
-    print(f"N_pad {n_pad} x W_pad {res.bitset.w_pad}, strip {strip}, "
-          f"{ns} strips; K1 launches in the cli run: {launches}",
-          flush=True)
-    if launches != ns:
-        raise AssertionError(
-            f"K1 launched {launches} times in the main path, expected {ns}"
-        )
-
-    t0 = time.perf_counter()
-    want, want_pairs = scipy_oracle(
-        res.index, res.table.amr_class_ids, res.table.n
-    )
-    print(f"scipy oracle {time.perf_counter() - t0:.3f} s: {want}",
-          flush=True)
     got = {k: run_stats["parity"][k] for k in want}
-    print(f"cli run {cli_s:.3f} s: parity {got}, pairs {len(pairs)}",
-          flush=True)
+    name = " ".join(flags) or "(default flags)"
+    print(f"cli run {name}: {cli_s:.3f} s; kernel launches {launches}; "
+          f"parity {got}, pairs {len(pairs)}; stage seconds "
+          f"{json.dumps(run_stats['timings_s'])}", flush=True)
+    if launches != expect:
+        raise AssertionError(
+            f"cli run {name}: kernel launches {launches}, expected {expect}"
+        )
     if got != want:
         raise AssertionError(f"parity counters {got} != oracle {want}")
     if not np.array_equal(pairs, want_pairs):
-        raise AssertionError("pairs.tsv differs from the oracle pair list")
+        raise AssertionError(f"pairs.tsv of {name} differs from the oracle")
+    return launches
+
+
+def pipeline_phase(dev, tmp):
+    """The main paths on the card, each against the scipy oracle: the
+    10,619-protein corpus on the default engine (strips, K1) and on
+    --engine popcount (K4); the 30,000-protein corpus on the scan (K2)
+    with two-pass and with fused extraction."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
+        resolve_schedule,
+    )
+
+    fasta10 = os.path.join(tmp, "synth10619.fasta")
+    fasta30 = os.path.join(tmp, "synth30000.fasta")
+    t0 = time.perf_counter()
+    write_fasta(fasta10, N_PROTEINS)
+    write_fasta(fasta30, N_SCALE)
+    print(f"corpora: {N_PROTEINS} and {N_SCALE} proteins written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    out = os.path.join(tmp, "out")
+
+    state10 = host_state(fasta10)
+    n_pad = state10[2].n_pad
+    sched, strip, ns = resolve_schedule(n_pad, 512)
+    print(f"{N_PROTEINS}: N_pad {n_pad} x W_pad {state10[2].w_pad}; "
+          f"resolve_schedule -> {sched}, strip {strip}, {ns} strips",
+          flush=True)
+    want10, pairs10 = oracle(state10, f"{N_PROTEINS}")
     expected = {"edges_after_amr_filter": 74753766,
                 "pairs_after_merge": 2075330,
                 "pairs_over_threshold": 491781, "max_shared_kmers": 275}
     print(f"oracle equals the documented corpus counters: "
-          f"{want == expected}", flush=True)
-    if res.parity_report() != run_stats["parity"]:
-        raise AssertionError("a second run disagrees with the cli run")
-    return res, run_stats, launches
+          f"{want10 == expected}", flush=True)
+    launches = {}
+    launches["K1"] = cli_run(dev, fasta10, out, [], want10, pairs10,
+                             {"K1": ns, "K2": 0, "K4": 0})["K1"]
+    launches["K4"] = cli_run(dev, fasta10, out, ["--engine", "popcount"],
+                             want10, pairs10,
+                             {"K1": 0, "K2": 0, "K4": 1})["K4"]
+
+    state30 = host_state(fasta30)
+    n_pad = state30[2].n_pad
+    sched, strip, ns = resolve_schedule(n_pad, 512)
+    steps = ns * (ns + 1) // 2
+    print(f"{N_SCALE}: N_pad {n_pad} x W_pad {state30[2].w_pad}, "
+          f"repeated k-mers {state30[1].n_repeated}; resolve_schedule -> "
+          f"{sched}, strip {strip}, {ns} strips, {steps} block-pair steps",
+          flush=True)
+    if sched != "scan":
+        raise AssertionError(f"{N_SCALE} proteins resolved to {sched}")
+    want30, pairs30 = oracle(state30, f"{N_SCALE}")
+    for extract in ("two_pass", "fused"):
+        got = cli_run(dev, fasta30, out, ["--extract", extract], want30,
+                      pairs30, {"K1": 0, "K2": steps, "K4": 0})
+        launches["K2"] = got["K2"]
+    return state10, pairs10, state30, pairs30, launches
 
 
-def timing_phase(dev, res, stats):
-    """Warm sweep/extraction, per-layer times of one sweep, K1 vs its
-    plain version on strip 0 of the corpus."""
+def k4_phase(dev, state):
+    """K4 against its plain version on the first two tile rows of the
+    10,619 corpus, and its whole-corpus statistics against the MXU
+    sweep's (all 8 row lanes; the over-threshold tile hits)."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, popcount
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    table, _, bitset = state
+    n, n_pad = table.n, bitset.n_pad
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
+    ti, tj = popcount.upper_triangle_tiles(n_pad, 512)
+    sub = (ti[ti < 2], tj[ti < 2])
+    args = (words, classes, n, THRESHOLD, 512)
+    rs_k, th_k, _ = popcount.popcount_sweep(*args, tiles=sub)
+    t0 = time.perf_counter()
+    rs_p, th_p, _ = popcount.sweep_reference(*args, tiles=sub)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = max(max_abs_err(rs_k, rs_p), max_abs_err(th_k, th_p))
+    print(f"kernel K4 on tile rows 0-1 ({len(sub[0])} tile pairs of 512 x "
+          f"512 x {bitset.w_pad} words): max_abs_err {err} (tolerance "
+          f"{TOL}), over-threshold hits {int(th_k[:, 0].sum())}; plain "
+          f"version {plain_s:.3f} s", flush=True)
+    if err > TOL:
+        raise AssertionError("K4 disagrees with its plain version")
+
+    rs_f, th_f, _ = popcount.popcount_sweep(*args)
+    rs_m, th_m, _ = bitmul.sweep_mxu(words, classes, n, THRESHOLD)
+    torch.cuda.synchronize()
+    err_m = max(
+        int(np.abs(rs_f.cpu().numpy().astype(np.int64) - rs_m).max()),
+        int(np.abs(th_f[:, :2].cpu().numpy() - th_m).max()),
+    )
+    print(f"kernel K4 whole corpus vs the MXU sweep (row_stats, 8 lanes; "
+          f"tile_hits[:, :2]): max_abs_err {err_m}", flush=True)
+    if err_m > TOL:
+        raise AssertionError("K4 disagrees with the MXU sweep")
+
+    k4_a = cuda_ms(lambda: popcount.popcount_sweep(*args, tiles=sub),
+                   reps=5, warmup=1)
+    k4_b = cuda_ms(lambda: popcount.popcount_sweep(*args, tiles=sub),
+                   reps=5, warmup=1)
+    plain_ms = cuda_ms(lambda: popcount.sweep_reference(*args, tiles=sub),
+                       reps=1, warmup=0)
+    full_ms = cuda_ms(lambda: popcount.popcount_sweep(*args), reps=3,
+                      warmup=1)
+    k4_ms = min(k4_a, k4_b)
+    print(f"K4 on tile rows 0-1: kernel {k4_ms:.4f} ms ({k4_a:.4f}, "
+          f"{k4_b:.4f}), plain torch {plain_ms:.4f} ms; K4 whole corpus "
+          f"({len(ti)} tile pairs) {full_ms:.4f} ms", flush=True)
+    return dict(err=max(err, err_m), ms=k4_ms, plain_ms=plain_ms,
+                full_ms=full_ms)
+
+
+def k2_phase(dev, state):
+    """K2 against its plain version on the diagonal block (0, 0) and the
+    off-diagonal block (0, 3584) of the 30k corpus, unweighted and with
+    signed weights (w_thresh 5)."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, stats
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    table, _, bitset = state
+    n, n_pad, bs = table.n, bitset.n_pad, 3584
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
+    rng = np.random.default_rng(0)
+    wts = torch.from_numpy(
+        rng.integers(-30, 31, bitset.w_pad * 32).astype(np.int8)
+    ).to(dev)
+    worst = 0
+    timed = None
+    for i0, j0 in ((0, 0), (0, bs)):
+        for weighted in (False, True):
+            counts = bitmul.counts_window(words, wts if weighted else None,
+                                          i0, j0, s=bs, jr=bs)
+            kw = dict(n=n, threshold=100 if weighted else THRESHOLD,
+                      w_thresh=5 if weighted else 1, tile=512)
+            ca, cb = classes[i0 : i0 + bs], classes[j0 : j0 + bs]
+            rs, bh = stats.stats_from_counts_traced(counts, ca, cb, i0, j0,
+                                                    **kw)
+            rs_p, bh_p = stats.stats_from_counts_traced_reference(
+                counts, ca, cb, i0, j0, **kw)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(rs, rs_p), max_abs_err(bh, bh_p))
+            print(f"kernel K2 counts[{bs}, {bs}] at ({i0}, {j0}) "
+                  f"{'weighted' if weighted else 'unweighted'} (min count "
+                  f"{int(counts.min())}): max_abs_err {err} (tolerance "
+                  f"{TOL}), block hits {int(bh.sum())}", flush=True)
+            if err > TOL:
+                raise AssertionError("K2 disagrees with its plain version")
+            worst = max(worst, err)
+            if (i0, j0, weighted) == (0, bs, False):
+                timed = (counts, ca, cb, i0, j0, kw)
+            else:
+                del counts
+    counts, ca, cb, i0, j0, kw = timed
+
+    def k2():
+        return stats.stats_from_counts_traced(counts, ca, cb, i0, j0, **kw)
+
+    def plain():
+        return stats.stats_from_counts_traced_reference(counts, ca, cb, i0,
+                                                        j0, **kw)
+
+    plain_a, k2_a, k2_b, plain_b = (cuda_ms(plain), cuda_ms(k2),
+                                    cuda_ms(k2), cuda_ms(plain))
+    k2_ms, plain_ms = min(k2_a, k2_b), min(plain_a, plain_b)
+    print(f"K2 on the ({i0}, {j0}) block ({counts.numel() * 4} bytes): "
+          f"kernel {k2_ms:.4f} ms ({k2_a:.4f}, {k2_b:.4f}), plain torch "
+          f"{plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f})", flush=True)
+    return dict(err=worst, ms=k2_ms, plain_ms=plain_ms)
+
+
+def scan_timing_phase(dev, state, want_pairs):
+    """30k proteins: warm scan sweep, two-pass against fused extraction,
+    per-layer times of one scan step, peak device memory of each."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, stats
+    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+        extract_pairs,
+        extract_pairs_fused,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    table, _, bitset = state
+    n, n_pad = table.n, bitset.n_pad
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
+    pair_count = n * (n - 1) // 2
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweep_s, (rs, th, tiles) = best_seconds(
+        lambda: bitmul.sweep_mxu(words, classes, n, THRESHOLD),
+        reps=2, warmup=1,
+    )
+    two_s, pairs = best_seconds(
+        lambda: extract_pairs(words, classes, th, tiles, n, THRESHOLD),
+        reps=2, warmup=1,
+    )
+    peak_two = torch.cuda.max_memory_allocated(dev)
+    del th
+    torch.cuda.reset_peak_memory_stats(dev)
+    fsweep_s, out = best_seconds(
+        lambda: bitmul.sweep_mxu(words, classes, n, THRESHOLD, fused_k=None),
+        reps=2, warmup=1,
+    )
+    cands = out[3]
+    fext_s, fpairs = best_seconds(
+        lambda: extract_pairs_fused(words, classes, out[1], out[2], cands,
+                                    n, THRESHOLD),
+        reps=2, warmup=1,
+    )
+    peak_fused = torch.cuda.max_memory_allocated(dev)
+    if not (np.array_equal(pairs, want_pairs)
+            and np.array_equal(fpairs, want_pairs)):
+        raise AssertionError("warm 30k extraction differs from the oracle")
+    print(f"{N_SCALE} warm scan sweep {sweep_s:.6f} s (best of 2 after a "
+          f"warm-up) = {pair_count / sweep_s:.6e} pairs/s; two-pass "
+          f"extraction {two_s:.6f} s (sweep + extraction "
+          f"{sweep_s + two_s:.6f} s, peak device memory {peak_two} bytes); "
+          f"fused sweep {fsweep_s:.6f} s + fused extraction {fext_s:.6f} s "
+          f"= {fsweep_s + fext_s:.6f} s (capacity k {cands.k}, peak "
+          f"{peak_fused} bytes); {len(pairs)} pairs", flush=True)
+    del out, cands
+
+    # per-layer device times of one scan step
+    bs = 3584
+    _, _, ns = bitmul.resolve_schedule(n_pad, 512)
+    steps = ns * (ns + 1) // 2
+    unpack_ms = cuda_ms(lambda: bitmul.unpack_words_to_int8(words[:bs]),
+                        reps=3, warmup=1)
+    a = bitmul.unpack_words_to_int8(words[:bs])
+    b = bitmul.unpack_words_to_int8(words[bs : 2 * bs])
+    gemm_ms = cuda_ms(lambda: bitmul.int8_gemm(a, b), reps=3, warmup=1)
+    counts = bitmul.int8_gemm(a, b)
+    del a, b
+    kw = dict(n=n, threshold=THRESHOLD, tile=512)
+    k2_ms = cuda_ms(lambda: stats.stats_from_counts_traced(
+        counts, classes[:bs], classes[bs : 2 * bs], 0, bs, **kw))
+    ops = 2 * bs * bs * bitset.w_pad * 32
+    print(f"scan step layers (device ms): unpack of one {bs}-row window "
+          f"{unpack_ms:.4f}, int8 GEMM {gemm_ms:.4f} ({ops / gemm_ms / 1e9:.1f} "
+          f"TOP/s), K2 {k2_ms:.4f}; x{steps} steps (+{ns} stationary "
+          f"unpacks): GEMM {gemm_ms * steps:.1f}, unpack "
+          f"{unpack_ms * (steps + ns):.1f}, K2 {k2_ms * steps:.2f}",
+          flush=True)
+    return dict(sweep_s=sweep_s, two_s=two_s, fsweep_s=fsweep_s,
+                fext_s=fext_s)
+
+
+def timing_phase(dev, state, want_pairs, stats):
+    """10,619 proteins: warm sweep/extraction, per-layer times of one
+    sweep, K1 vs its plain version on strip 0 of the corpus."""
     import numpy as np
     import torch
 
@@ -264,9 +555,10 @@ def timing_phase(dev, res, stats):
         classes_to_torch,
     )
 
-    n, n_pad = res.table.n, res.bitset.n_pad
-    words = bitset_to_torch(res.bitset, dev)
-    classes = classes_to_torch(res.table.amr_class_ids, n_pad, dev)
+    table, _, bitset = state
+    n, n_pad = table.n, bitset.n_pad
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
     torch.cuda.reset_peak_memory_stats(dev)
 
     def sweep():
@@ -278,7 +570,7 @@ def timing_phase(dev, res, stats):
                               threshold=THRESHOLD)
     )
     peak = torch.cuda.max_memory_allocated(dev)
-    if not np.array_equal(pairs, res.pairwise.pairs):
+    if not np.array_equal(pairs, want_pairs):
         raise AssertionError("warm extraction differs from the run")
     pair_count = n * (n - 1) // 2
     print(f"warm sweep_mxu {sweep_s:.6f} s (best of 3 after 2 warm-ups) "
@@ -355,6 +647,7 @@ def main() -> int:
         print("no CUDA GPU visible to torch", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -375,25 +668,52 @@ def main() -> int:
     err = kernel_phase(dev, stats)
     tmp = tempfile.mkdtemp(prefix="ukc_chip_smoke_")
     try:
-        res, run_stats, launches = pipeline_phase(dev, tmp, stats)
-        print("cli run stage seconds: " + json.dumps(run_stats["timings_s"]),
-              flush=True)
-        t = timing_phase(dev, res, stats)
+        state10, pairs10, state30, pairs30, launches = pipeline_phase(
+            dev, tmp)
+        k4 = k4_phase(dev, state10)
+        k2 = k2_phase(dev, state30)
+        t = timing_phase(dev, state10, pairs10, stats)
+        scan_timing_phase(dev, state30, pairs30)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if "jax" in sys.modules:
         raise AssertionError("the port's main path imported jax")
 
-    kernels = [{
-        "name": "stats_from_counts",
-        "route": "cuda",
-        "source": f"{PKG}/csrc/stats_epilogue.cu",
-        "replaces": "uniprot_kmer_based_clustering_tpu/ops/stats_pallas.py:275",
-        "launches": launches,
-        "max_abs_err": max(err, t["err"]),
-        "ms": t["k1_ms"],
-        "plain_ms": t["plain_ms"],
-    }]
+    replaces = "uniprot_kmer_based_clustering_tpu/ops/"
+    kernels = [
+        {
+            "name": "stats_from_counts",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/stats_epilogue.cu",
+            "replaces": replaces + "stats_pallas.py:275",
+            "launches": launches["K1"],
+            "max_abs_err": max(err, t["err"]),
+            "ms": t["k1_ms"],
+            "plain_ms": t["plain_ms"],
+        },
+        {
+            "name": "stats_from_counts_traced",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/stats_epilogue.cu",
+            "replaces": replaces + "stats_pallas.py:172",
+            "launches": launches["K2"],
+            "max_abs_err": k2["err"],
+            "ms": k2["ms"],
+            "plain_ms": k2["plain_ms"],
+        },
+        {
+            "name": "popcount_sweep",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/popcount_sweep.cu",
+            "replaces": replaces + "popcount.py:189",
+            "launches": launches["K4"],
+            "max_abs_err": k4["err"],
+            "ms": k4["ms"],
+            "plain_ms": k4["plain_ms"],
+        },
+    ]
+    print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -130,11 +130,124 @@ def test_auto_strip_and_schedule_match_jax():
 
 
 def test_sweep_mxu_refuses_unported_modes(small_case):
+    """What sweep_mxu still refuses: unknown schedules and epilogues, and
+    fused extraction with an explicit K2 epilogue (the JAX contract)."""
     words, classes, n, _ = small_case
     args = (_t(words), torch.from_numpy(classes), n, 10)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbm.sweep_mxu(*args, strip=512, schedule="scan")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbm.sweep_mxu(*args, strip=512, fused_k=512)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbm.sweep_mxu(*args, strip=512, stats_engine="xla")
+    with pytest.raises(ValueError, match="schedule"):
+        tbm.sweep_mxu(*args, strip=512, schedule="ring")
+    with pytest.raises(ValueError, match="stats_engine"):
+        tbm.sweep_mxu(*args, strip=512, stats_engine="mosaic")
+    with pytest.raises(ValueError, match="pallas"):
+        tbm.sweep_mxu(*args, strip=512, schedule="scan", fused_k=512,
+                      stats_engine="pallas")
+
+
+@pytest.mark.parametrize("word_chunk", [0, 32])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_scan_sweep_matches_jax(small_case, word_chunk, weighted):
+    """The block-pair scan (3 strips of 512 → 6 steps, K2's plain version
+    on the CPU) against the JAX scan with its default epilogue."""
+    words, classes, n, wts = small_case
+    thr = 900 if weighted else 35
+    kw = dict(strip=512, schedule="scan", word_chunk=word_chunk,
+              weights=wts if weighted else None)
+    rs_j, th_j, tiles_j = jbm.sweep_mxu(
+        jnp.asarray(words), jnp.asarray(classes), n, thr, **kw
+    )
+    rs_t, th_t, tiles_t = tbm.sweep_mxu(
+        _t(words), torch.from_numpy(classes), n, thr, **kw
+    )
+    assert 0 < rs_t[:, 2].sum() < rs_t[:, 1].sum()
+    assert np.array_equal(rs_j, rs_t)
+    assert np.array_equal(th_j, th_t)
+    assert np.array_equal(tiles_j[0], tiles_t[0])
+    assert np.array_equal(tiles_j[1], tiles_t[1])
+
+
+@pytest.mark.parametrize("schedule", ["strips", "scan"])
+def test_plain_epilogue_matches_kernel_route(small_case, schedule):
+    """stats_engine='xla' (the plain epilogue, the JAX knob) gives the
+    same statistics as the kernel route on both schedules, and as the
+    JAX package's xla epilogue."""
+    words, classes, n, wts = small_case
+    args = (_t(words), torch.from_numpy(classes), n, 900)
+    kw = dict(strip=512, schedule=schedule, weights=wts)
+    plain = tbm.sweep_mxu(*args, stats_engine="xla", **kw)
+    kernel = tbm.sweep_mxu(*args, stats_engine="pallas", **kw)
+    want = jbm.sweep_mxu(jnp.asarray(words), jnp.asarray(classes), n, 900,
+                         stats_engine="xla", **kw)
+    for got in (plain, kernel):
+        assert np.array_equal(want[0], got[0])
+        assert np.array_equal(want[1], got[1])
+
+
+def test_scan_word_chunk_and_fused_sizing_match_jax():
+    """The scan sizes its contraction chunk with j_rows = strip, and the
+    fused capacity from the budget, as the JAX package does: the 30k
+    corpus (N_pad 32,256, W 28,416, strip 3584) needs no chunk and gets
+    k = 32,768; a tight budget chunks both schedules differently."""
+    assert tbm.resolve_schedule(32256, 512) == ("scan", 3584, 9)
+    assert tbm.fused_capacity(None, 45, 49, 512, 13 << 30) == 32768
+    fused = 45 * 49 * 32768 * 12
+    assert tbm.auto_word_chunk(32256, 28416, 3584, 13 << 30,
+                               j_rows=3584, fused_bytes=fused) == 0
+    # strips at the same size: 9.8 GB left for (3584 + 32256) rows →
+    # ≤ 8571 words, the largest 128·d with d | 222 is 128·37
+    assert tbm.auto_word_chunk(32256, 28416, 3584, 13 << 30) == 4736
+    # scan under a 6 GiB budget: 2.7 GB for 7168 rows → 128·74
+    assert tbm.auto_word_chunk(32256, 28416, 3584, 6 << 30,
+                               j_rows=3584) == 9472
+    assert tbm.fused_capacity(10**6, 45, 49, 512, 13 << 30) == 512 * 512
+    assert tbm.fused_capacity(None, 10**6, 49, 512, 13 << 30) == 0
+    with pytest.raises(ValueError, match="int32"):
+        tbm.fused_capacity(1 << 20, 10**4, 49, 1024, 13 << 30)
+
+
+def test_row_stat_merge_matches_jax():
+    """merge_row_stats_at / accumulate_pair_block against the JAX
+    functions: max on lanes 3 and 7, sums elsewhere, hits add."""
+    rng = np.random.default_rng(4)
+    row_stats = rng.integers(-5, 50, (64, 8)).astype(np.int32)
+    block_hits = rng.integers(0, 9, (8, 8, 2)).astype(np.int32)
+    rs = rng.integers(-5, 50, (16, 8)).astype(np.int32)
+    bh = rng.integers(0, 9, (2, 2, 2)).astype(np.int32)
+    want = jbm.accumulate_pair_block(
+        jnp.asarray(row_stats), jnp.asarray(block_hits), jnp.asarray(rs),
+        jnp.asarray(bh), 16, 40, block=8,
+    )
+    got = tbm.accumulate_pair_block(
+        torch.from_numpy(row_stats.copy()), torch.from_numpy(block_hits.copy()),
+        torch.from_numpy(rs), torch.from_numpy(bh), 16, 40, block=8,
+    )
+    assert np.array_equal(np.asarray(want[0]), got[0].numpy())
+    assert np.array_equal(np.asarray(want[1]), got[1].numpy())
+
+
+def test_subtile_candidates_match_jax():
+    """subtile_rows is the JAX layout; the topk candidates hold the same
+    (i, j, count) survivors per sub-tile (the order within a sub-tile is
+    topk's tie order, so the comparison is per sub-tile as sets)."""
+    rng = np.random.default_rng(8)
+    counts = rng.integers(0, 30, (32, 48)).astype(np.int32)
+    mask = (counts > 25).astype(np.int32)
+    assert np.array_equal(
+        np.asarray(jbm.subtile_rows(jnp.asarray(counts), 16)),
+        tbm.subtile_rows(torch.from_numpy(counts), 16).numpy(),
+    )
+    want = jbm.topk_subtile_candidates(
+        jnp.asarray(mask), jnp.asarray(counts), 64, 96, tile=16, k=40
+    )
+    got = tbm.topk_subtile_candidates(
+        torch.from_numpy(mask), torch.from_numpy(counts), 64, 96, tile=16,
+        k=40,
+    )
+    assert all(g.dtype == torch.int32 and g.shape == (6, 40) for g in got)
+    for sub in range(6):
+        def cands(gi, gj, c):
+            gi, gj, c = (np.asarray(x)[sub] for x in (gi, gj, c))
+            return sorted(zip(gi[c >= 0], gj[c >= 0], c[c >= 0]))
+
+        assert cands(*want) == cands(*(x.numpy() for x in got))
+        assert (np.asarray(got[2][sub]) >= 0).sum() == mask.reshape(
+            2, 16, 3, 16).transpose(0, 2, 1, 3).reshape(6, -1)[sub].sum()

@@ -112,3 +112,97 @@ def test_pipeline_gpu_matches_cpu(cuda, synth_fasta, weighting):
     assert gpu.parity_report()["pairs_over_threshold"] > 0
     assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
     assert np.array_equal(gpu.cluster_labels, cpu.cluster_labels)
+
+
+@pytest.mark.parametrize("i0,j0", [(0, 1024), (512, 512)])
+@pytest.mark.parametrize("signed", [False, True])
+def test_k2_matches_reference(cuda, i0, j0, signed):
+    """Every tile of a [1024, 1024] block, off-diagonal and diagonal."""
+    rng = np.random.default_rng(i0 + j0 + signed)
+    lo, hi, thr, wt = (-50, 400, 100, 5) if signed else (0, 40, 10, 1)
+    counts = torch.from_numpy(
+        rng.integers(lo, hi, (1024, 1024)).astype(np.int32)
+    ).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 4, 2048).astype(np.int32)).to(cuda)
+    ca, cb = cls[i0 : i0 + 1024], cls[j0 : j0 + 1024]
+    kw = dict(n=1900, threshold=thr, w_thresh=wt, tile=512)
+    before = stats.stats_from_counts_traced.launches
+    rs, bh = stats.stats_from_counts_traced(counts, ca, cb, i0, j0, **kw)
+    rs_ref, bh_ref = stats.stats_from_counts_traced_reference(
+        counts, ca, cb, i0, j0, **kw
+    )
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_traced.launches == before + 1
+    assert torch.equal(rs, rs_ref)
+    assert torch.equal(bh, bh_ref)
+    assert int(bh.sum()) > 0
+
+
+@pytest.mark.parametrize("tile", [128, 96])
+def test_k4_matches_reference(cuda, tile):
+    """K4 on every tile pair of 384 rows (n 370, W 70: a ragged last word
+    chunk) against its plain version."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount
+
+    rng = np.random.default_rng(tile)
+    words = rng.integers(0, 2**32, size=(384, 70), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(384, 70), dtype=np.uint32)
+    words[370:] = 0
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 3, 384).astype(np.int32)).to(cuda)
+    before = popcount.popcount_sweep.launches
+    rs, th, _ = popcount.popcount_sweep(w, cls, 370, 150, tile)
+    rs_ref, th_ref, _ = popcount.sweep_reference(w, cls, 370, 150, tile)
+    torch.cuda.synchronize()
+    assert popcount.popcount_sweep.launches == before + 1
+    assert torch.equal(rs, rs_ref)
+    assert torch.equal(th, th_ref)
+    assert int(th[:, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_scan_and_fused_gpu_match_cpu(cuda, weighted):
+    """The scan (3 strips of 512 → 6 steps, K2 once each) with fused
+    extraction, on the GPU and on the CPU."""
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise
+
+    rng = np.random.default_rng(6)
+    words = rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words[1500:] = 0
+    cls = rng.integers(0, 4, size=1536).astype(np.int32)
+    wts = rng.integers(1, 50, size=64 * 32).astype(np.int8) if weighted else None
+    thr = 900 if weighted else 35
+    t = torch.from_numpy(words.view(np.int32))
+    kw = dict(strip=512, schedule="scan", weights=wts, fused_k=4096)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = stats.stats_from_counts_traced.launches
+        rs, th, tiles, cands = bitmul.sweep_mxu(
+            t.to(dev), torch.from_numpy(cls).to(dev), 1500, thr, **kw
+        )
+        launched = stats.stats_from_counts_traced.launches - before
+        pairs = pairwise.extract_pairs_fused(
+            t.to(dev), cls, th, tiles, cands, n=1500, threshold=thr,
+            weights=wts,
+        )
+        out[dev.type] = (rs, th, pairs, launched)
+    assert out["cuda"][3] == 6 and out["cpu"][3] == 0
+    for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert np.array_equal(a, b)
+    assert len(out["cuda"][2]) > 0
+
+
+def test_popcount_pipeline_gpu_matches_cpu(cuda, synth_fasta):
+    """engine=popcount: K4 once per sweep at tile 128."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount
+
+    cfg = PipelineConfig(engine="popcount", tile=128, strip=256)
+    before = popcount.popcount_sweep.launches
+    gpu = run_pipeline(synth_fasta, cfg, device=cuda)
+    assert popcount.popcount_sweep.launches == before + 1
+    cpu = run_pipeline(synth_fasta, cfg, device="cpu")
+    assert gpu.parity_report() == cpu.parity_report()
+    assert gpu.parity_report()["pairs_over_threshold"] > 0
+    assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)

@@ -88,6 +88,31 @@ def test_cli_run_matches_jax_cli(toy_fasta, tmp_path, capsys, extra):
     assert set(ts["timings_s"]) == set(js["timings_s"])
 
 
+@pytest.mark.parametrize("extra", [
+    ["--engine", "popcount"],
+    ["--engine", "xla", "--all-pairs", "--threshold", "0"],
+    ["--engine", "popcount", "--weighting", "blosum62"],
+    ["--engine", "mxu", "--extract", "fused", "--extract-k", "4"],
+], ids=["popcount", "xla-all-pairs-t0", "popcount-weighted", "fused"])
+def test_cli_engines_and_fused_match_jax_cli(toy_fasta, tmp_path, extra):
+    """The flags this port no longer refuses, byte for byte against the
+    JAX CLI (the toy corpus is one strip: fused falls back to two-pass in
+    both packages; the scan's fused path is pinned in
+    test_torch_pairwise.py)."""
+    from uniprot_kmer_based_clustering_tpu.cli import main as jmain
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jmain(["run", toy_fasta, "--cpu", "--out", jout, *extra]) == 0
+    assert tmain(["run", toy_fasta, "--device", "cpu", "--out", tout,
+                  *extra]) == 0
+    js, jp, jc = _cli_outputs(jout)
+    ts, tp, tc = _cli_outputs(tout)
+    assert tp == jp and tc == jc
+    assert ts["parity"] == js["parity"] and ts["clusters"] == js["clusters"]
+    assert ts["parity"]["pairs_over_threshold"] > 0
+
+
 def test_checkpoints_cross_packages(toy_fasta, tmp_path):
     """A checkpoint directory written by one package resumes in the other
     (same cache keys, same artifacts): the resumed run skips the sweep."""

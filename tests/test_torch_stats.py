@@ -142,3 +142,36 @@ def test_reference_pair_block_stats_matches_jax(small_case):
     assert np.array_equal(np.asarray(bh_j), bh_t.numpy())
     assert np.array_equal(np.asarray(oc_j), oc_t.numpy())
     assert np.array_equal(np.asarray(os_j), os_t.numpy())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("block", [(0, 512, 512, 1024), (512, 512, 1024, 1024)],
+                         ids=["off_diagonal", "diagonal"])
+def test_traced_stats_match_pallas(small_case, weighted, block):
+    """K2's plain version against the JAX traced-offset kernel (interpret
+    mode) on every tile of a block; weighted with signed counts and
+    w_thresh 7. On the CPU the wrapper takes the plain version and
+    counts no launch."""
+    classes, n, counts, counts_w = small_case
+    i0, j0, s, j = block
+    blk = np.ascontiguousarray(
+        (counts_w if weighted else counts)[i0 : i0 + s, j0 : j0 + j]
+    )
+    kw = dict(n=n, threshold=100 if weighted else 10,
+              w_thresh=7 if weighted else 1)
+    ca, cb = classes[i0 : i0 + s], classes[j0 : j0 + j]
+    rs_j, bh_j = jstats.stats_from_counts_traced(
+        jnp.asarray(blk), ca, cb, jnp.int32(i0), jnp.int32(j0),
+        interpret=True, **kw
+    )
+    before = tstats.stats_from_counts_traced.launches
+    rs_t, bh_t = tstats.stats_from_counts_traced(
+        torch.from_numpy(blk), torch.from_numpy(ca), torch.from_numpy(cb),
+        i0, j0, **kw
+    )
+    assert tstats.stats_from_counts_traced.launches == before
+    assert rs_t.dtype == torch.int32 and rs_t.shape == (s, 8)
+    assert bh_t.dtype == torch.int32 and bh_t.shape == (s // 512, j // 512, 2)
+    assert int(bh_t.sum()) > 0
+    assert np.array_equal(np.asarray(rs_j), rs_t.numpy())
+    assert np.array_equal(np.asarray(bh_j), bh_t.numpy())

@@ -4,7 +4,8 @@
       [--device {cuda,cpu}] [--k {5,7}] [--threshold N]
       [--weighted-threshold N] [--sampling {all,random10}] [--seed N]
       [--weighting {none,blosum62}] [--cluster {components,none}]
-      [--engine {auto,mxu,native}] [--extract {auto,two_pass}]
+      [--engine {auto,mxu,popcount,xla,native}]
+      [--extract {auto,two_pass,fused}] [--extract-k N]
       [--all-pairs] [--checkpoint-dir DIR] [--out DIR] [--verbose]
 
 writes pairs.tsv, clusters.tsv and stats.json to --out in the same
@@ -32,15 +33,9 @@ def _refuse_unported(args) -> None:
         (args.cluster in ("tree", "agglomerative"),
          f"--cluster {args.cluster}: tree/agglomerative clustering "
          "(ROADMAP queue 1, item 13)"),
-        (args.engine in ("popcount", "xla"),
-         f"--engine {args.engine}: the popcount engines (ROADMAP queue 1, "
-         "item 6)"),
         (args.engine == "stream" or args.stream_source != "host",
          "--engine stream/--stream-source: the out-of-core stream engine "
          "(ROADMAP queue 1, item 9)"),
-        (args.extract == "fused",
-         "--extract fused: the scan-schedule sweep (ROADMAP queue 1, "
-         "item 8)"),
         (args.extract == "onepass",
          "--extract onepass: the stream engine (ROADMAP queue 1, item 9)"),
         (args.index_engine != "host",
@@ -157,10 +152,15 @@ def main(argv=None) -> int:
                    choices=("auto", "mxu", "popcount", "xla", "native",
                             "stream"),
                    help="auto = mxu on CUDA; native (C++ host sweep) on "
-                        "the CPU when built, else mxu")
+                        "the CPU when built, else mxu. popcount and xla "
+                        "both run the popcount sweep (its CUDA kernel on "
+                        "the card)")
     r.add_argument("--extract", default="auto",
-                   choices=("auto", "two_pass", "fused", "onepass"))
-    r.add_argument("--extract-k", type=int, default=0)
+                   choices=("auto", "two_pass", "fused", "onepass"),
+                   help="fused: the mxu scan sweep keeps its survivors "
+                        "(two-pass on the strip schedule)")
+    r.add_argument("--extract-k", type=int, default=0,
+                   help="fused candidate capacity per tile; 0 = auto")
     r.add_argument("--stream-source", default="host", choices=("host", "csr"))
     r.add_argument("--index-engine", default="host",
                    choices=("host", "device"))

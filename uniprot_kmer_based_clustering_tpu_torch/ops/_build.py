@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
 Every ``csrc/*.cu`` source of the package is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into ONE shared library with a plain C interface —
-no PyTorch headers, so a build takes seconds rather than minutes. The
+Hopper (``sm_90a``), one ``nvcc`` process per source, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface — no PyTorch headers, so a build takes seconds. The
 library lands in the package's ``build/`` directory under a name that
 carries a hash of the sources: an edited source builds anew, an
 unchanged one loads the existing file. Pointers and the stream cross the
@@ -28,7 +29,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -40,6 +41,11 @@ _SIGNATURES = {
         _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
         _P, _P, _P,
     ],
+    "ukc_stats_epilogue_traced": [
+        _P, ctypes.c_longlong, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+        _P, _P, _P,
+    ],
+    "ukc_popcount_sweep": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -76,19 +82,44 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libukc_kernels_{h.hexdigest()[:16]}.so")
 
 
-def _build(so: str) -> None:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+def _run(cmd, proc) -> str:
+    out, err = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"{' '.join(cmd)}\n{out}{err}"
         )
-    # ptxas -v register/shared-memory report, kept beside the library
+    return out + err
+
+
+def _build(so: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )))
+    try:
+        # ptxas -v register/shared-memory report, kept beside the library
+        log = "".join(_run(cmd, proc) for cmd, _, proc in jobs)
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                *(obj for _, obj, _ in jobs)]
+        log += _run(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(log)
     os.replace(tmp, so)
 
 

@@ -8,19 +8,29 @@ is not an option: on int8 it wraps on the CPU and is not implemented on
 CUDA.
 
 The packed uint32 words arrive as an int32 tensor (the same bits; see
-``state.bitset_to_torch``). The sweep runs the strip schedule for every
-strip count: stationary strip s meets only its column suffix j ≥ s·strip,
-and each strip's counts block goes through the K1 epilogue
-(``ops.stats.stats_from_counts``: the CUDA kernel on the card, the plain
-version on the CPU). Without contraction chunking the bit matrix is
-unpacked once per sweep and sliced per strip (2.6 GB of int8 for the
-10,619-protein corpus); the JAX package instead re-unpacks inside each
-strip's fused program. The block-pair scan schedule is still to be
-ported (ROADMAP queue 1, item 8).
+``state.bitset_to_torch``). Two schedules, chosen by
+:func:`resolve_schedule` as in the JAX package (``auto``: scan above 8
+strips):
+
+- strips: stationary strip s meets only its column suffix j ≥ s·strip,
+  and each strip's counts block goes through the K1 epilogue
+  (``ops.stats.stats_from_counts``). Without contraction chunking the bit
+  matrix is unpacked once per sweep and sliced per strip.
+- scan: equal [bs, bs] block pairs of the upper triangle, one Python
+  loop step each (the JAX package's ``lax.scan``), with the K2 epilogue
+  (``ops.stats.stats_from_counts_traced``) and the stats accumulated on
+  the device. Each step unpacks its two row windows (the stationary one
+  is reused while the row stays the same). With ``fused_k`` each step
+  also keeps its surviving pairs as per-sub-tile ``torch.topk``
+  candidates (:class:`FusedCandidates`), for
+  ``similarity.pairwise.extract_pairs_fused``.
+
+The kernels run on CUDA tensors; CPU tensors take their plain versions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -30,11 +40,75 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
 )
 from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (  # noqa: F401
+    merge_row_stats_at,
     pair_block_stats,
     stack_row_stats,
     stats_from_counts,
+    stats_from_counts_traced,
     stats_tiles,
 )
+
+
+def subtile_rows(x, bt: int):
+    """[R, C] → [R//bt · C//bt, bt²]: each row is one bt² sub-tile,
+    row-major over the sub-tile grid (a copy)."""
+    qi, qj = x.shape[0] // bt, x.shape[1] // bt
+    return (
+        x.reshape(qi, bt, qj, bt).permute(0, 2, 1, 3).reshape(qi * qj, bt * bt)
+    )
+
+
+def topk_subtile_candidates(mask_i32, counts, i0: int, j0: int, *,
+                            tile: int, k: int):
+    """Per-sub-tile top-k survivor selection over one counts window at
+    global offset (i0, j0).
+
+    ``torch.topk`` of each ``tile``² sub-tile's 0/1 survivor mask picks
+    up to ``k`` survivors; ``k`` must be ≥ the sub-tile's hit count for
+    its list to be complete (callers check against the exact tile hits).
+    Returns (gi, gj, cnt) int32 [qi·qj, k]: global row, global column and
+    count; unused slots carry cnt −1. The order within a sub-tile is
+    unspecified (topk's tie order); callers sort the final pair list.
+    """
+    qj = mask_i32.shape[1] // tile
+    vals, sel = torch.topk(subtile_rows(mask_i32, tile), k, dim=1,
+                           sorted=False)
+    cnt = torch.where(
+        vals > 0, torch.gather(subtile_rows(counts, tile), 1, sel),
+        torch.full_like(vals, -1),
+    )
+    sub = torch.arange(sel.shape[0], device=sel.device)[:, None]
+    si, sj = sub // qj, sub % qj
+    row, col = sel // tile, sel % tile
+    return (
+        (i0 + si * tile + row).to(torch.int32),
+        (j0 + sj * tile + col).to(torch.int32),
+        cnt.to(torch.int32),
+    )
+
+
+@dataclasses.dataclass
+class FusedCandidates:
+    """Per-sub-tile top-k survivor candidates of the fused scan sweep,
+    still on the device.
+
+    ``bi``/``bj``/``bc`` are int32 [n_steps, nsub, k]: global row, global
+    column and score of each candidate; unused slots carry score −1.
+    Sub-tile s of step p covers block tile (pairs_ij[p, 0]//block +
+    s//nbs, pairs_ij[p, 1]//block + s%nbs) with nbs = bs//block, the
+    :func:`subtile_rows` layout. A sub-tile whose exact hit count (from
+    the sweep's tile_hits) exceeds ``k`` is incomplete here and is redone
+    by the two-pass extractor.
+    """
+
+    bi: torch.Tensor
+    bj: torch.Tensor
+    bc: torch.Tensor
+    pairs_ij: np.ndarray  # int32 [n_steps, 2], the schedule
+    bs: int
+    block: int
+    k: int
+    include_same: bool
 
 
 def unpack_words_to_int8(words, weights=None):
@@ -92,6 +166,35 @@ def counts_window(words, weights, ia: int, ja: int, *, s: int, jr: int,
     return counts
 
 
+def accumulate_pair_block(row_stats, block_hits, rs, bh, i0: int, j0: int,
+                          *, block: int):
+    """Merge one block pair's (rs, bh) into the full accumulators at
+    (i0, j0), in place (:func:`merge_row_stats_at` for the stats; hits
+    add). Returns (row_stats, block_hits)."""
+    merge_row_stats_at(row_stats, rs, i0)
+    bi, bj = i0 // block, j0 // block
+    block_hits[bi : bi + bh.shape[0], bj : bj + bh.shape[1]] += bh
+    return row_stats, block_hits
+
+
+def survivor_mask(counts, ca, cb, i0: int, j0: int, *, n: int,
+                  threshold: int, include_same: bool):
+    """The survivor mask of one counts block at global offset (i0, j0):
+    valid (gi < gj < n) pairs over threshold, cross-class only unless
+    ``include_same``. It equals the plain epilogue's ``over_c`` (or
+    ``over_c | over_s``): the fused scan computes it from the counts under
+    either epilogue, and two-pass extraction masks its recomputed tiles
+    with it."""
+    dev = counts.device
+    gi = i0 + torch.arange(counts.shape[0], dtype=torch.int64, device=dev)
+    gj = j0 + torch.arange(counts.shape[1], dtype=torch.int64, device=dev)
+    mask = (gi[:, None] < gj[None, :]) & (gj[None, :] < n)
+    mask &= counts > threshold
+    if not include_same:
+        mask &= ca[:, None] != cb[None, :]
+    return mask
+
+
 def auto_strip(n_pad: int, block: int, budget_bytes: int = 2 << 30) -> int:
     """Pick the stationary strip size — the same decisions as the JAX
     package's ``auto_strip``: one full square up to 3584 rows; between
@@ -117,9 +220,9 @@ def auto_strip(n_pad: int, block: int, budget_bytes: int = 2 << 30) -> int:
 
 def resolve_schedule(n_pad: int, block: int, strip: Optional[int] = None,
                      schedule: str = "auto"):
-    """The JAX package's strip/scan decision, returned unchanged:
-    (schedule, strip, ns). The port's sweep runs strips whatever this
-    says for ``auto`` (the scan exists to bound TPU compiles)."""
+    """The strip/scan decision :func:`sweep_mxu` makes, the JAX
+    package's rule: ``auto`` takes the scan above 8 strips. Returns
+    (schedule, strip, ns)."""
     if strip is None:
         strip = auto_strip(n_pad, block)
     ns = n_pad // strip
@@ -129,22 +232,158 @@ def resolve_schedule(n_pad: int, block: int, strip: Optional[int] = None,
 
 
 def auto_word_chunk(n_pad: int, w_words: int, strip: int,
-                    hbm_budget_bytes: int) -> int:
-    """Contraction chunk for the strip schedule, sized as the JAX package
-    sizes it: 0 (no chunking) when both unpacked operands fit what the
-    budget leaves after the packed words and one counts block, else the
-    largest 128-multiple divisor of ``w_words`` that fits."""
-    resident = n_pad * w_words * 4 + strip * n_pad * 4
+                    hbm_budget_bytes: int, j_rows: Optional[int] = None,
+                    fused_bytes: int = 0) -> int:
+    """Contraction chunk, sized as the JAX package sizes it: 0 (no
+    chunking) when both unpacked operands fit what the budget leaves after
+    the packed words, one counts block and the fused candidate buffers,
+    else the largest 128-multiple divisor of ``w_words`` that fits.
+    ``j_rows`` is the counts block's width: ``n_pad`` for the strip
+    schedule (the default), ``strip`` for the scan."""
+    j_rows = n_pad if j_rows is None else j_rows
+    resident = n_pad * w_words * 4 + strip * j_rows * 4 + fused_bytes
     budget = max(512 << 20, hbm_budget_bytes - resident)
-    if (strip + n_pad) * w_words * 32 <= budget:
+    if (strip + j_rows) * w_words * 32 <= budget:
         return 0
-    target = max(128, budget // ((strip + n_pad) * 32))
+    target = max(128, budget // ((strip + j_rows) * 32))
     base = w_words // 128
     best = 1
     for d in range(1, base + 1):
         if base % d == 0 and d * 128 <= target:
             best = d
     return best * 128
+
+
+def fused_capacity(fused_k: Optional[int], n_steps: int, nsub: int,
+                   block: int, hbm_budget_bytes: int) -> int:
+    """Per-sub-tile candidate capacity of fused extraction, the JAX
+    package's rule. ``None``: the largest power of two from 512 up to
+    block² whose int32 (i, j, count) buffers fit min(1.5 GiB, budget/8);
+    0 when even 512 does not fit (two-pass instead). An explicit capacity
+    is clamped to block²."""
+    if fused_k is None:
+        ys_budget = min(1536 << 20, hbm_budget_bytes // 8)
+        kb = ys_budget // max(n_steps * nsub * 12, 1)
+        fused_k = 0
+        if kb >= min(512, block * block):
+            fused_k = min(512, block * block)
+            while fused_k * 2 <= kb and fused_k * 2 <= block * block:
+                fused_k *= 2
+    else:
+        fused_k = min(fused_k, block * block)
+    if n_steps * nsub * fused_k >= 1 << 31:
+        raise ValueError(
+            f"fused_k={fused_k} overflows the int32 candidate space "
+            f"({n_steps} steps × {nsub} sub-tiles)"
+        )
+    return fused_k
+
+
+def _scan_sweep(words, classes, weights, pairs_ij, *, bs: int, n: int,
+                threshold: int, block: int, w_thresh: int, word_chunk: int,
+                stats_engine: str, fused_k: int, fused_same: bool):
+    """Upper-triangle block-pair sweep: one step per [bs, bs] block pair
+    (i0, j0) of ``pairs_ij``, its epilogue, and the accumulation into
+    device ``row_stats`` int32 [N_pad, 8] and ``block_hits`` int32
+    [nb, nb, 2]; no host sync. ``stats_engine`` "pallas" runs K2,
+    "xla" the plain epilogue. Returns (row_stats, block_hits, ys) with
+    ys None or the (gi, gj, cnt) candidate buffers [P, nsub, fused_k]."""
+    n_pad = words.shape[0]
+    nb = n_pad // block
+    dev = words.device
+    row_stats = torch.zeros((n_pad, 8), dtype=torch.int32, device=dev)
+    block_hits = torch.zeros((nb, nb, 2), dtype=torch.int32, device=dev)
+    ys = None
+    if fused_k:
+        shape = (len(pairs_ij), (bs // block) ** 2, fused_k)
+        ys = tuple(torch.empty(shape, dtype=torch.int32, device=dev)
+                   for _ in range(3))
+    a = a_row = None
+    for p, (i0, j0) in enumerate(pairs_ij.tolist()):
+        if word_chunk:
+            counts = counts_window(words, weights, i0, j0, s=bs, jr=bs,
+                                   word_chunk=word_chunk)
+        else:
+            # the step list is row-major: the stationary window is
+            # unpacked once per block row
+            if a_row != i0:
+                a = None
+                a = unpack_words_to_int8(words[i0 : i0 + bs])
+                a_row = i0
+            if i0 == j0 and weights is None:
+                counts = int8_gemm(a, a)
+            else:
+                counts = int8_gemm(a, unpack_words_to_int8(
+                    words[j0 : j0 + bs], weights))
+        ca, cb = classes[i0 : i0 + bs], classes[j0 : j0 + bs]
+        if stats_engine == "pallas":
+            rs, bh = stats_from_counts_traced(
+                counts, ca, cb, i0, j0, n=n, threshold=threshold,
+                w_thresh=w_thresh, tile=block,
+            )
+        else:
+            rs, bh, _, _ = pair_block_stats(
+                counts, ca, cb, i0, j0, n=n, threshold=threshold,
+                block=block, w_thresh=w_thresh,
+            )
+        if fused_k:
+            em = survivor_mask(counts, ca, cb, i0, j0, n=n,
+                               threshold=threshold, include_same=fused_same)
+            cand = topk_subtile_candidates(
+                em.to(torch.int32), counts, i0, j0, tile=block, k=fused_k,
+            )
+            for buf, part in zip(ys, cand):
+                buf[p] = part
+        accumulate_pair_block(row_stats, block_hits, rs, bh, i0, j0,
+                              block=block)
+        del counts
+    return row_stats, block_hits, ys
+
+
+def _strip_sweep(words, classes, weights, *, strip: int, n: int,
+                 threshold: int, block: int, w_thresh: int, word_chunk: int,
+                 stats_engine: str):
+    """The strip schedule: row_stats int32 [N_pad, 8] and block_hits
+    int32 [nb, nb, 2] on the device. ``stats_engine`` "pallas" runs K1,
+    "xla" the plain epilogue over each strip's whole suffix block."""
+    n_pad = words.shape[0]
+    nb = n_pad // block
+    dev = words.device
+    bits = bits_w = None
+    if not word_chunk:
+        bits = unpack_words_to_int8(words)
+        bits_w = bits if weights is None else unpack_words_to_int8(
+            words, weights
+        )
+    row_stats = torch.empty((n_pad, 8), dtype=torch.int32, device=dev)
+    block_hits = torch.zeros((nb, nb, 2), dtype=torch.int32, device=dev)
+    for i0 in range(0, n_pad, strip):
+        if word_chunk:
+            counts = counts_window(
+                words, weights, i0, i0, s=strip, jr=n_pad - i0,
+                word_chunk=word_chunk,
+            )
+        else:
+            counts = int8_gemm(bits[i0 : i0 + strip], bits_w[i0:])
+        ca, cb = classes[i0 : i0 + strip], classes[i0:]
+        gb = i0 // block
+        if stats_engine == "pallas":
+            rs, th, (lti, ltj, _) = stats_from_counts(
+                counts, ca, cb, i_off=i0, j_off=i0, n=n,
+                threshold=threshold, w_thresh=w_thresh, tile=block,
+            )
+            sel_i = torch.from_numpy(gb + lti.astype(np.int64)).to(dev)
+            sel_j = torch.from_numpy(gb + ltj.astype(np.int64)).to(dev)
+            block_hits[sel_i, sel_j] = th
+        else:
+            rs, bh, _, _ = pair_block_stats(
+                counts, ca, cb, i0, i0, n=n, threshold=threshold,
+                block=block, w_thresh=w_thresh,
+            )
+            block_hits[gb : gb + strip // block, gb:] = bh
+        row_stats[i0 : i0 + strip] = rs
+        del counts
+    return row_stats, block_hits
 
 
 def sweep_mxu(
@@ -163,48 +402,68 @@ def sweep_mxu(
     fused_k: Optional[int] = 0,
     fused_same: bool = False,
 ):
-    """Full upper-triangle sweep as strip-blocked int8 GEMMs + K1.
+    """Full upper-triangle sweep as int8 GEMMs + a statistics epilogue.
 
     ``words`` int32 [N_pad, W] and ``classes`` int32 [N_pad] live on the
     device the sweep runs on; ``weights`` (int8 [W*32], tensor or numpy)
     enables the BLOSUM-weighted score. ``w_thresh`` is the count that
     counts as "present" for the pairs lanes. The HBM budget keeps the JAX
-    package's default, sized for a 16 GB TPU v5e. ``stats_engine``,
-    ``schedule``, ``fused_k`` and ``fused_same`` keep the JAX signature;
-    only the strip schedule with the K1 epilogue exists so far, and
-    ``fused_same`` has no effect without ``fused_k``.
+    package's default, sized for a 16 GB TPU v5e, so both packages pick
+    the same word chunk and fused capacity.
+
+    ``schedule`` "auto" follows :func:`resolve_schedule`. ``stats_engine``
+    "auto" and "pallas" run the kernels (K1 on strips, K2 on the scan;
+    their plain versions on CPU tensors); "xla" runs the plain epilogue.
+    ``fused_k`` requests fused extraction: 0 off, None auto-sized from the
+    budget, > 0 an explicit capacity. It needs the scan; explicit
+    "pallas" with it raises, as in the JAX package. ``fused_same`` keeps
+    same-class survivors too.
 
     Returns (row_stats int64 [N_pad, 8], tile_hits int32 [nT, 2], tiles
     (ti, tj, block)) as numpy arrays, in the upper-triangle tile
-    enumeration every engine shares, after one device→host copy.
+    enumeration every engine shares, after one device→host copy. When
+    ``fused_k`` is non-0 a 4th element follows: a :class:`FusedCandidates`
+    on the device, or None when the schedule resolved to strips or the
+    budget holds no candidate buffers (two-pass extraction then).
     """
-    if fused_k != 0:
-        raise NotImplementedError(
-            "fused extraction runs on the scan schedule, not yet ported "
-            "(ROADMAP queue 1, item 8)"
-        )
-    if schedule == "scan":
-        raise NotImplementedError(
-            "the block-pair scan schedule is not yet ported (ROADMAP "
-            "queue 1, item 8); the strip schedule runs for every size"
-        )
-    if schedule not in ("auto", "strips"):
+    if schedule not in ("auto", "strips", "scan"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if stats_engine not in ("auto", "pallas"):
-        raise NotImplementedError(
-            "the port's strips always run the K1 epilogue; the fused "
-            "XLA epilogue belongs to the scan schedule (ROADMAP queue 1, "
-            "item 8)"
-        )
+    if stats_engine not in ("auto", "pallas", "xla"):
+        raise ValueError(f"unknown stats_engine {stats_engine!r}")
     n_pad, w_words = words.shape
-    _, strip, ns = resolve_schedule(n_pad, block, strip, "strips")
+    fused_requested = fused_k != 0
+    schedule, strip, ns = resolve_schedule(n_pad, block, strip, schedule)
     if n_pad % strip or strip % block:
         raise ValueError(
             f"strip {strip} must divide N_pad {n_pad} and be a multiple "
             f"of block {block}"
         )
+    fused_bytes = 0
+    pairs_ij = None
+    if schedule == "scan":
+        ii, jj = np.triu_indices(ns)
+        pairs_ij = (np.stack([ii, jj], axis=1) * strip).astype(np.int32)
+    if schedule == "scan" and fused_requested:
+        fused_k = fused_capacity(fused_k, len(pairs_ij),
+                                 (strip // block) ** 2, block,
+                                 hbm_budget_bytes)
+        fused_bytes = len(pairs_ij) * (strip // block) ** 2 * fused_k * 12
+    else:
+        fused_k = 0
+    if fused_k and stats_engine == "pallas":
+        raise ValueError(
+            "fused extraction requires stats_engine='xla' (or 'auto'); "
+            "it cannot be combined with the pallas epilogue"
+        )
+    engine = "pallas" if stats_engine == "auto" else stats_engine
     if word_chunk is None:
-        word_chunk = auto_word_chunk(n_pad, w_words, strip, hbm_budget_bytes)
+        word_chunk = auto_word_chunk(
+            n_pad, w_words, strip, hbm_budget_bytes,
+            j_rows=strip if schedule == "scan" else n_pad,
+            fused_bytes=fused_bytes,
+        )
+    if word_chunk >= w_words:
+        word_chunk = 0
     dev = words.device
     classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
     if weights is not None:
@@ -212,41 +471,29 @@ def sweep_mxu(
         if weights.shape != (w_words * 32,):
             raise ValueError("weights must be int8 [W*32]")
 
-    bits = bits_w = None
-    if not word_chunk:
-        bits = unpack_words_to_int8(words)
-        bits_w = bits if weights is None else unpack_words_to_int8(
-            words, weights
+    common = dict(n=n, threshold=threshold, block=block, w_thresh=w_thresh,
+                  word_chunk=word_chunk, stats_engine=engine)
+    cands = None
+    if schedule == "scan":
+        row_stats, block_hits, ys = _scan_sweep(
+            words, classes, weights, pairs_ij, bs=strip, fused_k=fused_k,
+            fused_same=fused_same, **common,
         )
-    strip_stats = []
-    for si in range(ns):
-        i0 = si * strip
-        if word_chunk:
-            counts = counts_window(
-                words, weights, i0, i0, s=strip, jr=n_pad - i0,
-                word_chunk=word_chunk,
+        if fused_k:
+            cands = FusedCandidates(
+                bi=ys[0], bj=ys[1], bc=ys[2], pairs_ij=pairs_ij, bs=strip,
+                block=block, k=fused_k, include_same=fused_same,
             )
-        else:
-            counts = int8_gemm(bits[i0 : i0 + strip], bits_w[i0:])
-        rs, th, _ = stats_from_counts(
-            counts, classes[i0 : i0 + strip], classes[i0:],
-            i_off=i0, j_off=i0, n=n, threshold=threshold,
-            w_thresh=w_thresh, tile=block,
+    else:
+        row_stats, block_hits = _strip_sweep(
+            words, classes, weights, strip=strip, **common,
         )
-        strip_stats.append((rs, th))
-        del counts
-    del bits, bits_w
-
-    row_stats = torch.cat([rs for rs, _ in strip_stats]).cpu().numpy()
-    hits = torch.cat([th for _, th in strip_stats]).cpu().numpy()
-    nb = n_pad // block
-    block_hits = np.zeros((nb, nb, 2), dtype=np.int32)
-    off = 0
-    for si in range(ns):
-        i0 = si * strip
-        lti, ltj = stats_tiles(strip, n_pad - i0, i0, i0, block)
-        gb = i0 // block
-        block_hits[gb + lti, gb + ltj] += hits[off : off + len(lti)]
-        off += len(lti)
     ti, tj = upper_triangle_tiles(n_pad, block)
-    return row_stats.astype(np.int64), block_hits[ti, tj], (ti, tj, block)
+    sel_i = torch.from_numpy(ti.astype(np.int64)).to(dev)
+    sel_j = torch.from_numpy(tj.astype(np.int64)).to(dev)
+    out = (
+        row_stats.cpu().numpy().astype(np.int64),
+        block_hits[sel_i, sel_j].cpu().numpy(),
+        (ti, tj, block),
+    )
+    return out + (cands,) if fused_requested else out

@@ -1,4 +1,4 @@
-"""Statistics epilogue over a materialized counts block (K1).
+"""Statistics epilogues over a materialized counts block (K1, K2).
 
 Counterpart of ``uniprot_kmer_based_clustering_tpu/ops/stats_pallas.py``.
 :func:`stats_from_counts` walks the tiles of an int32 counts block that
@@ -13,9 +13,16 @@ hand-written kernel ``csrc/stats_epilogue.cu``; on a CPU tensor it runs
 There is no other route: a CUDA tensor never reaches the plain version
 through the wrapper.
 
-The plain epilogue primitives :func:`stack_row_stats` and
-:func:`pair_block_stats` (``ops/bitmul.py`` in the JAX package) live here
-because the reference is built from them; ``ops.bitmul`` re-exports them.
+:func:`stats_from_counts_traced` (K2) is the block-pair scan's epilogue:
+the same statistics over every tile of the block, returned as
+``block_hits [S/tile, J/tile, 2]``. Its CUDA kernel is K1's on the full
+tile grid (``ukc_stats_epilogue_traced`` in the same source); its plain
+version is :func:`stats_from_counts_traced_reference`.
+
+The plain epilogue primitives :func:`stack_row_stats`,
+:func:`pair_block_stats` and :func:`merge_row_stats_at` (``ops/bitmul.py``
+in the JAX package) live here because the references are built from
+them; ``ops.bitmul`` re-exports them.
 """
 
 from __future__ import annotations
@@ -89,6 +96,17 @@ def stack_row_stats(counts, cross, same, threshold: int, w_thresh: int = 1):
     return row_stats, over_c, over_s
 
 
+def merge_row_stats_at(row_stats, rs, i0: int):
+    """Merge one block's row stats into ``row_stats`` at row ``i0``, in
+    place: lanes %4==3 by max, the rest by sum (the ROW_STAT_NAMES
+    contract), shared by the scan and the plain popcount sweep. Returns
+    ``row_stats``."""
+    prev = row_stats[i0 : i0 + rs.shape[0]]
+    max_lane = torch.arange(8, device=rs.device) % 4 == 3
+    prev.copy_(torch.where(max_lane, torch.maximum(prev, rs), prev + rs))
+    return row_stats
+
+
 def pair_block_stats(counts, ca, cb, i0: int, j0: int, *, n: int,
                      threshold: int, block: int, w_thresh: int):
     """Plain statistics epilogue for one [S, J] counts block at global
@@ -143,6 +161,24 @@ def stats_from_counts_reference(counts, classes_row, classes_col, *,
     return rs, bh[sel_i, sel_j], (ti, tj, tile)
 
 
+def _cuda_inputs(counts, classes_row, classes_col, tile: int):
+    """Check what the CUDA epilogue takes; the class vectors as
+    contiguous int32 on the counts' device."""
+    if counts.dtype != torch.int32 or not counts.is_contiguous():
+        raise ValueError("counts must be a contiguous int32 tensor")
+    if tile % 32 or tile > 12288:
+        raise ValueError(
+            f"the CUDA epilogue takes tiles that are multiples of 32 up "
+            f"to 12288, got {tile}"
+        )
+    dev = counts.device
+    crow = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
+    ccol = torch.as_tensor(classes_col, dtype=torch.int32, device=dev)
+    if crow.shape != counts.shape[:1] or ccol.shape != counts.shape[1:]:
+        raise ValueError("class vectors must match the counts block")
+    return crow.contiguous(), ccol.contiguous()
+
+
 def stats_from_counts(counts, classes_row, classes_col, *, i_off: int,
                       j_off: int, n: int, threshold: int, w_thresh: int = 1,
                       tile: int = 512):
@@ -166,19 +202,8 @@ def stats_from_counts(counts, classes_row, classes_col, *, i_off: int,
         raise ValueError(f"unsupported device {counts.device}")
     s, j = counts.shape
     ti, tj = _kept_tiles(s, j, i_off, j_off, tile)
-    if counts.dtype != torch.int32 or not counts.is_contiguous():
-        raise ValueError("counts must be a contiguous int32 tensor")
-    if tile % 32 or tile > 12288:
-        raise ValueError(
-            f"the CUDA epilogue takes tiles that are multiples of 32 up "
-            f"to 12288, got {tile}"
-        )
+    crow, ccol = _cuda_inputs(counts, classes_row, classes_col, tile)
     dev = counts.device
-    crow = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
-    ccol = torch.as_tensor(classes_col, dtype=torch.int32, device=dev)
-    crow, ccol = crow.contiguous(), ccol.contiguous()
-    if crow.shape != (s,) or ccol.shape != (j,):
-        raise ValueError("class vectors must match the counts block")
     tiles = torch.from_numpy(np.stack([ti, tj], axis=1)).to(dev)
     row_stats = torch.zeros((s, 8), dtype=torch.int32, device=dev)
     tile_hits = torch.zeros((len(ti), 2), dtype=torch.int32, device=dev)
@@ -196,3 +221,74 @@ def stats_from_counts(counts, classes_row, classes_col, *, i_off: int,
 
 
 stats_from_counts.launches = 0
+
+
+def stats_from_counts_traced_reference(counts, classes_row, classes_col,
+                                       i_off: int, j_off: int, *, n: int,
+                                       threshold: int, w_thresh: int = 1,
+                                       tile: int = 512):
+    """Plain-torch K2: :func:`pair_block_stats` over the whole block with
+    the max lanes clamped at 0, as the Pallas walk clamps them (its first
+    tile of each row starts from 0). Returns (row_stats int32 [S, 8],
+    block_hits int32 [S/tile, J/tile, 2])."""
+    s, j = counts.shape
+    if s % tile or j % tile:
+        raise ValueError(
+            f"counts block [{s}, {j}] is not a multiple of tile {tile}"
+        )
+    dev = counts.device
+    ca = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
+    cb = torch.as_tensor(classes_col, dtype=torch.int32, device=dev)
+    rs, bh, _, _ = pair_block_stats(
+        counts, ca, cb, i_off, j_off,
+        n=n, threshold=threshold, block=tile, w_thresh=w_thresh,
+    )
+    rs[:, 3].clamp_(min=0)
+    rs[:, 7].clamp_(min=0)
+    return rs, bh
+
+
+def stats_from_counts_traced(counts, classes_row, classes_col, i_off: int,
+                             j_off: int, *, n: int, threshold: int,
+                             w_thresh: int = 1, tile: int = 512):
+    """Statistics over EVERY tile of a counts block at global offset
+    (i_off, j_off) — the block-pair scan's epilogue (K2).
+
+    The JAX package traces the offsets inside one compiled ``lax.scan``;
+    here they are plain arguments of each launch. Tiles wholly below the
+    pair diagonal are visited and mask to zero. Returns (row_stats int32
+    [S, 8], block_hits int32 [S/tile, J/tile, 2]). CPU tensors take
+    :func:`stats_from_counts_traced_reference`; CUDA tensors launch the
+    kernel, counted in ``stats_from_counts_traced.launches``.
+    """
+    if counts.device.type == "cpu":
+        return stats_from_counts_traced_reference(
+            counts, classes_row, classes_col, i_off, j_off, n=n,
+            threshold=threshold, w_thresh=w_thresh, tile=tile,
+        )
+    if counts.device.type != "cuda":
+        raise ValueError(f"unsupported device {counts.device}")
+    s, j = counts.shape
+    if s % tile or j % tile:
+        raise ValueError(
+            f"counts block [{s}, {j}] is not a multiple of tile {tile}"
+        )
+    crow, ccol = _cuda_inputs(counts, classes_row, classes_col, tile)
+    dev = counts.device
+    row_stats = torch.zeros((s, 8), dtype=torch.int32, device=dev)
+    block_hits = torch.zeros((s // tile, j // tile, 2), dtype=torch.int32,
+                             device=dev)
+    lib = _build.load_kernels()
+    with torch.cuda.device(dev):
+        err = lib.ukc_stats_epilogue_traced(
+            counts.data_ptr(), j, s, crow.data_ptr(), ccol.data_ptr(), tile,
+            int(i_off), int(j_off), n, threshold, w_thresh,
+            row_stats.data_ptr(), block_hits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(err, "ukc_stats_epilogue_traced")
+    stats_from_counts_traced.launches += 1
+    return row_stats, block_hits
+
+
+stats_from_counts_traced.launches = 0

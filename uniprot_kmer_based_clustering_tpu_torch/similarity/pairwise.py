@@ -1,14 +1,23 @@
 """Single-device pairwise similarity: sweep statistics + exact pair list.
 
 Counterpart of the JAX package's ``similarity/pairwise.py`` for the
-engines the port has so far (``auto``, ``mxu``, ``native``). Two-pass
-extraction: pass 1 is the sweep, which reports exact per-tile hit
-counts; pass 2 recomputes only the hit tiles (a run of adjacent hit
-tiles in one tile row as one product), compacts the survivors with
-``torch.nonzero``, sorts them on the device by ``i·N_pad + j`` and
-copies the pair list to the host once. The TPU compaction workarounds
-(superblock coalescing, top_k selection) are not carried over: they
-exist because scatter serializes on a TPU (ROADMAP queue 1, item 3).
+engines ``auto``, ``mxu``, ``popcount``, ``xla`` and ``native``.
+
+- Two-pass extraction (:func:`extract_pairs`): pass 1 is the sweep,
+  which reports exact per-tile hit counts; pass 2 recomputes only the hit
+  tiles (a run of adjacent hit tiles in one tile row as one product),
+  compacts the survivors with ``torch.nonzero``, sorts them on the device
+  by ``i·N_pad + j`` and copies the pair list to the host once.
+- Fused extraction (:func:`extract_pairs_fused`, ``extract="fused"`` on
+  the scan schedule): the sweep kept each sub-tile's survivors; they are
+  compacted and sorted the same way, and the sub-tiles whose exact hit
+  count exceeded the capacity are redone by two-pass.
+
+The TPU compaction workarounds (superblock coalescing, top_k selection
+in pass 2, the bucketed fixed-capacity buffers of ``_vcap_bucket``) are
+not carried over: they exist because scatter serializes on a TPU and
+XLA needs static shapes, while ``nonzero``/boolean indexing size their
+own output here (ROADMAP queue 1, item 3).
 """
 
 from __future__ import annotations
@@ -23,10 +32,13 @@ from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu.kmers.bitset import BitsetMatrix
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
+    FusedCandidates,
     int8_gemm,
+    survivor_mask,
     sweep_mxu,
     unpack_words_to_int8,
 )
+from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import sweep
 from uniprot_kmer_based_clustering_tpu_torch.state import (
     bitset_to_torch,
     classes_to_torch,
@@ -112,6 +124,31 @@ def _tile_runs(ti: np.ndarray, tj: np.ndarray):
     return zip(ti[starts], tj[starts], lengths)
 
 
+# bytes of one unpacked int8 operand window of the two-pass extraction
+_UNPACK_WINDOW_BYTES = 4 << 30
+
+
+def _window_rows(n_pad: int, tile: int, k_bits: int) -> int:
+    """Rows of the operand windows pass 2 unpacks: the whole matrix when
+    it fits one window, else the largest tile-multiple divisor of N_pad
+    that does."""
+    if n_pad * k_bits <= _UNPACK_WINDOW_BYTES:
+        return n_pad
+    best = tile
+    for rows in range(tile, n_pad + 1, tile):
+        if n_pad % rows == 0 and rows * k_bits <= _UNPACK_WINDOW_BYTES:
+            best = rows
+    return best
+
+
+def _sorted_pairs(gi, gj, cnt, n_pad: int):
+    """Device sort of (i, j, count) by i·N_pad + j → int32 [M, 3]."""
+    key, order = torch.sort(gi.to(torch.int64) * n_pad + gj)
+    return torch.stack(
+        [key // n_pad, key % n_pad, cnt[order].to(torch.int64)], dim=1
+    ).to(torch.int32)
+
+
 def extract_pairs(
     words,
     classes,
@@ -128,8 +165,11 @@ def extract_pairs(
     with −1 or length n) on the sweep's device; ``tiles`` is the
     (ti, tj, tile) enumeration the sweep returned with ``tile_hits``.
     With ``weights`` (int8 [W*32]) the recovered values are the weighted
-    scores. Returns int32 [M, 3] (i, j, count) sorted by (i, j); raises
-    when the compacted count disagrees with the sweep's promise.
+    scores. The bit matrix is unpacked in row windows of at most
+    ``_UNPACK_WINDOW_BYTES`` (the whole matrix when it fits: 2.6 GB for
+    the 10,619-protein corpus). Returns int32 [M, 3] (i, j, count)
+    sorted by (i, j); raises when the compacted count disagrees with the
+    sweep's promise.
     """
     ti, tj, tile = tiles
     tile_hits = np.asarray(tile_hits)
@@ -154,38 +194,149 @@ def extract_pairs(
         ])
     if weights is not None:
         weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
-    # the stationary operand carries the weights, as in the JAX package
-    bits_a = unpack_words_to_int8(words, weights)
-    bits_b = bits_a if weights is None else unpack_words_to_int8(words)
+    window = _window_rows(n_pad, tile, words.shape[1] * 32)
+    nwin = n_pad // window
+    hti = ti[hit_tiles].astype(np.int64)
+    htj = tj[hit_tiles].astype(np.int64)
+    group = (hti * tile // window) * nwin + htj * tile // window
 
-    # a run of adjacent hit tiles in one tile row is one wider product:
-    # the same multiply-adds, far fewer and larger GEMMs when hits are dense
     keys, vals = [], []
-    for r_ti, r_tj, r_len in _tile_runs(ti[hit_tiles], tj[hit_tiles]):
-        i0, j0, width = int(r_ti) * tile, int(r_tj) * tile, int(r_len) * tile
-        counts = int8_gemm(bits_a[i0 : i0 + tile], bits_b[j0 : j0 + width])
-        gi = torch.arange(i0, i0 + tile, device=dev)[:, None]
-        gj = torch.arange(j0, j0 + width, device=dev)[None, :]
-        mask = (counts > threshold) & (gi < gj) & (gj < n)
-        if cross_amr_only:
-            ca, cb = classes[i0 : i0 + tile], classes[j0 : j0 + width]
-            mask &= ca[:, None] != cb[None, :]
-        r, c = torch.nonzero(mask, as_tuple=True)
-        keys.append((i0 + r) * n_pad + (j0 + c))
-        vals.append(counts[r, c])
-    del bits_a, bits_b
-    key = torch.cat(keys)
-    val = torch.cat(vals)
-    if key.numel() != total:
+    a = b = None
+    a_win = b_win = None
+    for g in np.unique(group):  # window-row major
+        w_i, w_j = divmod(int(g), nwin)
+        if a_win != w_i:
+            # the stationary operand carries the weights, as in the JAX
+            # package
+            a = None
+            a = unpack_words_to_int8(
+                words[w_i * window : (w_i + 1) * window], weights
+            )
+            a_win = w_i
+        if weights is None and w_j == w_i:
+            b, b_win = a, None
+        elif b_win != w_j:
+            b = None
+            b = unpack_words_to_int8(words[w_j * window : (w_j + 1) * window])
+            b_win = w_j
+        m = group == g
+        # a run of adjacent hit tiles in one tile row is one wider
+        # product: the same multiply-adds, far fewer and larger GEMMs
+        # when hits are dense
+        for r_ti, r_tj, r_len in _tile_runs(hti[m], htj[m]):
+            i0, j0 = int(r_ti) * tile, int(r_tj) * tile
+            width = int(r_len) * tile
+            ai, bj = i0 - w_i * window, j0 - w_j * window
+            counts = int8_gemm(a[ai : ai + tile], b[bj : bj + width])
+            mask = survivor_mask(
+                counts, classes[i0 : i0 + tile], classes[j0 : j0 + width],
+                i0, j0, n=n, threshold=threshold,
+                include_same=not cross_amr_only,
+            )
+            r, c = torch.nonzero(mask, as_tuple=True)
+            keys.append((i0 + r, j0 + c))
+            vals.append(counts[r, c])
+    del a, b
+    gi = torch.cat([k[0] for k in keys])
+    if gi.numel() != total:
         raise AssertionError(
-            f"extraction compacted {key.numel()} pairs, sweep stats "
+            f"extraction compacted {gi.numel()} pairs, sweep stats "
             f"promised {total}"
         )
-    key, order = torch.sort(key)
-    pairs = torch.stack(
-        [key // n_pad, key % n_pad, val[order].to(torch.int64)], dim=1
-    ).to(torch.int32)
-    return pairs.cpu().numpy()
+    gj = torch.cat([k[1] for k in keys])
+    return _sorted_pairs(gi, gj, torch.cat(vals), n_pad).cpu().numpy()
+
+
+def _compact_fused(bi, bj, bc, keep, n_pad: int):
+    """Compact the fused sweep's candidate buffers ([P, nsub, k], score
+    −1 in unused slots), dropping the sub-tiles whose ``keep`` flag is
+    False. Returns (pairs int32 [M, 3] sorted by (i, j) on the device,
+    M)."""
+    m = (bc >= 0) & keep[:, :, None]
+    pairs = _sorted_pairs(bi[m], bj[m], bc[m], n_pad)
+    return pairs, pairs.shape[0]
+
+
+def extract_pairs_fused(
+    words,
+    classes,
+    tile_hits: np.ndarray,
+    tiles,
+    fused: FusedCandidates,
+    n: int,
+    threshold: int,
+    cross_amr_only: bool = True,
+    weights=None,
+) -> np.ndarray:
+    """Fused-mode pair recovery: compact the sweep's own per-sub-tile
+    top-k candidates instead of recomputing the hit tiles.
+
+    Exactness never depends on the capacity: the sweep's ``tile_hits``
+    are exact, so a sub-tile whose hit count exceeds ``fused.k`` is
+    detected, its incomplete candidates dropped, and the tile redone by
+    :func:`extract_pairs`. Returns int32 [M, 3] sorted by (i, j).
+    """
+    ti, tj, tile = tiles
+    if tile != fused.block:
+        raise ValueError("tile enumeration granularity mismatch")
+    if fused.include_same != (not cross_amr_only):
+        raise ValueError("the candidates were kept for the other gate")
+    n_steps = fused.pairs_ij.shape[0]
+    nbs = fused.bs // fused.block
+    nsub = nbs * nbs
+    n_pad = words.shape[0]
+    nb = n_pad // fused.block
+
+    tile_hits = np.asarray(tile_hits)
+    h = tile_hits[:, 0].astype(np.int64)
+    if not cross_amr_only:
+        h = h + tile_hits[:, 1]
+    hm = np.zeros((nb, nb), np.int64)
+    hm[ti, tj] = h
+    s_axis = np.arange(nbs)
+    bi_idx = fused.pairs_ij[:, 0:1] // fused.block + s_axis[None, :]
+    bj_idx = fused.pairs_ij[:, 1:2] // fused.block + s_axis[None, :]
+    # [P, nbs(i), nbs(j)] → [P, nsub]; sub-tiles below the diagonal of a
+    # diagonal step are not in the (ti ≤ tj) enumeration: hm is 0 there
+    h_ps = hm[bi_idx[:, :, None], bj_idx[:, None, :]].reshape(n_steps, nsub)
+    keep = h_ps <= fused.k
+    total_kept = int((h_ps * keep).sum())
+
+    parts = []
+    if total_kept:
+        pairs, count = _compact_fused(
+            fused.bi, fused.bj, fused.bc,
+            torch.from_numpy(keep).to(fused.bc.device), n_pad,
+        )
+        if count != total_kept:
+            raise AssertionError(
+                f"fused compaction found {count} survivors, sweep stats "
+                f"promised {total_kept}"
+            )
+        parts.append(pairs.cpu().numpy())
+
+    if not keep.all():
+        # overflow sub-tiles: redo exactly those by two-pass, with every
+        # other tile's hits masked to zero
+        op, osub = np.nonzero(~keep)
+        rid = np.full((nb, nb), -1, np.int64)
+        rid[ti, tj] = np.arange(len(ti))
+        rows = rid[bi_idx[op, osub // nbs], bj_idx[op, osub % nbs]]
+        masked = np.zeros_like(tile_hits)
+        masked[rows] = tile_hits[rows]  # hits > k ≥ 1: rows all ≥ 0
+        parts.append(
+            extract_pairs(
+                words, classes, masked, tiles, n=n, threshold=threshold,
+                cross_amr_only=cross_amr_only, weights=weights,
+            )
+        )
+
+    if not parts:
+        return np.zeros((0, 3), dtype=np.int32)
+    if len(parts) == 1:
+        return parts[0]  # each part arrives sorted by (i, j)
+    pairs = np.concatenate(parts, axis=0)
+    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
 
 
 def _pairwise_native(bitset, classes, config, threshold, index=None,
@@ -232,24 +383,13 @@ def _pairwise_native(bitset, classes, config, threshold, index=None,
     )
 
 
-_NOT_PORTED = {
-    "popcount": "the popcount engines (ROADMAP queue 1, item 6)",
-    "xla": "the popcount engines (ROADMAP queue 1, item 6)",
-    "stream": "the out-of-core stream engine (ROADMAP queue 1, item 9)",
-}
-
-
 def check_supported(config: PipelineConfig) -> None:
     """Raise for the configuration knobs the port does not carry yet."""
-    if config.engine in _NOT_PORTED:
+    if config.engine == "stream":
         raise NotImplementedError(
-            f"engine={config.engine!r} needs {_NOT_PORTED[config.engine]}, "
-            "not yet ported; use auto, mxu or native"
-        )
-    if config.extract == "fused":
-        raise NotImplementedError(
-            "extract='fused' needs the scan-schedule sweep, not yet "
-            "ported (ROADMAP queue 1, item 8)"
+            "engine='stream' needs the out-of-core stream engine (ROADMAP "
+            "queue 1, item 9), not yet ported; use auto, mxu, popcount, "
+            "xla or native"
         )
     if config.extract == "onepass":
         raise NotImplementedError(
@@ -272,14 +412,20 @@ def pairwise_similarity(
     *,
     device,
 ) -> PairwiseResult:
-    """Sweep + two-pass extraction on ``device`` ("cuda", "cpu" or a
+    """Sweep + exact pair extraction on ``device`` ("cuda", "cpu" or a
     torch.device; CUDA without a GPU raises).
 
-    ``engine="auto"`` resolves to ``mxu`` on CUDA; on the CPU to the C++
-    ``native`` sweep when it is built, else to ``mxu`` on the plain
-    versions. ``weights`` (int8 per bit column) switch to the
-    BLOSUM-weighted score, which the MXU engine carries as a column
-    scale and the native engine only through its sparse sweep.
+    ``engine="auto"`` resolves to ``mxu`` on CUDA (the JAX package takes
+    ``xla`` on a GPU platform); on the CPU to the C++ ``native`` sweep
+    when it is built, else to ``mxu`` on the plain versions.
+    ``popcount`` and ``xla`` both run the popcount formulation: K4 on
+    CUDA, the plain sweep on the CPU, at ``config.tile``. ``weights``
+    (int8 per bit column) switch to the BLOSUM-weighted score, which the
+    MXU engine carries as a column scale and the native engine only
+    through its sparse sweep; every other engine gives way to ``mxu``.
+    ``extract="fused"`` makes the MXU scan sweep keep its survivors
+    (capacity ``config.extract_k``, 0 = auto); on the strip schedule and
+    the popcount engines it is two-pass, as in the JAX package.
     """
     config = config or PipelineConfig()
     check_supported(config)
@@ -302,6 +448,9 @@ def pairwise_similarity(
         if not (index is not None and index.has_incidences
                 and native.available()):
             engine = "mxu"
+    elif weights is not None:
+        # the popcount engines count unweighted bits
+        engine = "mxu"
 
     threshold = (
         config.effective_weighted_threshold(weights)
@@ -317,17 +466,37 @@ def pairwise_similarity(
     words = bitset_to_torch(bitset, device)
     classes = classes_to_torch(classes_np, n_pad, device)
     wts = None if weights is None else weights_to_torch(weights, device)
-    strip = config.strip
-    if strip is not None and n_pad % strip != 0:
-        strip = config.tile
-    row_stats, tile_hits, tiles = sweep_mxu(
-        words, classes, n=n, threshold=threshold, strip=strip,
-        block=config.tile, weights=wts,
-    )
-    pairs = extract_pairs(
-        words, classes, tile_hits, tiles, n=n, threshold=threshold,
-        cross_amr_only=config.cross_amr_only, weights=wts,
-    )
+    fused = None
+    if engine == "mxu":
+        strip = config.strip
+        if strip is not None and n_pad % strip != 0:
+            strip = config.tile
+        want_fused = config.extract == "fused"
+        out = sweep_mxu(
+            words, classes, n=n, threshold=threshold, strip=strip,
+            block=config.tile, weights=wts,
+            fused_k=(config.extract_k or None) if want_fused else 0,
+            fused_same=not config.cross_amr_only,
+        )
+        row_stats, tile_hits, tiles = out[:3]
+        if want_fused:
+            fused = out[3]
+    else:
+        row_stats, tile_hits, tiles = sweep(
+            words, classes, n=n, threshold=config.threshold,
+            tile=config.tile,
+        )
+    if fused is not None:
+        pairs = extract_pairs_fused(
+            words, classes, tile_hits, tiles, fused, n=n,
+            threshold=threshold, cross_amr_only=config.cross_amr_only,
+            weights=wts,
+        )
+    else:
+        pairs = extract_pairs(
+            words, classes, tile_hits, tiles, n=n, threshold=threshold,
+            cross_amr_only=config.cross_amr_only, weights=wts,
+        )
     return PairwiseResult.from_row_stats(
         row_stats, pairs, cross_amr_only=config.cross_amr_only
     )
