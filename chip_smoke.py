@@ -22,7 +22,15 @@ csrc`` with nvcc (one process per source, in parallel), then:
    K2 against its plain version on a diagonal and an off-diagonal
    3,584² block of the 30k corpus, unweighted and weighted;
 3. timing phase — warm sweeps and extractions of both corpora, per-layer
-   and per-kernel times against the plain versions, peak device memory.
+   and per-kernel times against the plain versions, peak device memory;
+4. K3 phase — the fused triangle sweep through its library entry
+   ``ops.tri_mxu.sweep_tri_mxu`` (counters reset before each call and
+   read after it: K3 once): at 10,619 proteins int8 and bf16, unweighted
+   and BLOSUM-weighted (the bf16 guard's verdict printed; a refusal must
+   raise), each equal to its plain version (``sweep_mxu`` with the plain
+   epilogue) and to ``sweep_mxu`` with K1; at
+   30,000 proteins int8 equal to the scan sweep; device times against
+   the plain version and ``sweep_mxu``, peak device memory.
 
 Prints the card's name and power limit (nvidia-smi), a JSON line
 describing each kernel, and as the last line
@@ -206,11 +214,24 @@ def read_pairs_tsv(path: str):
 
 def kernel_counters():
     """The launch counter of each kernel wrapper, by kernel id."""
-    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount, stats
+    from uniprot_kmer_based_clustering_tpu_torch.ops import (
+        popcount,
+        stats,
+        tri_mxu,
+    )
 
     return {"K1": stats.stats_from_counts,
             "K2": stats.stats_from_counts_traced,
+            "K3": tri_mxu.tri_mxu_sweep,
             "K4": popcount.popcount_sweep}
+
+
+def reset_counters():
+    """Set every kernel's launch counter to 0; returns the wrappers."""
+    fns = kernel_counters()
+    for fn in fns.values():
+        fn.launches = 0
+    return fns
 
 
 def host_state(fasta: str):
@@ -248,9 +269,7 @@ def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
 
     from uniprot_kmer_based_clustering_tpu_torch import cli
 
-    fns = kernel_counters()
-    for fn in fns.values():
-        fn.launches = 0
+    fns = reset_counters()
     t0 = time.perf_counter()
     rc = cli.main(["run", fasta, "--out", out, "--device", dev.type, *flags])
     cli_s = time.perf_counter() - t0
@@ -308,10 +327,10 @@ def pipeline_phase(dev, tmp):
           f"{want10 == expected}", flush=True)
     launches = {}
     launches["K1"] = cli_run(dev, fasta10, out, [], want10, pairs10,
-                             {"K1": ns, "K2": 0, "K4": 0})["K1"]
+                             {"K1": ns, "K2": 0, "K3": 0, "K4": 0})["K1"]
     launches["K4"] = cli_run(dev, fasta10, out, ["--engine", "popcount"],
                              want10, pairs10,
-                             {"K1": 0, "K2": 0, "K4": 1})["K4"]
+                             {"K1": 0, "K2": 0, "K3": 0, "K4": 1})["K4"]
 
     state30 = host_state(fasta30)
     n_pad = state30[2].n_pad
@@ -326,7 +345,7 @@ def pipeline_phase(dev, tmp):
     want30, pairs30 = oracle(state30, f"{N_SCALE}")
     for extract in ("two_pass", "fused"):
         got = cli_run(dev, fasta30, out, ["--extract", extract], want30,
-                      pairs30, {"K1": 0, "K2": steps, "K4": 0})
+                      pairs30, {"K1": 0, "K2": steps, "K3": 0, "K4": 0})
         launches["K2"] = got["K2"]
     return state10, pairs10, state30, pairs30, launches
 
@@ -455,6 +474,162 @@ def k2_phase(dev, state):
           f"kernel {k2_ms:.4f} ms ({k2_a:.4f}, {k2_b:.4f}), plain torch "
           f"{plain_ms:.4f} ms ({plain_a:.4f}, {plain_b:.4f})", flush=True)
     return dict(err=worst, ms=k2_ms, plain_ms=plain_ms)
+
+
+def k3_phase(dev, state10, state30):
+    """K3, the fused triangle sweep, through its library entry
+    ``ops.tri_mxu.sweep_tri_mxu``, with every launch counter set to 0 just
+    before each call and read just after (K3 once, nothing else). At
+    10,619 proteins it must equal its plain version (the MXU sweep with
+    the plain epilogue) and the MXU sweep (strips + K1) for int8 and bf16, unweighted and with the BLOSUM
+    weights and threshold of ``cli run --weighting blosum62``; bf16
+    weighted runs where the exactness guard admits it and must raise where
+    it does not. At 30,000 proteins (int8) it must equal the scan sweep.
+    Then device times against the plain version and the MXU sweep, and
+    peak device memory of one call of each."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch import pipeline as pl
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, tri_mxu
+    from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
+        upper_triangle_tiles,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    t_phase = time.perf_counter()
+    launches = 0
+
+    def entry(words, classes, n, threshold, **kw):
+        nonlocal launches
+        fns = reset_counters()
+        out = tri_mxu.sweep_tri_mxu(words, classes, n, threshold, **kw)
+        got = {k: fn.launches for k, fn in fns.items()}
+        if got != {"K1": 0, "K2": 0, "K3": 1, "K4": 0}:
+            raise AssertionError(f"sweep_tri_mxu kernel launches {got}")
+        launches += 1
+        return out
+
+    def err(a, b):
+        return max(int(np.abs(a[0] - b[0]).max()),
+                   int(np.abs(a[1] - b[1]).max()))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev), base
+
+    def tops(bitset, ms):
+        ti, _ = upper_triangle_tiles(bitset.n_pad, 512)
+        w_pad = bitset.w_pad + (-bitset.w_pad % 128)
+        return 2 * len(ti) * 512 * 512 * w_pad * 32 / ms / 1e9
+
+    table, index, bitset = state10
+    n, n_pad = table.n, bitset.n_pad
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
+    cfg = PipelineConfig(weighting="blosum62")
+    wts = pl.blosum_weights(index, cfg, bitset)
+    w_thr = cfg.effective_weighted_threshold(wts)
+    worst = (bitset.w_pad + (-bitset.w_pad % 128)) * 32 * int(
+        np.abs(wts.astype(np.int64)).max())
+    admitted = worst < 1 << 24
+    print(f"K3 bf16 guard, BLOSUM-weighted {N_PROTEINS}: worst-case sum "
+          f"{worst} against 2^24 = {1 << 24}: "
+          f"{'admitted' if admitted else 'refused'}", flush=True)
+    worst_err = 0
+    for dot, weights, thr in (("int8", None, THRESHOLD),
+                              ("bfloat16", None, THRESHOLD),
+                              ("int8", wts, w_thr),
+                              ("bfloat16", wts, w_thr)):
+        label = (f"{N_PROTEINS} {dot} " + (
+            f"BLOSUM-weighted (threshold {thr})" if weights is not None
+            else "unweighted"))
+        if dot == "bfloat16" and weights is not None and not admitted:
+            try:
+                entry(words, classes, n, thr, weights=weights, dot_dtype=dot)
+            except ValueError as e:
+                print(f"K3 {label}: refused by the guard: {e}", flush=True)
+                continue
+            raise AssertionError("the bf16 guard admitted a sum past 2^24")
+        got = entry(words, classes, n, thr, weights=weights, dot_dtype=dot)
+        plain = bitmul.sweep_mxu(words, classes, n, thr, weights=weights,
+                                 stats_engine="xla")
+        mxu = bitmul.sweep_mxu(words, classes, n, thr, weights=weights)
+        e_p, e_m = err(got, plain), err(got, mxu)
+        print(f"kernel K3 {label}: max_abs_err against the plain version "
+              f"{e_p}, against sweep_mxu {e_m} (tolerance {TOL}); "
+              f"over-threshold hits {int(got[1].sum())}, cross weight "
+              f"{int(got[0][:, 0].sum())}", flush=True)
+        if max(e_p, e_m) > TOL:
+            raise AssertionError(f"K3 {label} disagrees")
+        worst_err = max(worst_err, e_p, e_m)
+
+    def k3(dot):
+        return lambda: tri_mxu.tri_mxu_sweep(words, classes, n, THRESHOLD,
+                                             dot_dtype=dot)
+
+    def plain():
+        return bitmul.sweep_mxu(words, classes, n, THRESHOLD,
+                                stats_engine="xla")
+
+    def mxu10():
+        return bitmul.sweep_mxu(words, classes, n, THRESHOLD)
+
+    plain_a = cuda_ms(plain, reps=1, warmup=0)
+    k3_a = cuda_ms(k3("int8"), reps=5, warmup=1)
+    k3_b = cuda_ms(k3("int8"), reps=5, warmup=1)
+    plain_b = cuda_ms(plain, reps=1, warmup=0)
+    bf_ms = cuda_ms(k3("bfloat16"), reps=5, warmup=1)
+    mxu_ms = cuda_ms(mxu10, reps=3, warmup=1)
+    k3_ms, plain_ms = min(k3_a, k3_b), min(plain_a, plain_b)
+    pk_k3, base = peak(k3("int8"))
+    pk_mxu, _ = peak(mxu10)
+    print(f"K3 {N_PROTEINS} whole triangle (device ms): int8 {k3_ms:.4f} "
+          f"({k3_a:.4f}, {k3_b:.4f}) = {tops(bitset, k3_ms):.1f} TOP/s, "
+          f"bf16 {bf_ms:.4f} = {tops(bitset, bf_ms):.1f} TOP/s; plain "
+          f"version {plain_ms:.4f} ({plain_a:.4f}, {plain_b:.4f}); warm "
+          f"sweep_mxu {mxu_ms:.4f}; peak device memory of one call: K3 "
+          f"{pk_k3} bytes, sweep_mxu {pk_mxu} bytes ({base} resident "
+          f"before)", flush=True)
+    del words
+
+    table, _, bitset = state30
+    n, n_pad = table.n, bitset.n_pad
+    words = bitset_to_torch(bitset, dev)
+    classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
+    got = entry(words, classes, n, THRESHOLD)
+    mxu = bitmul.sweep_mxu(words, classes, n, THRESHOLD)
+    e_m = err(got, mxu)
+    print(f"kernel K3 {N_SCALE} int8 unweighted: max_abs_err against the "
+          f"scan sweep_mxu {e_m} (tolerance {TOL}); over-threshold hits "
+          f"{int(got[1].sum())}", flush=True)
+    if e_m > TOL:
+        raise AssertionError("K3 disagrees with the scan sweep at 30k")
+    worst_err = max(worst_err, e_m)
+    k3_30 = cuda_ms(lambda: tri_mxu.tri_mxu_sweep(words, classes, n,
+                                                  THRESHOLD),
+                    reps=2, warmup=0)
+    mxu_30 = cuda_ms(lambda: bitmul.sweep_mxu(words, classes, n, THRESHOLD),
+                     reps=1, warmup=0)
+    pk_k3, base = peak(lambda: tri_mxu.tri_mxu_sweep(words, classes, n,
+                                                     THRESHOLD))
+    pk_mxu, _ = peak(lambda: bitmul.sweep_mxu(words, classes, n, THRESHOLD))
+    print(f"K3 {N_SCALE} whole triangle (device ms): int8 {k3_30:.4f} = "
+          f"{tops(bitset, k3_30):.1f} TOP/s; warm scan sweep_mxu "
+          f"{mxu_30:.4f}; peak device memory of one call: K3 {pk_k3} bytes, "
+          f"sweep_mxu {pk_mxu} bytes ({base} resident before)", flush=True)
+    print(f"K3 phase: {launches} library calls, one K3 launch each; "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return dict(err=worst_err, ms=k3_ms, plain_ms=plain_ms,
+                launches=launches)
 
 
 def scan_timing_phase(dev, state, want_pairs):
@@ -662,7 +837,8 @@ def main() -> int:
           f"{os.path.relpath(_build.library_path(), ROOT)}", flush=True)
     with open(_build.library_path() + ".log") as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 print("  ptxas:", line.strip(), flush=True)
 
     err = kernel_phase(dev, stats)
@@ -674,6 +850,7 @@ def main() -> int:
         k2 = k2_phase(dev, state30)
         t = timing_phase(dev, state10, pairs10, stats)
         scan_timing_phase(dev, state30, pairs30)
+        k3 = k3_phase(dev, state10, state30)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if "jax" in sys.modules:
@@ -700,6 +877,16 @@ def main() -> int:
             "max_abs_err": k2["err"],
             "ms": k2["ms"],
             "plain_ms": k2["plain_ms"],
+        },
+        {
+            "name": "sweep_tri_mxu",
+            "route": "cuda",
+            "source": f"{PKG}/csrc/tri_mxu.cu",
+            "replaces": replaces + "tri_mxu.py:136",
+            "launches": k3["launches"],
+            "max_abs_err": k3["err"],
+            "ms": k3["ms"],
+            "plain_ms": k3["plain_ms"],
         },
         {
             "name": "popcount_sweep",

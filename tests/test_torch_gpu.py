@@ -206,3 +206,89 @@ def test_popcount_pipeline_gpu_matches_cpu(cuda, synth_fasta):
     assert gpu.parity_report() == cpu.parity_report()
     assert gpu.parity_report()["pairs_over_threshold"] > 0
     assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
+
+
+@pytest.mark.parametrize("dot_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("tile", [128, 256])
+def test_k3_matches_reference(cuda, dot_dtype, weighted, tile):
+    """K3 on every tile pair of 768 rows (n 750; W 70 padded to the
+    32-word chunk) against its plain version, the MXU sweep with the
+    plain epilogue; signed weights with w_thresh 5 when weighted."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
+
+    rng = np.random.default_rng(tile + 2 * weighted)
+    words = rng.integers(0, 2**32, size=(768, 70), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(768, 70), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(768, 70), dtype=np.uint32)
+    words[750:] = 0
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 3, 768).astype(np.int32)).to(cuda)
+    wts = rng.integers(-20, 41, 70 * 32).astype(np.int8) if weighted else None
+    thr, wt = (300, 5) if weighted else (35, 1)
+    before = tri_mxu.tri_mxu_sweep.launches
+    got = tri_mxu.sweep_tri_mxu(w, cls, 750, thr, tile, word_chunk_words=32,
+                                weights=wts, w_thresh=wt, dot_dtype=dot_dtype)
+    assert tri_mxu.tri_mxu_sweep.launches == before + 1
+    want = bitmul.sweep_mxu(w, cls, 750, thr, block=tile, weights=wts,
+                            w_thresh=wt, stats_engine="xla")
+    assert np.array_equal(want[0], got[0])
+    assert np.array_equal(want[1], got[1])
+    assert got[1].sum() > 0
+
+
+def test_k3_matches_sweep_mxu(cuda):
+    """K3's whole-triangle statistics equal the MXU sweep's (strips + K1)
+    at tile 256."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
+
+    rng = np.random.default_rng(9)
+    words = rng.integers(0, 2**32, size=(1024, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1024, 64), dtype=np.uint32)
+    words[1000:] = 0
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 4, 1024).astype(np.int32)).to(cuda)
+    got = tri_mxu.sweep_tri_mxu(w, cls, 1000, 140, tile=256)
+    want = bitmul.sweep_mxu(w, cls, 1000, 140, block=256)
+    assert np.array_equal(want[0], got[0])
+    assert np.array_equal(want[1], got[1])
+    assert got[1].sum() > 0
+
+
+@pytest.mark.parametrize("dot_dtype", ["int8", "bfloat16"])
+def test_k3_exact_at_the_bf16_guard_edge(cuda, dot_dtype):
+    """The widest sums the bf16 guard admits: 8,064 words, weight 64, so
+    an all-ones pair counts 8,064 · 32 · 64 = 16,515,072, just under
+    2^24. Even rows are all ones, odd rows 1/8 dense (so no row's lane
+    sums pass int32); K3 equals the plain version exactly."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
+
+    rng = np.random.default_rng(11)
+    words = rng.integers(0, 2**32, size=(256, 8064), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(256, 8064), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(256, 8064), dtype=np.uint32)
+    words[::2] = 0xFFFFFFFF
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 2, 256).astype(np.int32)).to(cuda)
+    wts = np.full(8064 * 32, 64, np.int8)
+    thr = 16_000_000
+    got = tri_mxu.sweep_tri_mxu(w, cls, 256, thr, tile=128, weights=wts,
+                                dot_dtype=dot_dtype)
+    want = bitmul.sweep_mxu(w, cls, 256, thr, block=128, weights=wts,
+                            stats_engine="xla")
+    assert np.array_equal(want[0], got[0])
+    assert np.array_equal(want[1], got[1])
+    assert int(got[0][:, 3].max()) == 16_515_072
+    assert got[1].sum() > 0
+
+
+def test_k3_refuses_what_it_cannot_take(cuda):
+    from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
+
+    w = torch.zeros((384, 8), dtype=torch.int32, device=cuda)
+    cls = torch.zeros(384, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tri_mxu.tri_mxu_sweep(w, cls, 384, 1, tile=192)
+    with pytest.raises(ValueError, match="contiguous int32"):
+        tri_mxu.tri_mxu_sweep(w.t().contiguous().t(), cls, 384, 1, tile=128,
+                              word_chunk_words=8)

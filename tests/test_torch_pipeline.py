@@ -17,6 +17,8 @@ import torch
 
 from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu.pipeline import run_pipeline as jrun
+from uniprot_kmer_based_clustering_tpu.utils.blosum import rank_weights_int8
+from uniprot_kmer_based_clustering_tpu_torch import pipeline as tpl
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline as trun
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -54,6 +56,29 @@ def test_pipeline_multi_strip_matches_jax(synth_fasta):
     _same(jrun(synth_fasta, cfg), got)
     assert list(got.timings) == ["ingest", "encode", "index", "pack",
                                  "sweep", "cluster"]
+
+
+@pytest.mark.parametrize("weighting", ["none", "blosum62"])
+def test_blosum_weights_are_the_jax_pipelines(weighting):
+    """The weights the port's pipeline hands the sweep: None unweighted,
+    else what the JAX pipeline computes, rank_weights_int8 over every
+    packed bit column."""
+    from bench_scale import synth_proteins
+
+    seq_buf, offsets, _ = synth_proteins(200, seed=1)
+    codes, koff = tpl.encode_kmers(seq_buf, offsets, 5)
+    index = tpl.build_index(codes, koff, 5)
+    bitset = tpl.pack_bitsets(index.incidence_protein, index.incidence_rank,
+                              200, index.n_repeated, row_multiple=128)
+    got = tpl.blosum_weights(index, PipelineConfig(weighting=weighting),
+                             bitset)
+    if weighting == "none":
+        assert got is None
+        return
+    want = rank_weights_int8(index.repeated_codes, 5, bitset.w_pad * 32)
+    assert got.dtype == np.int8 and got.shape == (bitset.w_pad * 32,)
+    assert np.array_equal(got, want)
+    assert got[: index.n_repeated].any()
 
 
 def _cli_outputs(out):

@@ -39,28 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stats_common.cuh"
+
 namespace {
 
 constexpr int kSub = 32;    // pairs per sub-tile side
 constexpr int kChunk = 32;  // words staged per step
 constexpr int kThreads = 256;
 constexpr int kRowsPerThread = kSub / (kThreads / 32);  // 4
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void add_lane(int* p, unsigned v) {
-  if (v) atomicAdd(reinterpret_cast<unsigned*>(p), v);
-}
 
 __global__ void __launch_bounds__(kThreads)
 popcount_sweep_kernel(const uint32_t* __restrict__ words, int w,
@@ -106,32 +92,16 @@ popcount_sweep_kernel(const uint32_t* __restrict__ words, int w,
 #pragma unroll
   for (int q = 0; q < kRowsPerThread; ++q) {
     const int gi = gi0 + warp + q * (kThreads / 32);
-    const int cnt = static_cast<int>(acc[q]);
-    const bool valid = gi < gj && gj < n;
-    const bool cross = valid && classes[gi] != ccol;
-    const bool same = valid && !cross;
-    const unsigned cw = warp_sum(cross ? acc[q] : 0u);
-    const unsigned cp = warp_sum(cross && cnt >= 1);
-    const unsigned co = warp_sum(cross && cnt > threshold);
-    const int cm = warp_max(cross ? cnt : 0);
-    const unsigned sw = warp_sum(same ? acc[q] : 0u);
-    const unsigned sp = warp_sum(same && cnt >= 1);
-    const unsigned so = warp_sum(same && cnt > threshold);
-    const int sm = warp_max(same ? cnt : 0);
+    RowAcc a = {0u, 0u, 0u, 0, 0u, 0u, 0u, 0};
+    visit(a, static_cast<int>(acc[q]), gi, gj, classes[gi], ccol, n,
+          threshold, 1);
+    a = reduce_row(a);
     if (lane == 0) {
-      int* out = row_stats + static_cast<long long>(gi) * 8;
-      add_lane(out + 0, cw);
-      add_lane(out + 1, cp);
-      add_lane(out + 2, co);
-      if (cm > 0) atomicMax(out + 3, cm);
-      add_lane(out + 4, sw);
-      add_lane(out + 5, sp);
-      add_lane(out + 6, so);
-      if (sm > 0) atomicMax(out + 7, sm);
-      hc += co;
-      hs += so;
-      pc += cp;
-      ps += sp;
+      flush_row(row_stats + static_cast<long long>(gi) * 8, a);
+      hc += a.co;
+      hs += a.so;
+      pc += a.cp;
+      ps += a.sp;
     }
   }
   __syncthreads();  // s_hits zeroed before any warp adds to it

@@ -44,53 +44,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stats_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerBlock = 32;
-
-struct RowAcc {
-  unsigned cw, cp, co;
-  int cm;
-  unsigned sw, sp, so;
-  int sm;
-};
-
-__device__ __forceinline__ void visit(RowAcc& a, int cnt, int gi, int gj,
-                                      int crow, int ccol, int n,
-                                      int threshold, int w_thresh) {
-  if (!(gi < gj && gj < n)) return;
-  const unsigned u = static_cast<unsigned>(cnt);
-  const unsigned present = cnt >= w_thresh;
-  const unsigned over = cnt > threshold;
-  if (crow != ccol) {
-    a.cw += u;
-    a.cp += present;
-    a.co += over;
-    a.cm = max(a.cm, cnt);
-  } else {
-    a.sw += u;
-    a.sp += present;
-    a.so += over;
-    a.sm = max(a.sm, cnt);
-  }
-}
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ void add_lane(int* p, unsigned v) {
-  if (v) atomicAdd(reinterpret_cast<unsigned*>(p), v);
-}
 
 template <bool kVec4>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -140,22 +99,11 @@ stats_epilogue_kernel(const int* __restrict__ counts, long long ld,
       for (int c = lane; c < tile; c += 32)
         visit(a, row[c], gi, gj0 + c, cr, s_ccol[c], n, threshold, w_thresh);
     }
-    const unsigned cw = warp_sum(a.cw), cp = warp_sum(a.cp);
-    const unsigned co = warp_sum(a.co), sw = warp_sum(a.sw);
-    const unsigned sp = warp_sum(a.sp), so = warp_sum(a.so);
-    const int cm = warp_max(a.cm), sm = warp_max(a.sm);
+    a = reduce_row(a);
     if (lane == 0) {
-      int* out = row_stats + static_cast<long long>(r) * 8;
-      add_lane(out + 0, cw);
-      add_lane(out + 1, cp);
-      add_lane(out + 2, co);
-      if (cm > 0) atomicMax(out + 3, cm);
-      add_lane(out + 4, sw);
-      add_lane(out + 5, sp);
-      add_lane(out + 6, so);
-      if (sm > 0) atomicMax(out + 7, sm);
-      hit_c += co;
-      hit_s += so;
+      flush_row(row_stats + static_cast<long long>(r) * 8, a);
+      hit_c += a.co;
+      hit_s += a.so;
     }
   }
 

@@ -5,8 +5,9 @@ Hopper (``sm_90a``), one ``nvcc`` process per source, all started
 together, and the objects are linked into ONE shared library with a plain
 C interface — no PyTorch headers, so a build takes seconds. The
 library lands in the package's ``build/`` directory under a name that
-carries a hash of the sources: an edited source builds anew, an
-unchanged one loads the existing file. Pointers and the stream cross the
+carries a hash of the sources and of the headers they include
+(``csrc/*.cuh``): an edited source or header builds anew, an unchanged
+tree loads the existing file. Pointers and the stream cross the
 boundary as ``c_void_p``; each entry point returns ``cudaGetLastError()``
 and :func:`check` raises on a nonzero value.
 
@@ -46,11 +47,21 @@ _SIGNATURES = {
         _P, _P, _P,
     ],
     "ukc_popcount_sweep": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "ukc_tri_mxu_sweep": [
+        _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+    ],
 }
 
 
 def _sources():
+    """The translation units: ``csrc/*.cu``."""
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _hashed_files():
+    """Everything a build reads: the sources and the ``csrc/*.cuh``
+    headers they include."""
+    return sorted(_sources() + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -71,9 +82,9 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    """Path of the shared library for the current sources."""
+    """Path of the shared library for the current sources and headers."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed_files():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

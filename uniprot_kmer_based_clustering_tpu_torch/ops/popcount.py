@@ -193,7 +193,9 @@ def popcount_sweep(words, classes, n: int, threshold: int, tile: int,
 popcount_sweep.launches = 0
 
 
-def _to_host(row_stats, tile_hits, tiles):
+def to_host(row_stats, tile_hits, tiles):
+    """The host copy of a sweep's device outputs: (row_stats int64,
+    tile_hits, tiles) as numpy arrays."""
     return (row_stats.cpu().numpy().astype(np.int64),
             tile_hits.cpu().numpy(), tiles)
 
@@ -202,11 +204,11 @@ def sweep_xla(words, classes, n: int, threshold: int, tile: int = 512):
     """The plain tile-by-tile sweep with the JAX ``sweep_xla`` contract:
     (row_stats int64 [N_pad, 8], tile_hits int32 [nT, 4], (ti, tj, tile))
     as numpy arrays."""
-    return _to_host(*sweep_reference(words, classes, n, threshold, tile))
+    return to_host(*sweep_reference(words, classes, n, threshold, tile))
 
 
 def sweep(words, classes, n: int, threshold: int, tile: int = 512):
     """The popcount engines (``popcount`` and ``xla`` alike) at ``tile``:
     :func:`popcount_sweep`, so K4 on a CUDA tensor and the plain sweep on
     a CPU tensor. Returns what :func:`sweep_xla` returns."""
-    return _to_host(*popcount_sweep(words, classes, n, threshold, tile))
+    return to_host(*popcount_sweep(words, classes, n, threshold, tile))

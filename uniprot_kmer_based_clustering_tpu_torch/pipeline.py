@@ -27,6 +27,7 @@ from uniprot_kmer_based_clustering_tpu.kmers.bitset import (
 )
 from uniprot_kmer_based_clustering_tpu.kmers.encode import encode_kmers
 from uniprot_kmer_based_clustering_tpu.kmers.index import KmerIndex, build_index
+from uniprot_kmer_based_clustering_tpu.utils.blosum import rank_weights_int8
 from uniprot_kmer_based_clustering_tpu.utils.checkpoint import CheckpointStore
 from uniprot_kmer_based_clustering_tpu.utils.timing import StageTimers
 from uniprot_kmer_based_clustering_tpu_torch.device import (
@@ -87,6 +88,16 @@ def _row_multiple(config: PipelineConfig, n: int) -> int:
     if config.strip is None and n <= 3584:
         return config.tile
     return (strip * config.tile) // math.gcd(strip, config.tile)
+
+
+def blosum_weights(index: KmerIndex, config: PipelineConfig,
+                   bitset: BitsetMatrix) -> Optional[np.ndarray]:
+    """The int8 per-k-mer weights [W_pad*32] of ``--weighting blosum62``
+    for the packed columns, as the JAX pipeline makes them; None for an
+    unweighted config."""
+    if config.weighting != "blosum62":
+        return None
+    return rank_weights_int8(index.repeated_codes, config.k, bitset.w_pad * 32)
 
 
 def _fasta_fingerprint(fasta_path: str) -> str:
@@ -173,15 +184,7 @@ def run_pipeline(
             row_multiple=_row_multiple(config, table.n),
         )
 
-    weights = None
-    if config.weighting == "blosum62":
-        from uniprot_kmer_based_clustering_tpu.utils.blosum import (
-            rank_weights_int8,
-        )
-
-        weights = rank_weights_int8(
-            index.repeated_codes, config.k, bitset.w_pad * 32
-        )
+    weights = blosum_weights(index, config, bitset)
 
     key_pairs = config.cache_key("pairs", fingerprint)
     cached_pairs = store.load(key_pairs)
