@@ -210,11 +210,12 @@ def test_popcount_pipeline_gpu_matches_cpu(cuda, synth_fasta):
 
 @pytest.mark.parametrize("dot_dtype", ["int8", "bfloat16"])
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("tile", [128, 256])
+@pytest.mark.parametrize("tile", [128, 256, 384])
 def test_k3_matches_reference(cuda, dot_dtype, weighted, tile):
     """K3 on every tile pair of 768 rows (n 750; W 70 padded to the
     32-word chunk) against its plain version, the MXU sweep with the
-    plain epilogue; signed weights with w_thresh 5 when weighted."""
+    plain epilogue; signed weights with w_thresh 5 when weighted. Tile
+    384 puts a tile boundary inside a 256-row sub-tile."""
     from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
 
     rng = np.random.default_rng(tile + 2 * weighted)
@@ -280,6 +281,33 @@ def test_k3_exact_at_the_bf16_guard_edge(cuda, dot_dtype):
     assert np.array_equal(want[1], got[1])
     assert int(got[0][:, 3].max()) == 16_515_072
     assert got[1].sum() > 0
+
+
+@pytest.mark.parametrize("dot_dtype", ["int8", "bfloat16"])
+def test_k3_ragged_rows_and_words(cuda, dot_dtype):
+    """n 601 (not a multiple of the 256 x 128 sub-tile; N_pad 640, so the
+    last row block reaches past N_pad) and W 69 words at a word chunk of
+    1 (not a multiple of a stage's 4 or 2 words: the wrapper pads to 72),
+    weighted, against the plain version."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import tri_mxu
+
+    rng = np.random.default_rng(13)
+    words = rng.integers(0, 2**32, size=(640, 69), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(640, 69), dtype=np.uint32)
+    words[601:] = 0
+    w = torch.from_numpy(words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(rng.integers(0, 3, 640).astype(np.int32)).to(cuda)
+    wts = rng.integers(-20, 41, 69 * 32).astype(np.int8)
+    before = tri_mxu.tri_mxu_sweep.launches
+    got = tri_mxu.sweep_tri_mxu(w, cls, 601, 1600, tile=128,
+                                word_chunk_words=1, weights=wts, w_thresh=5,
+                                dot_dtype=dot_dtype)
+    assert tri_mxu.tri_mxu_sweep.launches == before + 1
+    want = bitmul.sweep_mxu(w, cls, 601, 1600, block=128, weights=wts,
+                            w_thresh=5, stats_engine="xla")
+    assert np.array_equal(want[0], got[0])
+    assert np.array_equal(want[1], got[1])
+    assert 0 < got[1].sum() < 601 * 600 // 2
 
 
 def test_k3_refuses_what_it_cannot_take(cuda):

@@ -141,32 +141,126 @@ def test_permute_weights_bitplane_matches_jax(wc):
     assert np.array_equal(want, got)
 
 
+def _stage_image(x, s, dot_dtype, weights=None):
+    """A numpy model of one stage of csrc/tri_mxu.cu's producer: the
+    shared-memory image [rows, 128 bytes] of stage ``s`` of the packed
+    rows ``x`` (uint32 [rows, W]). 16-byte chunk c of a row holds
+    registers 4 (c % cpw) .. +3 of word s·kw + c // cpw (kw = 4 words a
+    stage, cpw = 2 chunks a word as int8; 2 and 4 as bf16), register r
+    being (x >> r) & 0x01010101 (four int8 0/1 bytes) or (x >> r) &
+    0x00010001 times bf16 1.0 (two halves); weights, uint4 8s + c of the
+    kernel-ordered array, mask the moving rows; the chunk lands at
+    position c ^ (row % 8), the 128-byte swizzle."""
+    kw, spread, one, fill = ((4, 0x01010101, 1, 0xFF) if dot_dtype == "int8"
+                             else (2, 0x00010001, 0x3F80, 0xFFFF))
+    cpw = 8 // kw
+    rows = x.shape[0]
+    img = np.zeros((rows, 8, 4), np.uint32)
+    for c in range(8):
+        word = x[:, s * kw + c // cpw]
+        regs = np.stack([(word >> (4 * (c % cpw) + j)) & spread
+                         for j in range(4)], axis=1).astype(np.uint32)
+        if weights is None:
+            regs = regs * np.uint32(one)
+        else:
+            wq = weights.view(np.uint32).reshape(-1, 4)[8 * s + c]
+            regs = (regs * np.uint32(fill)) & wq
+        for r in range(rows):
+            img[r, c ^ (r % 8)] = regs[r]
+    return img
+
+
+def _read_stage(img, dot_dtype):
+    """What a K-major operand with the 128-byte swizzle reads from the
+    image: logical chunk c of row r sits at position c ^ (r % 8). Values
+    as int64 columns [rows, 128 (int8) or 64 (bf16)]."""
+    rows = img.shape[0]
+    logical = np.stack([img[r, [c ^ (r % 8) for c in range(8)]]
+                        for r in range(rows)]).reshape(rows, 32)
+    if dot_dtype == "int8":
+        return logical.astype("<u4").view(np.int8).astype(np.int64)
+    halves = logical.astype("<u4").view("<u2")
+    vals = (halves.astype(np.uint32) << 16).view(np.float32)
+    return vals.astype(np.int64)
+
+
+def _a_fragment_columns(x, s, dot_dtype):
+    """A numpy model of csrc/tri_mxu.cu's a_frags for stage ``s``: the
+    stationary operand's columns as wgmma reads them from the fragment
+    registers. In a k-step (32 bytes: one word as int8, half a word as
+    bf16, register base rb = 0 or 8), lane tq's registers a0/a2 hold
+    columns 4tq..4tq+3 and 16+4tq.. (int8 bytes) or 2tq, 2tq+1 and
+    8+2tq.. (bf16 halves) — the mma fragment layout — and are registers
+    rb + tq and rb + tq + 4 of the k-step's word: (x >> r) & spread."""
+    kw, per, spread = ((4, 4, 0x01010101) if dot_dtype == "int8"
+                       else (2, 2, 0x00010001))
+    regs_per_word, half_cols = 32 // per, 4 * per
+    cols = []
+    for k in range(4):
+        word = x[:, s * kw + k * 8 // regs_per_word]
+        rb = (k * 8) % regs_per_word
+        for c in range(2 * half_cols):
+            half, tq, j = c // half_cols, (c % half_cols) // per, c % per
+            v = (word >> (rb + tq + 4 * half)) & spread
+            cols.append((v >> (j * 32 // per)) & 1)
+    return np.stack(cols, axis=1).astype(np.int64)
+
+
 @pytest.mark.parametrize("dot_dtype", ["int8", "bfloat16"])
 def test_kernel_weights_follow_the_kernel_unpack(dot_dtype):
-    """A numpy model of csrc/tri_mxu.cu's in-word spread — register r of
-    a word is (x >> r) & 0x01010101 (int8, four bytes) or
-    (x >> r) & 0x00010001 (bf16, two halves) — puts bit
-    kernel_bit_order()[c] in column c, and the permuted weights then give
-    the same weighted dot product as the plain column order."""
+    """The model of the kernel's stage unpack puts bit
+    kernel_bit_order()[c] of each word in its column c, word after word;
+    the stationary operand's register fragments hold the same columns;
+    and the swizzled stages read back through the operand layout give,
+    with kernel_weights() on the moving rows, the weighted dot products
+    of the plain column order."""
     rng = np.random.default_rng(1)
-    x = rng.integers(0, 2**32, size=(6, 3), dtype=np.uint32)
+    x = rng.integers(0, 2**32, size=(12, 8), dtype=np.uint32)
     x[0, 0] = 0x80000001
-    if dot_dtype == "int8":
-        regs = np.stack([(x >> r) & 0x01010101 for r in range(8)], axis=-1)
-        cols = regs.astype("<u4").view(np.uint8)
-    else:
-        regs = np.stack([(x >> r) & 0x00010001 for r in range(16)], axis=-1)
-        cols = regs.astype("<u4").view("<u2")
-    cols = cols.reshape(6, 3 * 32).astype(np.int64)
-    plain = np.unpackbits(x.view(np.uint8), axis=1, bitorder="little")
+    wts = rng.integers(-50, 51, size=8 * 32).astype(np.int8)
+    kw_w = ttri.kernel_weights(wts, dot_dtype)
+    if dot_dtype == "bfloat16":
+        kw_w = kw_w.astype(np.float32).view(np.uint32) >> 16
+        kw_w = kw_w.astype(np.uint16)
+    kw = 4 if dot_dtype == "int8" else 2
+    plain = np.unpackbits(x.view(np.uint8), axis=1,
+                          bitorder="little").astype(np.int64)
     order = ttri.kernel_bit_order(dot_dtype)
     assert sorted(order) == list(range(32))
-    assert np.array_equal(cols, plain.reshape(6, 3, 32)[:, :, order]
-                          .reshape(6, 96))
-    wts = rng.integers(-50, 51, size=3 * 32).astype(np.int8)
-    kw = ttri.kernel_weights(wts, dot_dtype).astype(np.int64)
-    want = plain.astype(np.int64) @ (plain.astype(np.int64) * wts).T
-    assert np.array_equal(cols @ (cols * kw).T, want)
+    a = np.concatenate([_read_stage(_stage_image(x, s, dot_dtype), dot_dtype)
+                        for s in range(8 // kw)], axis=1)
+    assert np.array_equal(a, plain.reshape(12, 8, 32)[:, :, order]
+                          .reshape(12, 256))
+    frags = np.concatenate([_a_fragment_columns(x, s, dot_dtype)
+                            for s in range(8 // kw)], axis=1)
+    assert np.array_equal(frags, a)
+    b = np.concatenate([_read_stage(_stage_image(x, s, dot_dtype, kw_w),
+                                    dot_dtype) for s in range(8 // kw)],
+                       axis=1)
+    want = plain @ (plain * wts.astype(np.int64)).T
+    assert np.array_equal(a @ b.T, want)
+
+
+@pytest.mark.parametrize("n_pad,n", [(384, 370), (640, 601), (1024, 1024),
+                                     (1536, 129)])
+def test_subtile_grid_covers_every_pair_once(n_pad, n):
+    """The kernel's SUB_ROWS x SUB_COLS sub-tiles: every pair gi < gj < n
+    lies in exactly one listed sub-tile, and every listed one holds such a
+    pair."""
+    sr, sc = ttri.SUB_ROWS, ttri.SUB_COLS
+    grid = ttri.subtile_grid(n_pad, n)
+    assert grid.dtype == np.int32 and grid.shape[1] == 2
+    assert np.all(grid[:, 0] % sr == 0) and np.all(grid[:, 1] % sc == 0)
+    cover = np.zeros((n_pad + sr, n_pad + sc), np.int64)
+    for gi0, gj0 in grid:
+        block = np.zeros_like(cover)
+        block[gi0 : gi0 + sr, gj0 : gj0 + sc] = 1
+        gi, gj = np.nonzero(block)
+        assert np.any((gi < gj) & (gj < n))
+        cover += block
+    gi, gj = np.triu_indices(n, 1)
+    assert np.all(cover[gi, gj] == 1)
+    assert list(map(tuple, grid)) == sorted(map(tuple, grid))
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -2,11 +2,17 @@
 
 The same pipeline as the JAX package — FASTA → k-mer index → packed
 bitsets → pairwise sweep → exact pair list → clusters — on one torch
-device. The host stages are the JAX package's numpy/C++ modules, shared
-by import; the device stages are PyTorch, with each TPU kernel rewritten
-by hand for Hopper. This package never imports jax.
+device. The host stages are the port's own copies of the JAX package's
+numpy/C++ modules; the device stages are PyTorch, with each TPU kernel
+rewritten by hand for Hopper. This package imports neither jax nor the
+JAX package.
 
 Layout:
+  config.py   PipelineConfig (the JAX package's fields and cache keys)
+  io/, kmers/, utils/
+              host stages: FASTA ingest, the C++ runtime's binding (built
+              into build/ at first use), k-mer encode, doc-freq index, bit
+              packing, BLOSUM weights, timers, checkpoints
   device.py   explicit device selection (no silent CPU fallback)
   state.py    packed words / classes / weights onto a torch device
   csrc/       CUDA C++ kernels, built at first use by ops/_build.py
@@ -19,7 +25,7 @@ Layout:
 
 __version__ = "0.1.0"
 
-from uniprot_kmer_based_clustering_tpu.config import PipelineConfig  # noqa: F401
+from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig  # noqa: F401
 
 
 def cluster_fasta(fasta_path: str, device="cuda", **config_kwargs):

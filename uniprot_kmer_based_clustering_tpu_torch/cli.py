@@ -53,7 +53,7 @@ def _refuse_unported(args) -> None:
 def cmd_run(args) -> int:
     import torch
 
-    from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
     from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
 

@@ -48,7 +48,7 @@ _SIGNATURES = {
     ],
     "ukc_popcount_sweep": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ukc_tri_mxu_sweep": [
-        _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+        _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
     ],
 }
 

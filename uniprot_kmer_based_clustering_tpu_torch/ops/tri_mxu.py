@@ -8,8 +8,9 @@ words and never storing the unpacked operands or the counts.
 
 - :func:`tri_mxu_sweep` is the sweep on a device: on a CUDA tensor it
   launches the hand-written kernel ``csrc/tri_mxu.cu`` (K3, the
-  counterpart of the Pallas ``sweep_tri_mxu``: in-kernel unpack,
-  ``mma.sync`` int8 or bf16 products, the statistics epilogue fused); on
+  counterpart of the Pallas ``sweep_tri_mxu``: an unpack warpgroup
+  overlapped with ``wgmma`` int8 or bf16 products, the statistics
+  epilogue fused); on
   a CPU tensor it runs the plain MXU sweep, ``bitmul.sweep_mxu`` with
   the plain epilogue (unpack, int8 GEMM, statistics in torch).
 - :func:`sweep_tri_mxu` keeps the JAX package's signature and returns
@@ -35,8 +36,10 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
 )
 
-# the CUDA kernel's sub-tile side: the tile must be a multiple of it
+# the CUDA kernel's granularity: the tile must be a multiple of SUB_TILE;
+# a block owns SUB_ROWS stationary x SUB_COLS moving rows
 SUB_TILE = 128
+SUB_ROWS, SUB_COLS = 256, 128
 
 
 def permute_weights_bitplane(weights: np.ndarray, wc: int) -> np.ndarray:
@@ -60,7 +63,8 @@ def kernel_bit_order(dot_dtype: str) -> np.ndarray:
     """Bit of its word that each of the 32 unpacked columns of a word
     holds in the CUDA kernel: int8 register r holds bits r, r+8, r+16,
     r+24 (columns 4r..4r+3), bf16 register r bits r and r+16 (columns
-    2r, 2r+1)."""
+    2r, 2r+1). A 16-byte chunk of an unpacked row holds four consecutive
+    registers, so the words' columns follow each other in word order."""
     per_reg = 4 if dot_dtype == "int8" else 2
     c = np.arange(32)
     return c // per_reg + (32 // per_reg) * (c % per_reg)
@@ -119,6 +123,18 @@ def check_dot_dtype(dot_dtype: str, weights, w_words: int) -> None:
         )
 
 
+def subtile_grid(n_pad: int, n: int) -> np.ndarray:
+    """The (gi0, gj0) row offsets of the kernel's SUB_ROWS x SUB_COLS
+    sub-tiles that hold a pair gi < gj < n, row-major, int32 [n_sub, 2].
+    The last column block may reach past n_pad: the kernel reads zeros
+    there."""
+    i0 = np.arange(0, n_pad, SUB_ROWS)
+    j0 = np.arange(0, n_pad, SUB_COLS)
+    gi, gj = np.meshgrid(i0, j0, indexing="ij")
+    keep = (gj < n) & (gi < np.minimum(gj + SUB_COLS - 1, n - 1))
+    return np.stack([gi[keep], gj[keep]], axis=1).astype(np.int32)
+
+
 def tri_mxu_sweep(words, classes, n: int, threshold: int, tile: int = 512,
                   word_chunk_words: int = 128, weights=None,
                   w_thresh: int = 1, dot_dtype: str = "int8"):
@@ -156,8 +172,6 @@ def tri_mxu_sweep(words, classes, n: int, threshold: int, tile: int = 512,
                 f"the CUDA triangle sweep takes tiles that are multiples of "
                 f"{SUB_TILE}, got {tile}"
             )
-        if len(ti) * (tile // SUB_TILE) ** 2 >= 1 << 31:
-            raise ValueError("too many tile pairs for one launch")
         if words.dtype != torch.int32 or not words.is_contiguous():
             raise ValueError("words must be a contiguous int32 tensor")
         w_pad += -w_pad % 4
@@ -181,14 +195,14 @@ def tri_mxu_sweep(words, classes, n: int, threshold: int, tile: int = 512,
         w_dev = torch.from_numpy(kernel_weights(wts, dot_dtype)).to(dev)
         if dot_dtype == "bfloat16":
             w_dev = w_dev.to(torch.bfloat16)
-    tile_ij = torch.from_numpy(np.stack([ti, tj], axis=1)).to(dev)
+    grid = torch.from_numpy(subtile_grid(n_pad, n)).to(dev)
     row_stats = torch.zeros((n_pad, 8), dtype=torch.int32, device=dev)
     tile_hits = torch.zeros((len(ti), 2), dtype=torch.int32, device=dev)
     lib = _build.load_kernels()
     with torch.cuda.device(dev):
         err = lib.ukc_tri_mxu_sweep(
-            words.data_ptr(), w_pad, classes.data_ptr(),
-            tile_ij.data_ptr(), len(ti), tile, n, threshold, w_thresh,
+            words.data_ptr(), w_pad, classes.data_ptr(), grid.data_ptr(),
+            grid.shape[0], n_pad, tile, n, threshold, w_thresh,
             None if w_dev is None else w_dev.data_ptr(),
             int(dot_dtype == "bfloat16"), row_stats.data_ptr(),
             tile_hits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,

@@ -3,10 +3,11 @@ sweep → clusters.
 
 The counterpart of the JAX package's ``pipeline.run_pipeline`` with the
 same stage order, checkpoint keys and result fields. The host stages
-(ingest, k-mer encode, doc-freq index, bit packing) are the JAX
-package's own numpy/C++ modules, imported — they load no JAX. The same
-``PipelineConfig.cache_key`` and ``CheckpointStore`` are used, so a
-checkpoint directory written by either package resumes in the other.
+(ingest, k-mer encode, doc-freq index, bit packing) are the port's own
+copies of the JAX package's numpy/C++ modules (``io/``, ``kmers/``,
+``utils/``, ``config.py``), with the same ``PipelineConfig.cache_key``
+and ``CheckpointStore`` format, so a checkpoint directory written by
+either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -19,20 +20,23 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
-from uniprot_kmer_based_clustering_tpu.io.fasta import ProteinTable, read_fasta
-from uniprot_kmer_based_clustering_tpu.kmers.bitset import (
-    BitsetMatrix,
-    pack_bitsets,
-)
-from uniprot_kmer_based_clustering_tpu.kmers.encode import encode_kmers
-from uniprot_kmer_based_clustering_tpu.kmers.index import KmerIndex, build_index
-from uniprot_kmer_based_clustering_tpu.utils.blosum import rank_weights_int8
-from uniprot_kmer_based_clustering_tpu.utils.checkpoint import CheckpointStore
-from uniprot_kmer_based_clustering_tpu.utils.timing import StageTimers
+from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.device import (
     resolve_device,
     synchronize,
+)
+from uniprot_kmer_based_clustering_tpu_torch.io.fasta import (
+    ProteinTable,
+    read_fasta,
+)
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+    BitsetMatrix,
+    pack_bitsets,
+)
+from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import encode_kmers
+from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (
+    KmerIndex,
+    build_index,
 )
 from uniprot_kmer_based_clustering_tpu_torch.models.components import (
     connected_components,
@@ -42,6 +46,13 @@ from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
     check_supported,
     pairwise_similarity,
 )
+from uniprot_kmer_based_clustering_tpu_torch.utils.blosum import (
+    rank_weights_int8,
+)
+from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
+    CheckpointStore,
+)
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import StageTimers
 
 
 @dataclasses.dataclass

@@ -28,9 +28,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from uniprot_kmer_based_clustering_tpu.config import PipelineConfig
-from uniprot_kmer_based_clustering_tpu.kmers.bitset import BitsetMatrix
+from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+from uniprot_kmer_based_clustering_tpu_torch.io import native
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import BitsetMatrix
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     FusedCandidates,
     int8_gemm,
@@ -341,12 +342,10 @@ def extract_pairs_fused(
 
 def _pairwise_native(bitset, classes, config, threshold, index=None,
                      weights=None) -> PairwiseResult:
-    """Threaded C++ host sweep through the shared ``io.native`` runtime:
+    """Threaded C++ host sweep through the ``io.native`` runtime:
     the sparse Gustavson sweep when the host index's incidence lists
     exist (it carries the BLOSUM weighting), else the dense popcount
     sweep (unweighted only)."""
-    from uniprot_kmer_based_clustering_tpu.io import native
-
     out = None
     if index is not None and index.has_incidences:
         out = native.sparse_sweep(
@@ -374,8 +373,8 @@ def _pairwise_native(bitset, classes, config, threshold, index=None,
         )
     if out is None:
         raise RuntimeError(
-            "engine='native' requires the C++ runtime; build it with "
-            "`make -C native` or pick engine='mxu'"
+            "engine='native' requires the C++ runtime, which failed to "
+            "build or load (it needs g++); pick engine='mxu'"
         )
     row_stats, pairs = out
     return PairwiseResult.from_row_stats(
@@ -438,13 +437,9 @@ def pairwise_similarity(
     if engine == "auto":
         engine = "mxu"
         if device.type == "cpu":
-            from uniprot_kmer_based_clustering_tpu.io import native
-
             if native.available():
                 engine = "native"
     if weights is not None and engine == "native":
-        from uniprot_kmer_based_clustering_tpu.io import native
-
         if not (index is not None and index.has_incidences
                 and native.available()):
             engine = "mxu"

@@ -2,8 +2,8 @@
 
 This system has no weights; its device state is the packed presence
 matrix, the per-protein AMR classes and the optional BLOSUM column
-weights. All three are built by the JAX package's host stages (numpy /
-C++) and cross over here unchanged.
+weights. All three are built by the host stages (numpy / C++) and cross
+over here unchanged.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uniprot_kmer_based_clustering_tpu.kmers.bitset import BitsetMatrix
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import BitsetMatrix
 
 
 def bitset_to_torch(bitset: BitsetMatrix, device) -> torch.Tensor:
