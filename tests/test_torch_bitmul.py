@@ -251,3 +251,36 @@ def test_subtile_candidates_match_jax():
         assert cands(*want) == cands(*(x.numpy() for x in got))
         assert (np.asarray(got[2][sub]) >= 0).sum() == mask.reshape(
             2, 16, 3, 16).transpose(0, 2, 1, 3).reshape(6, -1)[sub].sum()
+
+
+@pytest.mark.parametrize("block", [512, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("schedule", ["strips", "scan"])
+def test_sweep_loops_write_the_jax_sweep(small_case, schedule, weighted,
+                                         block):
+    """_strip_sweep (K1 into each strip's rows, one call a strip) and
+    _scan_sweep (K2 into the accumulators, one call a step), called
+    directly, leave in their sweep-wide buffers what the JAX sweep_mxu
+    returns."""
+    words, classes, n, wts = small_case
+    thr = 900 if weighted else 35
+    want = jbm.sweep_mxu(jnp.asarray(words), jnp.asarray(classes), n, thr,
+                         strip=512, block=block, schedule=schedule,
+                         weights=wts if weighted else None)
+    kw = dict(n=n, threshold=thr, block=block, w_thresh=1, word_chunk=0,
+              stats_engine="pallas")
+    w = torch.from_numpy(wts) if weighted else None
+    if schedule == "strips":
+        rs, bh = tbm._strip_sweep(_t(words), torch.from_numpy(classes), w,
+                                  strip=512, **kw)
+    else:
+        pairs = (np.stack(np.triu_indices(3), axis=1) * 512).astype(np.int32)
+        rs, bh, ys = tbm._scan_sweep(_t(words), torch.from_numpy(classes), w,
+                                     pairs, bs=512, fused_k=0,
+                                     fused_same=False, **kw)
+        assert ys is None
+    ti, tj, b = want[2]
+    assert b == block and bh.shape == (1536 // block, 1536 // block, 2)
+    assert np.array_equal(want[0], rs.numpy().astype(np.int64))
+    assert np.array_equal(want[1], bh.numpy()[ti, tj])
+    assert want[1][:, 0].sum() > 0

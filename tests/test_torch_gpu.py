@@ -55,13 +55,13 @@ def test_k1_matches_reference(cuda, i0, signed, tile):
     ).to(cuda)
     cls = torch.from_numpy(rng.integers(0, 4, s).astype(np.int32)).to(cuda)
     kw = dict(i_off=i0, j_off=i0, n=n, threshold=thr, w_thresh=wt, tile=tile)
-    before = stats.stats_from_counts.launches
+    before = stats.stats_from_counts_into.launches
     rs, th, _ = stats.stats_from_counts(counts, cls[: tile * 2], cls, **kw)
     rs_ref, th_ref, _ = stats.stats_from_counts_reference(
         counts, cls[: tile * 2], cls, **kw
     )
     torch.cuda.synchronize()
-    assert stats.stats_from_counts.launches == before + 1
+    assert stats.stats_from_counts_into.launches == before + 1
     assert torch.equal(rs, rs_ref)
     assert torch.equal(th, th_ref)
     assert int(th.sum()) > 0
@@ -104,9 +104,9 @@ def test_pipeline_gpu_matches_cpu(cuda, synth_fasta, weighting):
     """5 strips of 256 rows, tile 128: K1 launches once per strip."""
     cfg = PipelineConfig(engine="mxu", tile=128, strip=256,
                          weighting=weighting)
-    before = stats.stats_from_counts.launches
+    before = stats.stats_from_counts_into.launches
     gpu = run_pipeline(synth_fasta, cfg, device=cuda)
-    assert stats.stats_from_counts.launches == before + 5
+    assert stats.stats_from_counts_into.launches == before + 5
     cpu = run_pipeline(synth_fasta, cfg, device="cpu")
     assert gpu.parity_report() == cpu.parity_report()
     assert gpu.parity_report()["pairs_over_threshold"] > 0
@@ -126,16 +126,185 @@ def test_k2_matches_reference(cuda, i0, j0, signed):
     cls = torch.from_numpy(rng.integers(0, 4, 2048).astype(np.int32)).to(cuda)
     ca, cb = cls[i0 : i0 + 1024], cls[j0 : j0 + 1024]
     kw = dict(n=1900, threshold=thr, w_thresh=wt, tile=512)
-    before = stats.stats_from_counts_traced.launches
+    before = stats.stats_from_counts_traced_into.launches
     rs, bh = stats.stats_from_counts_traced(counts, ca, cb, i0, j0, **kw)
     rs_ref, bh_ref = stats.stats_from_counts_traced_reference(
         counts, ca, cb, i0, j0, **kw
     )
     torch.cuda.synchronize()
-    assert stats.stats_from_counts_traced.launches == before + 1
+    assert stats.stats_from_counts_traced_into.launches == before + 1
     assert torch.equal(rs, rs_ref)
     assert torch.equal(bh, bh_ref)
     assert int(bh.sum()) > 0
+
+
+# (s, j, i_off, j_off, n, tile) of the accumulate-into cases: strips 0 and
+# 6 of the 10,619-protein sweep, a ragged n, the scalar-load path (tile
+# 96, rows above the block's first column), and for K2 a block wholly
+# below the pair diagonal
+_INTO_CASES = {
+    "strip0": (1536, 10752, 0, 0, 10619, 512),
+    "strip6": (1536, 1536, 9216, 9216, 10619, 512),
+    "ragged": (1024, 2048, 512, 512, 1999, 512),
+    "tile96": (480, 960, 96, 192, 1000, 96),
+    "below": (512, 512, 1024, 0, 2000, 512),
+}
+
+
+def _into_case(cuda, name, signed):
+    """Counts, classes and NON-ZERO accumulators: row stats in [0, 1000)
+    (max lanes ≥ 0, as accumulators that start at 0 keep them) and a
+    block_hits two tiles wider and one taller than the block, so the view
+    handed over sits at tile offset (1, 2)."""
+    s, j, i_off, j_off, n, tile = _INTO_CASES[name]
+    rng = np.random.default_rng(len(name) + 3 * signed)
+    lo, hi, thr, wt = (-50, 400, 100, 5) if signed else (0, 40, 10, 1)
+
+    def dev(x):
+        return torch.from_numpy(x.astype(np.int32)).to(cuda)
+
+    counts = dev(rng.integers(lo, hi, (s, j)))
+    ca, cb = dev(rng.integers(0, 4, s)), dev(rng.integers(0, 4, j))
+    rs0 = dev(rng.integers(0, 1000, (s, 8)))
+    bh0 = dev(rng.integers(0, 9, (s // tile + 1, j // tile + 2, 2)))
+    kw = dict(n=n, threshold=thr, w_thresh=wt, tile=tile)
+    return counts, ca, cb, rs0, bh0, i_off, j_off, kw
+
+
+@pytest.mark.parametrize("name", ["strip0", "strip6", "ragged", "tile96"])
+@pytest.mark.parametrize("signed", [False, True])
+def test_k1_into_matches_reference(cuda, name, signed):
+    """K1 into a strip stores its rows over whatever row_stats held and
+    adds its tile hits into the block_hits view, exactly as its plain
+    version does."""
+    counts, ca, cb, rs0, bh0, i_off, j_off, kw = _into_case(cuda, name,
+                                                            signed)
+    got, want = (rs0.clone(), bh0.clone()), (rs0.clone(), bh0.clone())
+    before = stats.stats_from_counts_into.launches
+    stats.stats_from_counts_into(counts, ca, cb, got[0], got[1][1:, 2:],
+                                 i_off=i_off, j_off=j_off, **kw)
+    stats.stats_from_counts_into_reference(counts, ca, cb, want[0],
+                                           want[1][1:, 2:], i_off=i_off,
+                                           j_off=j_off, **kw)
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_into.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert not torch.equal(got[1], bh0)
+
+
+@pytest.mark.parametrize("name", list(_INTO_CASES))
+@pytest.mark.parametrize("signed", [False, True])
+def test_k2_into_matches_reference(cuda, name, signed):
+    """K2 merges into non-zero accumulators (sums added, max lanes by
+    max) exactly as its plain version; a block wholly below the diagonal
+    leaves them as they were."""
+    counts, ca, cb, rs0, bh0, i_off, j_off, kw = _into_case(cuda, name,
+                                                            signed)
+    got, want = (rs0.clone(), bh0.clone()), (rs0.clone(), bh0.clone())
+    before = stats.stats_from_counts_traced_into.launches
+    stats.stats_from_counts_traced_into(counts, ca, cb, got[0],
+                                        got[1][1:, 2:], i_off, j_off, **kw)
+    stats.stats_from_counts_traced_into_reference(
+        counts, ca, cb, want[0], want[1][1:, 2:], i_off, j_off, **kw)
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_traced_into.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    if name == "below":
+        assert torch.equal(got[0], rs0) and torch.equal(got[1], bh0)
+    else:
+        assert not torch.equal(got[1], bh0)
+
+
+def test_epilogue_repeats_exactly(cuda):
+    """Two identical calls of each entry give identical results: integer
+    atomics merge to the same sums in any order."""
+    counts, ca, cb, rs0, bh0, i_off, j_off, kw = _into_case(cuda, "ragged",
+                                                            True)
+    runs = []
+    for _ in range(2):
+        k1 = (rs0.clone(), bh0.clone())
+        k2 = (rs0.clone(), bh0.clone())
+        stats.stats_from_counts_into(counts, ca, cb, k1[0], k1[1][1:, 2:],
+                                     i_off=i_off, j_off=j_off, **kw)
+        stats.stats_from_counts_traced_into(counts, ca, cb, k2[0],
+                                            k2[1][1:, 2:], i_off, j_off,
+                                            **kw)
+        runs.append(k1 + k2)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_epilogue_wrappers_do_not_synchronise(cuda):
+    """Every K1/K2 wrapper, the public ones with fresh outputs included,
+    runs under torch.cuda.set_sync_debug_mode("error"): no host copy, no
+    .item(), no stream synchronisation."""
+    counts, ca, cb, rs0, bh0, i_off, j_off, kw = _into_case(cuda, "ragged",
+                                                            False)
+    stats.stats_from_counts(counts, ca, cb, i_off=i_off, j_off=j_off, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k1 = stats.stats_from_counts(counts, ca, cb, i_off=i_off,
+                                     j_off=j_off, **kw)
+        k2 = stats.stats_from_counts_traced(counts, ca, cb, i_off, j_off,
+                                            **kw)
+        stats.stats_from_counts_into(counts, ca, cb, rs0, bh0[1:, 2:],
+                                     i_off=i_off, j_off=j_off, **kw)
+        stats.stats_from_counts_traced_into(counts, ca, cb, rs0, bh0[1:, 2:],
+                                            i_off, j_off, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want1 = stats.stats_from_counts_reference(counts, ca, cb, i_off=i_off,
+                                              j_off=j_off, **kw)
+    want2 = stats.stats_from_counts_traced_reference(counts, ca, cb, i_off,
+                                                     j_off, **kw)
+    assert torch.equal(k1[0], want1[0]) and torch.equal(k1[1], want1[1])
+    assert torch.equal(k2[0], want2[0]) and torch.equal(k2[1], want2[1])
+
+
+@pytest.mark.parametrize("schedule", ["strips", "scan", "fused"])
+def test_sweep_loops_do_not_synchronise(cuda, schedule):
+    """The strip loop (K1 once a strip) and the scan loop (K2 once a step,
+    with fused candidates too) run under
+    torch.cuda.set_sync_debug_mode("error") up to the sweep's final
+    device→host copy, and give the CPU loops' statistics."""
+    rng = np.random.default_rng(12)
+    words = rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words[1500:] = 0
+    cls = torch.from_numpy(rng.integers(0, 4, 1536).astype(np.int32))
+    w = torch.from_numpy(words.view(np.int32))
+    kw = dict(n=1500, threshold=35, block=512, w_thresh=1, word_chunk=0,
+              stats_engine="pallas")
+    pairs = (np.stack(np.triu_indices(3), axis=1) * 512).astype(np.int32)
+
+    def loop(ww, cc):
+        if schedule == "strips":
+            return bitmul._strip_sweep(ww, cc, None, strip=512, **kw)
+        return bitmul._scan_sweep(
+            ww, cc, None, pairs, bs=512, fused_same=False,
+            fused_k=4096 if schedule == "fused" else 0, **kw)[:2]
+
+    want = loop(w, cls)
+    ww, cc = w.to(cuda), cls.to(cuda)
+    loop(ww, cc)
+    torch.cuda.synchronize()
+    before = (stats.stats_from_counts_into.launches,
+              stats.stats_from_counts_traced_into.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = loop(ww, cc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = (stats.stats_from_counts_into.launches - before[0],
+                stats.stats_from_counts_traced_into.launches - before[1])
+    assert launched == ((3, 0) if schedule == "strips" else (0, 6))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.parametrize("tile", [128, 96])
@@ -178,11 +347,11 @@ def test_scan_and_fused_gpu_match_cpu(cuda, weighted):
     kw = dict(strip=512, schedule="scan", weights=wts, fused_k=4096)
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        before = stats.stats_from_counts_traced.launches
+        before = stats.stats_from_counts_traced_into.launches
         rs, th, tiles, cands = bitmul.sweep_mxu(
             t.to(dev), torch.from_numpy(cls).to(dev), 1500, thr, **kw
         )
-        launched = stats.stats_from_counts_traced.launches - before
+        launched = stats.stats_from_counts_traced_into.launches - before
         pairs = pairwise.extract_pairs_fused(
             t.to(dev), cls, th, tiles, cands, n=1500, threshold=thr,
             weights=wts,

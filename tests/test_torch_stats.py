@@ -51,7 +51,7 @@ def _both(counts, crow, ccol, **kw):
 
 def test_stats_square_matches_pallas(small_case):
     classes, n, counts, _ = small_case
-    before = tstats.stats_from_counts.launches
+    before = tstats.stats_from_counts_into.launches
     (rs_j, th_j), (rs_t, th_t) = _both(
         counts, classes, classes, i_off=0, j_off=0, n=n, threshold=10
     )
@@ -60,7 +60,7 @@ def test_stats_square_matches_pallas(small_case):
     assert np.array_equal(rs_j, rs_t)
     assert np.array_equal(th_j, th_t)
     # the CPU route is the plain version: no kernel launch is counted
-    assert tstats.stats_from_counts.launches == before
+    assert tstats.stats_from_counts_into.launches == before
 
 
 @pytest.mark.parametrize("si", [0, 1, 2])
@@ -164,14 +164,108 @@ def test_traced_stats_match_pallas(small_case, weighted, block):
         jnp.asarray(blk), ca, cb, jnp.int32(i0), jnp.int32(j0),
         interpret=True, **kw
     )
-    before = tstats.stats_from_counts_traced.launches
+    before = tstats.stats_from_counts_traced_into.launches
     rs_t, bh_t = tstats.stats_from_counts_traced(
         torch.from_numpy(blk), torch.from_numpy(ca), torch.from_numpy(cb),
         i0, j0, **kw
     )
-    assert tstats.stats_from_counts_traced.launches == before
+    assert tstats.stats_from_counts_traced_into.launches == before
     assert rs_t.dtype == torch.int32 and rs_t.shape == (s, 8)
     assert bh_t.dtype == torch.int32 and bh_t.shape == (s // 512, j // 512, 2)
     assert int(bh_t.sum()) > 0
     assert np.array_equal(np.asarray(rs_j), rs_t.numpy())
     assert np.array_equal(np.asarray(bh_j), bh_t.numpy())
+
+
+@pytest.mark.parametrize("tile", [512, 96])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("offsets", [(0, 0), (512, 512), (0, 1024)],
+                         ids=["square", "diagonal", "off_diagonal"])
+@pytest.mark.parametrize("entry", ["k1", "k2"])
+def test_into_matches_pallas_then_merge(small_case, entry, offsets,
+                                        weighted, tile):
+    """The plain accumulate-into versions (the CPU route of the entries the
+    sweeps call) against the JAX kernels (interpret mode) followed by the
+    JAX merge: K1 stores the block's rows and adds the kept tiles' hits,
+    K2 merges into NON-ZERO accumulators by merge_row_stats_at and adds
+    every tile's hits. The block_hits view sits at tile offset (1, 2) of
+    a larger buffer. Weighted: signed counts, w_thresh 5."""
+    from uniprot_kmer_based_clustering_tpu.ops.bitmul import (
+        merge_row_stats_at as jmerge,
+    )
+
+    classes, n, counts, counts_w = small_case
+    i0, j0 = offsets
+    s, j = 512 // tile * tile, (1536 - j0) // tile * tile
+    blk = np.ascontiguousarray(
+        (counts_w if weighted else counts)[i0 : i0 + s, j0 : j0 + j]
+    )
+    kw = dict(n=n, threshold=100 if weighted else 10,
+              w_thresh=5 if weighted else 1, tile=tile)
+    ca, cb = classes[i0 : i0 + s], classes[j0 : j0 + j]
+    rng = np.random.default_rng(i0 + j0 + tile + weighted)
+    rows0 = rng.integers(0, 1000, (s, 8)).astype(np.int32)
+    hits0 = rng.integers(0, 9, (s // tile + 1, j // tile + 2, 2)).astype(
+        np.int32)
+    want_hits = hits0.copy()
+    if entry == "k1":
+        rs_j, th_j, (ti, tj, _) = jstats.stats_from_counts(
+            jnp.asarray(blk), ca, cb, i_off=i0, j_off=j0, interpret=True,
+            **kw
+        )
+        want_rows = np.asarray(rs_j)
+        np.add.at(want_hits, (1 + ti, 2 + tj), np.asarray(th_j))
+        fn = tstats.stats_from_counts_into
+    else:
+        rs_j, bh_j = jstats.stats_from_counts_traced(
+            jnp.asarray(blk), ca, cb, jnp.int32(i0), jnp.int32(j0),
+            interpret=True, **kw
+        )
+        want_rows = np.asarray(jmerge(jnp.asarray(rows0), rs_j, 0))
+        want_hits[1:, 2:] += np.asarray(bh_j)
+        fn = tstats.stats_from_counts_traced_into
+    before = fn.launches
+    rows, hits = torch.from_numpy(rows0.copy()), torch.from_numpy(hits0.copy())
+    out = fn(torch.from_numpy(blk), torch.from_numpy(ca), torch.from_numpy(cb),
+             rows, hits[1:, 2:], i_off=i0, j_off=j0, **kw)
+    assert fn.launches == before
+    assert out[0] is rows
+    assert np.array_equal(want_rows, rows.numpy())
+    assert np.array_equal(want_hits, hits.numpy())
+    assert not np.array_equal(hits0, want_hits)
+
+
+@pytest.mark.parametrize("tile", [96, 128, 512])
+def test_kept_tile_rule_matches_jax(tile):
+    """The arithmetic kept-tile rule (first_kept_tile, kept_tile_mask from
+    device aranges) lists exactly the JAX stats_tiles over a grid of
+    offsets and shapes, the kept tiles' hits are selected from a dense
+    block_hits in that order, and the keeps-no-tile refusal fires exactly
+    where the JAX tile walk's coverage check does."""
+    rng = np.random.default_rng(tile)
+    offs = [0, 1, tile // 2, tile - 1, tile, tile + 1, 3 * tile - 5,
+            5 * tile, 7 * tile + 3]
+    checked = refused = 0
+    for nti, ntj in [(1, 1), (2, 3), (4, 2), (3, 7)]:
+        s, j = nti * tile, ntj * tile
+        bh = torch.from_numpy(
+            rng.integers(0, 100, (nti, ntj, 2)).astype(np.int32))
+        for i_off in offs:
+            for j_off in offs:
+                ti, tj = jstats.stats_tiles(s, j, i_off, j_off, tile)
+                mask = tstats.kept_tile_mask(nti, ntj, i_off, j_off, tile)
+                got_ti, got_tj = np.nonzero(mask.numpy())
+                assert np.array_equal(ti, got_ti), (s, j, i_off, j_off)
+                assert np.array_equal(tj, got_tj), (s, j, i_off, j_off)
+                assert np.array_equal(
+                    tstats._kept_hits(bh, i_off, j_off, tile, len(ti)).numpy(),
+                    bh.numpy()[ti, tj],
+                )
+                if len(np.unique(ti)) == nti:
+                    tstats._check_kept(s, j, i_off, j_off, tile)
+                else:
+                    refused += 1
+                    with pytest.raises(ValueError, match="keep no tile"):
+                        tstats._check_kept(s, j, i_off, j_off, tile)
+                checked += 1
+    assert checked == 4 * len(offs) ** 2 and 0 < refused < checked

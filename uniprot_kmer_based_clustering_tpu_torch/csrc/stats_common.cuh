@@ -1,7 +1,9 @@
 // The eight row-statistic lanes shared by K1/K2 (stats_epilogue.cu), K3
-// (tri_mxu.cu) and K4 (popcount_sweep.cu): one definition of what a pair
-// contributes, how a row's partial lanes reduce across lanes of a warp, and
-// how they merge into row_stats.
+// (tri_mxu.cu) and K4 (popcount_sweep.cu): what a pair contributes (visit;
+// K1/K2, which know a row's valid range, count interior pairs with a
+// branch-free form of it), how a row's partial lanes reduce across lanes of
+// a warp, and how they merge into row_stats (by atomics, or by a store
+// where one launch owns the row).
 //
 // Per stationary row, over the pairs with valid = gi < gj && gj < n, split
 // cross/same by class inequality:
@@ -68,6 +70,29 @@ __device__ __forceinline__ RowAcc reduce_row(const RowAcc& a) {
           warp_sum<kWidth>(a.co), warp_max<kWidth>(a.cm),
           warp_sum<kWidth>(a.sw), warp_sum<kWidth>(a.sp),
           warp_sum<kWidth>(a.so), warp_max<kWidth>(a.sm)};
+}
+
+// reduce_row over the whole warp with redux.sync (sm_80+): one instruction
+// a lane where the shuffle tree takes five. Every lane of the warp calls.
+__device__ __forceinline__ RowAcc redux_row(const RowAcc& a) {
+  const unsigned all = 0xffffffffu;
+  return {__reduce_add_sync(all, a.cw), __reduce_add_sync(all, a.cp),
+          __reduce_add_sync(all, a.co), __reduce_max_sync(all, a.cm),
+          __reduce_add_sync(all, a.sw), __reduce_add_sync(all, a.sp),
+          __reduce_add_sync(all, a.so), __reduce_max_sync(all, a.sm)};
+}
+
+// Store a reduced row into its row_stats entry (int32 [8]), replacing what
+// was there: for a launch that owns the whole row.
+__device__ __forceinline__ void store_row(int* out, const RowAcc& a) {
+  out[0] = static_cast<int>(a.cw);
+  out[1] = static_cast<int>(a.cp);
+  out[2] = static_cast<int>(a.co);
+  out[3] = a.cm;
+  out[4] = static_cast<int>(a.sw);
+  out[5] = static_cast<int>(a.sp);
+  out[6] = static_cast<int>(a.so);
+  out[7] = a.sm;
 }
 
 __device__ __forceinline__ void add_lane(int* p, unsigned v) {

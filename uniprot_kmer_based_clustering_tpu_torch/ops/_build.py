@@ -36,16 +36,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+# the two statistics epilogue entries: counts, ld, s, j, classes_row,
+# classes_col, tile, i_off, j_off, n, threshold, w_thresh, row_stats,
+# block_hits, hits_ld, stream
+_STATS_INTO = [_P, _L, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P]
 # C signature of every exported entry point (all return int: cudaError_t)
 _SIGNATURES = {
-    "ukc_stats_epilogue": [
-        _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P,
-    ],
-    "ukc_stats_epilogue_traced": [
-        _P, ctypes.c_longlong, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P,
-    ],
+    "ukc_stats_epilogue_into": _STATS_INTO,
+    "ukc_stats_epilogue_traced_into": _STATS_INTO,
     "ukc_popcount_sweep": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ukc_tri_mxu_sweep": [
         _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,

@@ -14,13 +14,17 @@ strips):
 
 - strips: stationary strip s meets only its column suffix j ≥ s·strip,
   and each strip's counts block goes through the K1 epilogue
-  (``ops.stats.stats_from_counts``). Without contraction chunking the bit
-  matrix is unpacked once per sweep and sliced per strip.
+  (``ops.stats.stats_from_counts_into``: one launch that stores the
+  strip's rows and adds its tile hits into the sweep's buffers). Without
+  contraction chunking the bit matrix is unpacked once per sweep and
+  sliced per strip.
 - scan: equal [bs, bs] block pairs of the upper triangle, one Python
   loop step each (the JAX package's ``lax.scan``), with the K2 epilogue
-  (``ops.stats.stats_from_counts_traced``) and the stats accumulated on
-  the device. Each step unpacks its two row windows (the stationary one
-  is reused while the row stays the same). With ``fused_k`` each step
+  (``ops.stats.stats_from_counts_traced_into``: one launch that merges
+  the block into the device accumulators). Each step unpacks its two row
+  windows (the stationary one is reused while the row stays the same).
+  Neither loop copies from the host or synchronises; the sweep ends in
+  the copies of its two outputs to the host. With ``fused_k`` each step
   also keeps its surviving pairs as per-sub-tile ``torch.topk``
   candidates (:class:`FusedCandidates`), for
   ``similarity.pairwise.extract_pairs_fused``.
@@ -43,8 +47,8 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (  # noqa: F401
     merge_row_stats_at,
     pair_block_stats,
     stack_row_stats,
-    stats_from_counts,
-    stats_from_counts_traced,
+    stats_from_counts_into,
+    stats_from_counts_traced_into,
     stats_tiles,
 )
 
@@ -317,15 +321,18 @@ def _scan_sweep(words, classes, weights, pairs_ij, *, bs: int, n: int,
                     words[j0 : j0 + bs], weights))
         ca, cb = classes[i0 : i0 + bs], classes[j0 : j0 + bs]
         if stats_engine == "pallas":
-            rs, bh = stats_from_counts_traced(
-                counts, ca, cb, i0, j0, n=n, threshold=threshold,
-                w_thresh=w_thresh, tile=block,
+            stats_from_counts_traced_into(
+                counts, ca, cb, row_stats[i0 : i0 + bs],
+                block_hits[i0 // block :, j0 // block :], i0, j0, n=n,
+                threshold=threshold, w_thresh=w_thresh, tile=block,
             )
         else:
             rs, bh, _, _ = pair_block_stats(
                 counts, ca, cb, i0, j0, n=n, threshold=threshold,
                 block=block, w_thresh=w_thresh,
             )
+            accumulate_pair_block(row_stats, block_hits, rs, bh, i0, j0,
+                                  block=block)
         if fused_k:
             em = survivor_mask(counts, ca, cb, i0, j0, n=n,
                                threshold=threshold, include_same=fused_same)
@@ -334,8 +341,6 @@ def _scan_sweep(words, classes, weights, pairs_ij, *, bs: int, n: int,
             )
             for buf, part in zip(ys, cand):
                 buf[p] = part
-        accumulate_pair_block(row_stats, block_hits, rs, bh, i0, j0,
-                              block=block)
         del counts
     return row_stats, block_hits, ys
 
@@ -368,20 +373,18 @@ def _strip_sweep(words, classes, weights, *, strip: int, n: int,
         ca, cb = classes[i0 : i0 + strip], classes[i0:]
         gb = i0 // block
         if stats_engine == "pallas":
-            rs, th, (lti, ltj, _) = stats_from_counts(
-                counts, ca, cb, i_off=i0, j_off=i0, n=n,
+            stats_from_counts_into(
+                counts, ca, cb, row_stats[i0 : i0 + strip],
+                block_hits[gb:, gb:], i_off=i0, j_off=i0, n=n,
                 threshold=threshold, w_thresh=w_thresh, tile=block,
             )
-            sel_i = torch.from_numpy(gb + lti.astype(np.int64)).to(dev)
-            sel_j = torch.from_numpy(gb + ltj.astype(np.int64)).to(dev)
-            block_hits[sel_i, sel_j] = th
         else:
             rs, bh, _, _ = pair_block_stats(
                 counts, ca, cb, i0, i0, n=n, threshold=threshold,
                 block=block, w_thresh=w_thresh,
             )
             block_hits[gb : gb + strip // block, gb:] = bh
-        row_stats[i0 : i0 + strip] = rs
+            row_stats[i0 : i0 + strip] = rs
         del counts
     return row_stats, block_hits
 
@@ -489,11 +492,9 @@ def sweep_mxu(
             words, classes, weights, strip=strip, **common,
         )
     ti, tj = upper_triangle_tiles(n_pad, block)
-    sel_i = torch.from_numpy(ti.astype(np.int64)).to(dev)
-    sel_j = torch.from_numpy(tj.astype(np.int64)).to(dev)
     out = (
         row_stats.cpu().numpy().astype(np.int64),
-        block_hits[sel_i, sel_j].cpu().numpy(),
+        block_hits.cpu().numpy()[ti, tj],
         (ti, tj, block),
     )
     return out + (cands,) if fused_requested else out
