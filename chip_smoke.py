@@ -27,7 +27,20 @@ csrc`` with nvcc (one process per source, in parallel), then:
    beside back-to-back calls and their needed-bytes bound, and the
    epilogue of one sweep: what the strip sweep launches on its 7 strips
    and the scan on its 45 steps, summed;
-4. K3 phase — the fused triangle sweep through its library entry
+4. stream phase — the out-of-core stream engine at 30,000 proteins:
+   ``cli run --engine stream`` (two-pass) and ``cli run --engine stream
+   --stream-source csr`` (packless, one-pass), each against the scipy
+   oracle with K2 launched once a stream step and no other kernel; then,
+   through the library entries on the host state, the warm stream sweep
+   beside the in-core scan, the fused mode, the grouped extractor, one
+   pass from both block sources, a sweep under a 2 GiB budget (the 3.67
+   GB matrix cannot be resident: several stationary groups, peak device
+   memory below the matrix's bytes) and a kill and resume of the one-pass
+   sweep under that budget, each equal to the in-core scan's statistics
+   and the oracle's pair list; K2 against its plain version on one
+   stream-step block; upload, dispatch, drain and fetch seconds, the
+   bytes uploaded and the host→device rates;
+5. K3 phase — the fused triangle sweep through its library entry
    ``ops.tri_mxu.sweep_tri_mxu`` (counters reset before each call and
    read after it: K3 once): at 10,619 proteins int8 and bf16, unweighted
    and BLOSUM-weighted (the bf16 guard's verdict printed; a refusal must
@@ -74,6 +87,9 @@ HBM_BYTES_S = 3.35e12
 TC_OPS_PER_CLOCK_SM = {"int8": 8192, "bfloat16": 4096}
 SPEC_PEAK_OPS_S = {"int8": 1979e12, "bfloat16": 989e12}  # spec sheet, dense
 POPC_PER_CLOCK_SM = 16
+# the stream phase's small budget: less than the 30k corpus's packed
+# matrix (3.67 GB), so the matrix cannot be resident
+STREAM_SMALL_BUDGET = 2 << 30
 
 
 def nvidia_smi_line(fields: str = "name,power.limit") -> str:
@@ -379,8 +395,10 @@ def oracle(state, label: str):
 def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
     """One `cli run --device cuda` of the main path: every launch counter
     is set to 0 just before it and read just after; each kernel must have
-    launched exactly as ``expect`` says, and pairs.tsv and the parity
-    counters must equal the oracle. Returns the launch counts."""
+    launched exactly as ``expect`` says (a dict, or a function read after
+    the run, for counts the run's own trace reports), and pairs.tsv and
+    the parity counters must equal the oracle. Returns the launch
+    counts."""
     import numpy as np
 
     from uniprot_kmer_based_clustering_tpu_torch import cli
@@ -392,6 +410,8 @@ def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
     launches = {k: fn.launches for k, fn in fns.items()}
     if rc != 0:
         raise AssertionError(f"cli run {flags} returned {rc}")
+    if callable(expect):
+        expect = expect()
     with open(os.path.join(out, "stats.json")) as f:
         run_stats = json.load(f)
     pairs = read_pairs_tsv(os.path.join(out, "pairs.tsv"))
@@ -463,7 +483,8 @@ def pipeline_phase(dev, tmp):
         got = cli_run(dev, fasta30, out, ["--extract", extract], want30,
                       pairs30, {"K1": 0, "K2": steps, "K3": 0, "K4": 0})
         launches["K2"] = got["K2"]
-    return state10, pairs10, state30, pairs30, launches
+    return (state10, pairs10, state30, pairs30, launches,
+            dict(fasta=fasta30, out=out, want=want30))
 
 
 def popc_bound_ms(pairs: int, words: int, sm_mhz: float) -> float:
@@ -613,6 +634,302 @@ def k2_phase(dev, state):
           f"({needed_pairs(s, s, i0, j0, n)} needed counts): "
           f"{epilogue_line(t)}", flush=True)
     return dict(err=worst, **t)
+
+
+def stream_phase(dev, tmp, state, want_pairs, run30, scan_s):
+    """The out-of-core stream engine at 30,000 proteins (see the module
+    docstring, phase 4). ``run30`` carries the corpus's FASTA, the output
+    directory and the oracle's counters; ``scan_s`` is the warm in-core
+    scan sweep's seconds, printed beside the stream sweep's. Returns K2's
+    launches on the stream path and its worst error against the plain
+    version."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import (
+        bitmul,
+        stats,
+        stream,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
+        CheckpointStore,
+    )
+
+    t_phase = time.perf_counter()
+    table, index, bitset = state
+    n, n_pad = table.n, bitset.n_pad
+    words_host = bitset.words
+    matrix_bytes = words_host.nbytes
+    classes = np.full(n_pad, -1, np.int32)
+    classes[:n] = table.amr_class_ids
+    want_counters = run30["want"]
+
+    # the two `cli run`s: K2 once a stream step, nothing else
+    def expect_steps(trace_of):
+        def expect():
+            tr = trace_of()
+            if tr["steps"] != tr["nbk"] * (tr["nbk"] + 1) // 2:
+                raise AssertionError(f"stream steps {tr['steps']} are not "
+                                     f"one full sweep of {tr['nbk']} blocks")
+            return {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}
+        return expect
+
+    launches = {}
+    for flags, trace_of in (
+        (["--engine", "stream"], lambda: stream.last_trace),
+        (["--engine", "stream", "--stream-source", "csr"],
+         lambda: stream.last_onepass_trace),
+    ):
+        got = cli_run(dev, run30["fasta"], run30["out"], flags, want_counters,
+                      want_pairs, expect_steps(trace_of))
+        tr = trace_of()
+        print(f"  stream blocking of that run: bs {tr['bs']}, nbk "
+              f"{tr['nbk']}, g {tr['g']}, word_chunk {tr['word_chunk']}, "
+              f"steps {tr['steps']}, uploads {tr['uploads']}"
+              + (f", one-pass capacity {tr['vcap']} rows, overflow "
+                 f"{tr['overflow']}" if "vcap" in tr else ""), flush=True)
+        launches[" ".join(flags[2:]) or "host"] = got["K2"]
+
+    # the in-core scan's statistics, the yardstick of every stream run
+    words = bitset_to_torch(bitset, dev)
+    rs_ref, th_ref, tiles_ref = bitmul.sweep_mxu(
+        words, classes_to_torch(table.amr_class_ids, n_pad, dev), n,
+        THRESHOLD)
+    del words
+    torch.cuda.empty_cache()
+    nb_ref = n_pad // 512
+
+    def stats_err(rs, th, tiles):
+        """max_abs_err of a stream sweep's statistics against the scan's;
+        the stream's rows and tiles past the scan's N_pad must be 0."""
+        keep = (tiles[0] < nb_ref) & (tiles[1] < nb_ref)
+        return max(
+            int(np.abs(rs[:n_pad] - rs_ref).max()), int(np.abs(rs[n_pad:]).max())
+            if rs.shape[0] > n_pad else 0,
+            int(np.abs(th[keep].astype(np.int64) - th_ref).max()),
+            int(np.abs(th[~keep]).max()) if (~keep).any() else 0,
+        )
+
+    def check(label, err, pairs=None):
+        ok = err <= TOL and (pairs is None
+                             or np.array_equal(pairs, want_pairs))
+        print(f"stream {label}: max_abs_err {err} against the in-core scan "
+              f"(tolerance {TOL})"
+              + ("" if pairs is None else
+                 f", {len(pairs)} pairs equal the oracle: "
+                 f"{np.array_equal(pairs, want_pairs)}"), flush=True)
+        if not ok:
+            raise AssertionError(f"stream {label} disagrees")
+
+    def trace_line(tr, seconds):
+        rate = tr["upload_bytes"] / seconds / 1e9 if seconds else 0.0
+        return (f"upload {tr['upload_s']:.4f} s ({tr['uploads']} blocks, "
+                f"{tr['upload_bytes']} bytes = "
+                f"{tr['upload_bytes'] / matrix_bytes:.2f} x the matrix, "
+                f"{rate:.2f} GB/s host->device over the run), dispatch "
+                f"{tr['dispatch_s']:.4f} s, drain {tr['drain_s']:.4f} s, "
+                f"fetch {tr.get('fetch_s', tr.get('finalize_s', 0.0)):.4f} s; "
+                f"bs {tr['bs']}, nbk {tr['nbk']}, g {tr['g']}, word_chunk "
+                f"{tr['word_chunk']}, {tr['steps']} steps")
+
+    def counted(fn):
+        """(fn(), the kernel launches it made): every launch counter is
+        set to 0 just before and read just after."""
+        fns = reset_counters()
+        out = fn()
+        got = {k: f.launches for k, f in fns.items()}
+        return out, got
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated(dev),
+                     torch.cuda.max_memory_reserved(dev))
+
+    # the copy rates the sweep's uploads can reach: one [4096, W] block
+    # staged into pinned memory (host memcpy), and its copy to the card
+    blk = words_host[:4096].view(np.int32)
+    pinned = torch.empty(blk.shape, dtype=torch.int32, pin_memory=True)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        pinned.numpy()[:] = blk
+    stage_gbs = 3 * blk.nbytes / (time.perf_counter() - t0) / 1e9
+    copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), reps=5,
+                      warmup=1)
+    print(f"stream copy rates: staging one {blk.nbytes}-byte block into "
+          f"pinned memory {stage_gbs:.2f} GB/s (host memcpy), pinned->device "
+          f"copy {copy_ms:.3f} ms = {blk.nbytes / copy_ms / 1e6:.2f} GB/s",
+          flush=True)
+    del pinned
+
+    # warm sweep, default budget: single group, K2 once a step
+    def sweep(**kw):
+        return stream.sweep_mxu_stream(words_host, classes, n, THRESHOLD,
+                                       device=dev, **kw)
+
+    (rs, th, tiles), got = counted(sweep)
+    tr = stream.last_trace
+    if got != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}:
+        raise AssertionError(f"stream sweep kernel launches {got}")
+    check("sweep (13 GiB budget)", stats_err(rs, th, tiles))
+    default_blocking = dict(tr)
+    (sweep_s, _), peak = peak_of(lambda: best_seconds(sweep, reps=2, warmup=0))
+    tr = stream.last_trace
+    print(f"{N_SCALE} warm stream sweep {sweep_s:.6f} s (best of 2 after a "
+          f"warm-up) beside the in-core scan's {scan_s:.6f} s "
+          f"({sweep_s / scan_s:.2f} x); {trace_line(tr, sweep_s)}; peak "
+          f"device memory {peak[0]} bytes allocated, {peak[1]} reserved "
+          f"(matrix {matrix_bytes} bytes)", flush=True)
+
+    # two-pass: the grouped extractor on the stream sweep's tile hits
+    t0 = time.perf_counter()
+    pairs = stream.extract_pairs_stream_grouped(
+        words_host, classes, th, tiles, n=n, threshold=THRESHOLD, device=dev)
+    torch.cuda.synchronize()
+    grouped_s = time.perf_counter() - t0
+    check("grouped extractor", 0, pairs)
+    gtr = stream.last_grouped_trace
+    print(f"stream grouped extraction {grouped_s:.6f} s: "
+          f"{trace_line(gtr, grouped_s)} of {gtr['block_pairs_total']} "
+          f"block pairs", flush=True)
+
+    # fused: candidates drained inside the in-flight window
+    t0 = time.perf_counter()
+    rs_f, th_f, tiles_f, cands = sweep(fused_k=512)
+    torch.cuda.synchronize()
+    fsweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pairs = stream.extract_pairs_stream_fused(
+        words_host, classes, th_f, tiles_f, cands, n=n, threshold=THRESHOLD,
+        device=dev)
+    fext_s = time.perf_counter() - t0
+    h = th_f[:, 0]
+    check("fused sweep + extraction", stats_err(rs_f, th_f, tiles_f), pairs)
+    print(f"stream fused sweep {fsweep_s:.6f} s + fused extraction "
+          f"{fext_s:.6f} s (capacity k {cands.k}: {len(cands.pairs)} "
+          f"candidates drained, {int((h > cands.k).sum())} of "
+          f"{int((h > 0).sum())} hit tiles redone); "
+          f"{trace_line(stream.last_trace, fsweep_s)}", flush=True)
+    del cands
+
+    # one pass, from both block sources
+    source = stream.CSRBlockSource(index.incidence_protein,
+                                   index.incidence_rank, n_pad, bitset.w_pad)
+    for label, kw in (("host words", dict()),
+                      ("CSR source", dict(block_source=source))):
+        def onepass():
+            return stream.sweep_extract_stream(
+                None if kw else words_host, classes, n, THRESHOLD,
+                device=dev, **kw)
+
+        t0 = time.perf_counter()
+        (out, got), peak = peak_of(lambda: counted(onepass))
+        one_s = time.perf_counter() - t0
+        tr = stream.last_onepass_trace
+        if got != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}:
+            raise AssertionError(f"one-pass kernel launches {got}")
+        check(f"one pass, {label}", stats_err(*out[:3]), out[3])
+        print(f"stream one pass ({label}) {one_s:.6f} s: "
+              f"{trace_line(tr, one_s)}; dispatch {tr['dispatch']}, "
+              f"{tr['launches']} probes, capacity {tr['vcap']} rows, "
+              f"overflow {tr['overflow']}; peak device memory {peak[0]} "
+              f"bytes allocated, {peak[1]} reserved", flush=True)
+    del source, out
+
+    # a budget the matrix cannot fit: several stationary groups, and the
+    # peak device memory stays under the matrix's bytes
+    budget = STREAM_SMALL_BUDGET
+    ((rs, th, tiles), got), peak = peak_of(
+        lambda: counted(lambda: sweep(hbm_budget_bytes=budget)))
+    tr = stream.last_trace
+    t_small = tr["upload_s"] + tr["dispatch_s"] + tr["drain_s"] + tr["fetch_s"]
+    if got != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}:
+        raise AssertionError(f"small-budget sweep kernel launches {got}")
+    check(f"sweep under a {budget}-byte budget", stats_err(rs, th, tiles))
+    print(f"stream sweep under a {budget}-byte budget (matrix {matrix_bytes} "
+          f"bytes) {t_small:.6f} s: {trace_line(tr, t_small)}; "
+          f"{-(-tr['nbk'] // tr['g'])} stationary groups; peak device memory "
+          f"{peak[0]} bytes allocated, {peak[1]} reserved", flush=True)
+    if tr["g"] >= tr["nbk"] or peak[0] >= matrix_bytes:
+        raise AssertionError(
+            "the small-budget sweep did not stream: one group, or a peak "
+            "not below the matrix's bytes")
+
+    # kill after one stationary group, then resume, under that budget
+    store = CheckpointStore(os.path.join(tmp, "stream_ckpt"))
+    kw = dict(hbm_budget_bytes=budget, checkpoint_store=store,
+              checkpoint_key="smoke", device=dev)
+    t0 = time.perf_counter()
+    try:
+        stream.sweep_extract_stream(words_host, classes, n, THRESHOLD,
+                                    fail_after_groups=1, **kw)
+    except RuntimeError as e:
+        if "fault injection" not in str(e):
+            raise
+        killed_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("the fault injection did not fire")
+    snap = store.load("smoke")
+    if snap is None or len(snap["groups_done"]) != 1:
+        raise AssertionError("the killed run left no one-group snapshot")
+    t0 = time.perf_counter()
+    out = stream.sweep_extract_stream(words_host, classes, n, THRESHOLD, **kw)
+    resumed_s = time.perf_counter() - t0
+    tr = stream.last_onepass_trace
+    check("kill and resume (one pass)", stats_err(*out[:3]), out[3])
+    print(f"stream kill after 1 group {killed_s:.6f} s, resume "
+          f"{resumed_s:.6f} s: {tr.get('groups_skipped')} of "
+          f"{-(-tr['nbk'] // tr['g'])} groups skipped, snapshot removed: "
+          f"{store.load('smoke') is None}; {trace_line(tr, resumed_s)}",
+          flush=True)
+    if tr.get("groups_skipped") != 1 or store.load("smoke") is not None:
+        raise AssertionError("the resume did not skip the completed group "
+                             "or left its snapshot")
+    del out
+
+    # K2 against its plain version on one stream-step block, at the
+    # stream's own block shape
+    bs = default_blocking["bs"]
+    i0, j0 = 0, bs
+    wa = torch.from_numpy(words_host[i0 : i0 + bs].view(np.int32)).to(dev)
+    wb = torch.from_numpy(words_host[j0 : j0 + bs].view(np.int32)).to(dev)
+    counts = bitmul.counts_window_pair(
+        wa, wb, word_chunk=default_blocking["word_chunk"])
+    del wa, wb
+    cls_dev = torch.from_numpy(classes).to(dev)
+    ca, cb = cls_dev[i0 : i0 + bs], cls_dev[j0 : j0 + bs]
+    kw = dict(n=n, threshold=THRESHOLD, w_thresh=1, tile=512)
+    rs_k, bh_k = stats.stats_from_counts_traced(counts, ca, cb, i0, j0, **kw)
+    rs_p, bh_p = stats.stats_from_counts_traced_reference(counts, ca, cb, i0,
+                                                          j0, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(rs_k, rs_p), max_abs_err(bh_k, bh_p))
+    rs_acc = torch.zeros((bs, 8), dtype=torch.int32, device=dev)
+    bh_acc = torch.zeros((bs // 512, bs // 512, 2), dtype=torch.int32,
+                         device=dev)
+    k2_ms = kernel_only_ms(lambda: stats.stats_from_counts_traced_into(
+        counts, ca, cb, rs_acc, bh_acc, i0, j0, **kw))
+    plain_ms = cuda_ms(lambda: stats.stats_from_counts_traced_reference(
+        counts, ca, cb, i0, j0, **kw), reps=5)
+    bound = epilogue_bound_ms(bs, bs, i0, j0, n, 8 * bs + 2 * (bs // 512) ** 2)
+    print(f"kernel K2 on the stream-step block counts[{bs}, {bs}] at "
+          f"({i0}, {j0}): max_abs_err {err} (tolerance {TOL}), block hits "
+          f"{int(bh_k.sum())}; kernel-only {k2_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (needed bytes), share {bound / k2_ms:.3f}; plain "
+          f"torch {plain_ms:.4f} ms", flush=True)
+    if err > TOL:
+        raise AssertionError("K2 disagrees with its plain version on a "
+                             "stream-step block")
+    print(f"stream phase: K2 launches {launches}; "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return dict(launches=launches["host"], err=err)
 
 
 def k3_phase(dev, state10, state30, sm_mhz):
@@ -1062,12 +1379,14 @@ def main() -> int:
     err = kernel_phase(dev, stats)
     tmp = tempfile.mkdtemp(prefix="ukc_chip_smoke_")
     try:
-        state10, pairs10, state30, pairs30, launches = pipeline_phase(
-            dev, tmp)
+        state10, pairs10, state30, pairs30, launches, run30 = (
+            pipeline_phase(dev, tmp))
         k4 = k4_phase(dev, state10, sm_mhz)
         k2 = k2_phase(dev, state30)
         t = timing_phase(dev, state10, pairs10, stats)
-        scan_timing_phase(dev, state30, pairs30)
+        scan = scan_timing_phase(dev, state30, pairs30)
+        st = stream_phase(dev, tmp, state30, pairs30, run30,
+                          scan["sweep_s"])
         k3 = k3_phase(dev, state10, state30, sm_mhz)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1098,7 +1417,8 @@ def main() -> int:
             "source": f"{PKG}/csrc/stats_epilogue.cu",
             "replaces": replaces + "stats_pallas.py:172",
             "launches": launches["K2"],
-            "max_abs_err": k2["err"],
+            "stream_launches": st["launches"],
+            "max_abs_err": max(k2["err"], st["err"]),
             "ms": k2["ms"],
             "call_ms": k2["call_ms"],
             "plain_ms": k2["plain_ms"],

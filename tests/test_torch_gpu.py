@@ -489,3 +489,228 @@ def test_k3_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="contiguous int32"):
         tri_mxu.tri_mxu_sweep(w.t().contiguous().t(), cls, 384, 1, tile=128,
                               word_chunk_words=8)
+
+
+def _stream_problem(seed=21, rows=1536, n=1500, w=64):
+    """Host words (uint32 [rows, w], ~1/8 dense), classes of length rows
+    (−1 past n), the incidence lists of the same bits, and int8 weights."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(rows, w), dtype=np.uint32)
+    words[n:] = 0
+    cls = rng.integers(0, 4, size=rows).astype(np.int32)
+    cls[n:] = -1
+    bits = np.unpackbits(words.view(np.uint8), axis=1, bitorder="little")
+    inc_p, inc_r = np.nonzero(bits)
+    wts = rng.integers(1, 50, size=w * 32).astype(np.int8)
+    return words, cls, inc_p.astype(np.int32), inc_r.astype(np.int32), wts
+
+
+@pytest.mark.parametrize("kw", [
+    dict(bs=512), dict(bs=512, max_group=1), dict(bs=1024),
+    dict(bs=512, word_chunk=16), dict(bs=512, weighted=True),
+    dict(bs=512, csr=True),
+], ids=["bs512", "max-group-1", "bs1024-padded", "word-chunk", "weighted",
+        "csr"])
+def test_stream_sweep_gpu_matches_scan(cuda, kw):
+    """The stream sweep on the card equals the in-core scan sweep
+    (row_stats, tile_hits), single- and multi-group, with row padding
+    (bs 1024 pads 1536 rows to 2048), contraction chunks, weights and the
+    CSR block source, and launches K2 exactly once a step."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stream
+
+    kw = dict(kw)
+    words, cls, inc_p, inc_r, wts = _stream_problem()
+    weights = wts if kw.pop("weighted", False) else None
+    thr = 900 if weights is not None else 35
+    source = None
+    if kw.pop("csr", False):
+        source = stream.CSRBlockSource(inc_p, inc_r, 1536, 64)
+    t = torch.from_numpy(words.view(np.int32)).to(cuda)
+    want = bitmul.sweep_mxu(t, torch.from_numpy(cls).to(cuda), 1500, thr,
+                            strip=512, schedule="scan", weights=weights)
+    before = (stats.stats_from_counts_traced_into.launches,
+              stats.stats_from_counts_into.launches)
+    got = stream.sweep_mxu_stream(
+        None if source else words, cls, 1500, thr, block=512,
+        weights=weights, block_source=source, device=cuda, **kw)
+    trace = stream.last_trace
+    nbk = trace["nbk"]
+    assert trace["steps"] == nbk * (nbk + 1) // 2
+    assert (stats.stats_from_counts_traced_into.launches - before[0]
+            == trace["steps"])
+    assert stats.stats_from_counts_into.launches == before[1]
+    rows = want[0].shape[0]
+    assert np.array_equal(got[0][:rows], want[0])
+    assert not got[0][rows:].any()
+    nb = rows // 512
+    keep = (got[2][0] < nb) & (got[2][1] < nb)
+    assert np.array_equal(got[1][keep], want[1])
+    assert not got[1][~keep].any() and got[1].sum() > 0
+
+
+@pytest.mark.parametrize("mode", ["host", "csr", "fused", "grouped",
+                                  "window", "packed-multigroup"])
+def test_stream_extraction_gpu_matches_in_core(cuda, mode):
+    """Every stream route to the pair list on the card (one pass from
+    either block source, fused, grouped, row windows, packed with several
+    groups) equals the in-core two-pass extraction."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stream
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise
+
+    words, cls, inc_p, inc_r, _ = _stream_problem()
+    t = torch.from_numpy(words.view(np.int32)).to(cuda)
+    rs, th, tiles = bitmul.sweep_mxu(t, torch.from_numpy(cls).to(cuda), 1500,
+                                     35, strip=512, schedule="scan")
+    want = pairwise.extract_pairs(t, cls, th, tiles, 1500, 35)
+    assert len(want) > 100
+    base = dict(n=1500, threshold=35, device=cuda)
+    before = stats.stats_from_counts_traced_into.launches
+    if mode in ("host", "csr", "packed-multigroup"):
+        source = (stream.CSRBlockSource(inc_p, inc_r, 1536, 64)
+                  if mode == "csr" else None)
+        extra = (dict(pair_format="packed", max_group=1)
+                 if mode == "packed-multigroup" else {})
+        out = stream.sweep_extract_stream(
+            None if source else words, cls, bs=512, block_source=source,
+            **base, **extra)
+        assert stream.last_onepass_trace["overflow"] is False
+        assert stats.stats_from_counts_traced_into.launches - before == 6
+        assert np.array_equal(out[0], rs) and np.array_equal(out[1], th)
+        got = pairwise.pairs_as_array(out[3])
+        assert out[3].ndim == (1 if extra else 2)
+    elif mode == "fused":
+        k = 1 << 15  # holds the diagonal tiles, truncates the others
+        *_, cands = stream.sweep_mxu_stream(words, cls, bs=512, fused_k=k,
+                                            **base)
+        assert (th[:, 0] > k).any() and (th[:, 0] <= k).any()
+        got = stream.extract_pairs_stream_fused(words, cls, th, tiles, cands,
+                                                **base)
+    elif mode == "grouped":
+        got = stream.extract_pairs_stream_grouped(words, cls, th, tiles,
+                                                  bs=512, max_group=2, **base)
+    else:
+        got = stream.extract_pairs_stream(words, cls, th, tiles, **base)
+    assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
+def test_stream_capacity_miss_and_resume_on_gpu(cuda, tmp_path):
+    """On the card: a capacity miss is redone exactly, and a run killed
+    after one stationary group resumes to the uninterrupted pair list."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stream
+    from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
+        CheckpointStore,
+    )
+
+    words, cls, _, _, _ = _stream_problem()
+    kw = dict(n=1500, threshold=35, bs=512, max_group=1, device=cuda)
+    want = stream.sweep_extract_stream(words, cls, **kw)
+    over = stream.sweep_extract_stream(words, cls, cap=128, **kw)
+    assert stream.last_onepass_trace["overflow"] is True
+    assert np.array_equal(over[3], want[3])
+    store = CheckpointStore(str(tmp_path))
+    with pytest.raises(RuntimeError, match="fault injection"):
+        stream.sweep_extract_stream(words, cls, checkpoint_store=store,
+                                    checkpoint_key="k", fail_after_groups=1,
+                                    **kw)
+    got = stream.sweep_extract_stream(words, cls, checkpoint_store=store,
+                                      checkpoint_key="k", **kw)
+    assert stream.last_onepass_trace["groups_skipped"] == 1
+    for a, b in zip(got[:2], want[:2]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got[3], want[3]) and store.load("k") is None
+
+
+@pytest.mark.parametrize("loop", ["sweep", "fused", "onepass", "onepass-csr"])
+def test_stream_loops_do_not_synchronise(cuda, loop):
+    """The stream step loops (K2 once a step; the fused candidate drain;
+    the one-pass append behind its device cursor), three groups of one
+    block with more steps than the in-flight window holds, run under
+    torch.cuda.set_sync_debug_mode("error"): uploads go through the pinned
+    ring, the window waits on events, and nothing else synchronises up to
+    the copies of the results to the host."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stream
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise
+
+    words, cls, inc_p, inc_r, _ = _stream_problem()
+    bs, nbk, inflight = 512, 3, 1
+    step_kw = dict(n=1500, threshold=35, block=512, w_thresh=1, word_chunk=0)
+
+    def run(device, checked):
+        trace = dict(dispatch_s=0.0, steps=0, launches=0)
+        source = None
+        if loop == "onepass-csr":
+            source = stream.CSRBlockSource(inc_p, inc_r, 1536, 64)
+            source.prepare(bs, 1536, device)
+        feed = stream._BlockFeed(words, source, bs, device, inflight + 1,
+                                 trace)
+        window = stream._Window(device, trace)
+        cls_dev, _ = stream._device_operands(cls, None, 64, bs, device)
+        row_stats = torch.zeros((1536, 8), dtype=torch.int32, device=device)
+        block_hits = torch.zeros((3, 3, 2), dtype=torch.int32, device=device)
+        # room for every survivor (~221k) and one 512² window of slack
+        buffers = pairwise._new_pair_buffers(1 << 19, device)
+        cands = []
+        if checked:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            if loop in ("sweep", "fused"):
+                stream._sweep_loop(
+                    feed, window, cls_dev, None, row_stats, block_hits,
+                    nbk=nbk, g=1, bs=bs, inflight=inflight,
+                    fused_k=4096 if loop == "fused" else 0, trace=trace,
+                    on_candidates=lambda a: cands.append(a.copy()),
+                    fused_same=False, **step_kw)
+            else:
+                state = stream._onepass_loop(
+                    feed, window, cls_dev, None,
+                    (row_stats, block_hits) + buffers, nbk=nbk, g=1, bs=bs,
+                    inflight=inflight,
+                    dispatch="scan" if source else "steps", scan_chunk=2,
+                    done_groups=(), trace=trace,
+                    on_group_end=lambda state, s0: None,
+                    cross_amr_only=True, **step_kw)
+                window.drain(0)
+                buffers = state[2:]
+        finally:
+            if checked:
+                torch.cuda.set_sync_debug_mode(0)
+        out = [row_stats.cpu(), block_hits.cpu()]
+        if loop == "fused":
+            got = np.concatenate([c.reshape(3, -1) for c in cands], axis=1)
+            got = got[:, got[2] >= 0]
+            out.append(torch.from_numpy(
+                got[:, np.lexsort((got[1], got[0]))].copy()))
+        elif loop.startswith("onepass"):
+            count = int(buffers[3])
+            out.append(torch.from_numpy(pairwise._fetch_sorted_pairs(
+                *buffers[:3], count, "arr3", 1536)))
+        assert trace["steps"] == 6
+        return out
+
+    want = run(torch.device("cpu"), False)
+    run(cuda, False)
+    before = stats.stats_from_counts_traced_into.launches
+    got = run(cuda, True)
+    assert stats.stats_from_counts_traced_into.launches - before == 6
+    assert len(got) == len(want) and int(want[1].sum()) > 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_stream_pipeline_gpu_matches_cpu(cuda, synth_fasta):
+    """run_pipeline on the stream engine, host-words two-pass and packless
+    csr one-pass, on the card and on the CPU."""
+    for extra in (dict(), dict(stream_source="csr"),
+                  dict(extract="fused", weighting="blosum62")):
+        cfg = PipelineConfig(engine="stream", tile=128, strip=256, **extra)
+        before = stats.stats_from_counts_traced_into.launches
+        gpu = run_pipeline(synth_fasta, cfg, device=cuda)
+        assert stats.stats_from_counts_traced_into.launches - before == 15
+        cpu = run_pipeline(synth_fasta, cfg, device="cpu")
+        assert gpu.parity_report() == cpu.parity_report()
+        assert gpu.parity_report()["pairs_over_threshold"] > 0
+        assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
+        assert np.array_equal(gpu.cluster_labels, cpu.cluster_labels)

@@ -17,6 +17,7 @@ import pytest
 
 from uniprot_kmer_based_clustering_tpu import config as jconfig
 from uniprot_kmer_based_clustering_tpu.io import fasta as jfasta
+from uniprot_kmer_based_clustering_tpu.io import native as jnative
 from uniprot_kmer_based_clustering_tpu.kmers import bitset as jbitset
 from uniprot_kmer_based_clustering_tpu.kmers import encode as jencode
 from uniprot_kmer_based_clustering_tpu.kmers import index as jindex
@@ -145,10 +146,12 @@ def test_read_fasta_is_the_jax_packages(toy_fasta):
         assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("engine", ["auto", "numpy"])
-@pytest.mark.parametrize("k,sampling", [(5, "all"), (7, "all"),
-                                        (5, "random10")])
-def test_encode_and_index_are_the_jax_packages(engine, k, sampling):
+def _check_encode_and_index(engine, k, sampling):
+    """The port's encode and index against the JAX package's. With
+    ``engine="auto"`` the port builds its index with its own C++ runtime;
+    the JAX package builds with its C++ runtime where that one loaded in
+    this process, else with numpy (its own tests pin native = numpy), so
+    the port's native build is held to an oracle either way."""
     seq_buf, offsets = _random_proteins(k + len(sampling))
     jc, jo = jencode.encode_kmers(seq_buf, offsets, k, sampling=sampling,
                                   seed=5, engine=engine)
@@ -156,13 +159,36 @@ def test_encode_and_index_are_the_jax_packages(engine, k, sampling):
                                   seed=5, engine=engine)
     assert np.array_equal(tc, jc) and np.array_equal(to, jo)
     build = "native" if engine == "auto" else "numpy"
-    ji = jindex.build_index(jc, jo, k, engine=build)
+    jbuild = build if jnative.available() else "numpy"
+    ji = jindex.build_index(jc, jo, k, engine=jbuild)
     ti = tindex.build_index(tc, to, k, engine=build)
     assert ti.n_repeated > 0
     for f in dataclasses.fields(jindex.KmerIndex):
         a, b = getattr(ti, f.name), getattr(ji, f.name)
         assert np.array_equal(np.asarray(a), np.asarray(b)), f.name
     assert ti.multigraph_edge_count() == ji.multigraph_edge_count()
+
+
+@pytest.mark.parametrize("engine", ["auto", "numpy"])
+@pytest.mark.parametrize("k,sampling", [(5, "all"), (7, "all"),
+                                        (5, "random10")])
+def test_encode_and_index_are_the_jax_packages(engine, k, sampling):
+    _check_encode_and_index(engine, k, sampling)
+
+
+@pytest.mark.parametrize("k,sampling", [(5, "all"), (7, "all"),
+                                        (5, "random10")])
+def test_encode_and_index_hold_without_the_jax_native_runtime(
+        monkeypatch, k, sampling):
+    """The JAX package's C++ runtime can fail to load in a test worker
+    (it is built in place by every process): the port's native-built
+    index is then held against the JAX package's numpy build."""
+    monkeypatch.setattr(jnative, "_load", lambda: None)
+    assert not jnative.available()
+    with pytest.raises(RuntimeError, match="native index builder"):
+        jindex.build_index(np.zeros(0, np.int64), np.zeros(1, np.int64), k,
+                           engine="native")
+    _check_encode_and_index("auto", k, sampling)
 
 
 @pytest.mark.parametrize("row_multiple", [128, 512])

@@ -196,7 +196,7 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cluster", "tree"], ["--engine", "stream"], ["--devices", "4"],
+    ["--cluster", "tree"], ["--index-engine", "device"], ["--devices", "4"],
     ["--mesh-shape", "2x4"], ["--align", "sw"], ["--dump-kmers"],
 ])
 def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
@@ -205,6 +205,25 @@ def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
     with pytest.raises(SystemExit, match="not yet ported"):
         tmain(["run", toy_fasta, "--device", "cpu", "--out",
                str(tmp_path / "o"), *flags])
+
+
+def test_cli_accepts_cpu_and_profile(toy_fasta, tmp_path, capsys):
+    """--cpu is --device cpu (no GPU is asked for, so none is missed), and
+    --profile DIR runs the pipeline under torch.profiler and leaves a
+    Chrome trace there; the artifacts are those of a plain run."""
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    plain, prof = str(tmp_path / "plain"), str(tmp_path / "prof")
+    assert tmain(["run", toy_fasta, "--device", "cpu", "--out", plain]) == 0
+    assert tmain(["run", toy_fasta, "--cpu", "--profile",
+                  str(tmp_path / "trace"), "--out", prof]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == json.loads(lines[-2])
+    ps, pp, pc = _cli_outputs(plain)
+    fs, fp, fc = _cli_outputs(prof)
+    assert fp == pp and fc == pc and fs["device"] == "cpu"
+    with open(tmp_path / "trace" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
 
 
 def test_cluster_fasta_api(toy_fasta):

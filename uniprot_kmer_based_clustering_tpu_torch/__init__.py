@@ -16,9 +16,11 @@ Layout:
   device.py   explicit device selection (no silent CPU fallback)
   state.py    packed words / classes / weights onto a torch device
   csrc/       CUDA C++ kernels, built at first use by ops/_build.py
-  ops/        int8-GEMM sweep (bitmul) and the K1 statistics epilogue
-              (stats), each kernel beside its plain PyTorch version
-  similarity/ sweep + two-pass exact pair extraction
+  ops/        int8-GEMM sweep (bitmul), the statistics epilogues (stats),
+              the fused triangle sweep (tri_mxu), the popcount engines
+              (popcount), each kernel beside its plain PyTorch version, and
+              the out-of-core stream engine (stream)
+  similarity/ sweep + exact pair extraction (two-pass, fused, one-pass)
   models/     connected components
   pipeline.py run_pipeline; cli.py the `run` command
 """

@@ -4,9 +4,10 @@
       [--device {cuda,cpu}] [--k {5,7}] [--threshold N]
       [--weighted-threshold N] [--sampling {all,random10}] [--seed N]
       [--weighting {none,blosum62}] [--cluster {components,none}]
-      [--engine {auto,mxu,popcount,xla,native}]
-      [--extract {auto,two_pass,fused}] [--extract-k N]
-      [--all-pairs] [--checkpoint-dir DIR] [--out DIR] [--verbose]
+      [--engine {auto,mxu,popcount,xla,native,stream}]
+      [--extract {auto,two_pass,fused,onepass}] [--extract-k N]
+      [--stream-source {host,csr}] [--all-pairs] [--checkpoint-dir DIR]
+      [--out DIR] [--profile DIR] [--cpu] [--verbose]
 
 writes pairs.tsv, clusters.tsv and stats.json to --out in the same
 format as the JAX package's ``cli run``. The remaining flags of that CLI
@@ -16,6 +17,7 @@ are accepted and refused with the ROADMAP item that will bring them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 
@@ -33,11 +35,6 @@ def _refuse_unported(args) -> None:
         (args.cluster in ("tree", "agglomerative"),
          f"--cluster {args.cluster}: tree/agglomerative clustering "
          "(ROADMAP queue 1, item 13)"),
-        (args.engine == "stream" or args.stream_source != "host",
-         "--engine stream/--stream-source: the out-of-core stream engine "
-         "(ROADMAP queue 1, item 9)"),
-        (args.extract == "onepass",
-         "--extract onepass: the stream engine (ROADMAP queue 1, item 9)"),
         (args.index_engine != "host",
          "--index-engine device: the device index build (ROADMAP queue 1, "
          "item 11)"),
@@ -50,6 +47,25 @@ def _refuse_unported(args) -> None:
             raise SystemExit(f"not yet ported to the torch package: {what}")
 
 
+@contextlib.contextmanager
+def _profile(directory, device):
+    """Run the body under ``torch.profiler`` (CPU activity, and CUDA
+    activity on a CUDA device) and write ``trace.json``, a Chrome trace,
+    into ``directory``; no profiler when ``directory`` is None."""
+    if not directory:
+        yield
+        return
+    from torch import profiler
+
+    activities = [profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(profiler.ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+
+
 def cmd_run(args) -> int:
     import torch
 
@@ -58,7 +74,7 @@ def cmd_run(args) -> int:
     from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
 
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    device = resolve_device("cpu" if args.cpu else args.device)
     config = PipelineConfig(
         k=args.k,
         threshold=args.threshold,
@@ -73,14 +89,16 @@ def cmd_run(args) -> int:
         index_engine=args.index_engine,
         extract=args.extract,
         extract_k=args.extract_k,
+        stream_source=args.stream_source,
     )
-    result = run_pipeline(
-        args.fasta,
-        config,
-        checkpoint_dir=args.checkpoint_dir,
-        device=device,
-        echo_timings=args.verbose,
-    )
+    with _profile(args.profile, device):
+        result = run_pipeline(
+            args.fasta,
+            config,
+            checkpoint_dir=args.checkpoint_dir,
+            device=device,
+            echo_timings=args.verbose,
+        )
 
     os.makedirs(args.out, exist_ok=True)
     table = result.table
@@ -154,14 +172,20 @@ def main(argv=None) -> int:
                    help="auto = mxu on CUDA; native (C++ host sweep) on "
                         "the CPU when built, else mxu. popcount and xla "
                         "both run the popcount sweep (its CUDA kernel on "
-                        "the card)")
+                        "the card); stream keeps the packed matrix on the "
+                        "host and streams row blocks through the device")
     r.add_argument("--extract", default="auto",
                    choices=("auto", "two_pass", "fused", "onepass"),
                    help="fused: the mxu scan sweep keeps its survivors "
-                        "(two-pass on the strip schedule)")
+                        "(two-pass on the strip schedule); onepass: the "
+                        "stream engine's single pass")
     r.add_argument("--extract-k", type=int, default=0,
-                   help="fused candidate capacity per tile; 0 = auto")
-    r.add_argument("--stream-source", default="host", choices=("host", "csr"))
+                   help="fused: candidate capacity per tile; onepass: "
+                        "rows of the device pair buffers; 0 = auto")
+    r.add_argument("--stream-source", default="host", choices=("host", "csr"),
+                   help="--engine stream: upload row blocks from the host "
+                        "matrix, or (csr) rebuild them on the device from "
+                        "the incidence lists and never build the matrix")
     r.add_argument("--index-engine", default="host",
                    choices=("host", "device"))
     r.add_argument("--all-pairs", action="store_true",
@@ -178,6 +202,11 @@ def main(argv=None) -> int:
     r.add_argument("--dump-kmers", action="store_true")
     r.add_argument("--dump-proteins", action="store_true")
     r.add_argument("--dump-debug", action="store_true")
+    r.add_argument("--cpu", action="store_true",
+                   help="the same as --device cpu")
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="run the pipeline under torch.profiler and write "
+                        "DIR/trace.json (a Chrome trace)")
     r.add_argument("-v", "--verbose", action="store_true")
     r.set_defaults(func=cmd_run)
 

@@ -14,7 +14,8 @@ the protein axis to a multiple of the sweep tile; pad bits are zero so they
 never contribute to a popcount.
 
 The port's own copy of the JAX package's ``kmers/bitset.py``, host paths
-only: ``state.bitset_to_torch`` carries the words to a torch device.
+only: ``state.bitset_to_torch`` carries the words to a torch device, and
+the stream engine reads them from the host block by block.
 """
 
 from __future__ import annotations
@@ -47,6 +48,50 @@ class BitsetMatrix:
     def row_bits(self, i: int) -> np.ndarray:
         """Unpacked bool row (testing/debug only)."""
         return _row_bits_impl(self, i)
+
+
+class _NeverWords:
+    """Stands in for the dense matrix in packless runs: ANY attribute
+    access (shape, dtype, slicing …) raises with the reason, so a
+    dense-path dispatch fails loudly instead of computing on nothing."""
+
+    def __getattr__(self, name):
+        raise RuntimeError(
+            "the dense packed matrix was never materialized "
+            "(stream_source='csr' packless run); this code path needs "
+            "the host words — re-run with stream_source='host' or a "
+            "dense-matrix engine"
+        )
+
+    def __getitem__(self, *_):
+        self.shape  # raises
+
+
+@dataclasses.dataclass
+class VirtualBitsetMatrix(BitsetMatrix):
+    """Geometry-only stand-in for runs that never build the dense matrix
+    (the stream engine with the CSR block source): it carries the padded
+    dimensions the engines key their tile enumeration on; touching
+    ``.words`` raises."""
+
+    pad_rows: int = 0
+    pad_words: int = 0
+
+    @classmethod
+    def make(cls, n: int, n_bits: int, row_multiple: int = 512,
+             word_multiple: int = 128) -> "VirtualBitsetMatrix":
+        n_pad = _round_up(max(n, 1), row_multiple)
+        w_pad = _round_up(_round_up(max(n_bits, 1), 32) // 32, word_multiple)
+        return cls(words=_NeverWords(), n=n, n_bits=n_bits,
+                   pad_rows=n_pad, pad_words=w_pad)
+
+    @property
+    def n_pad(self) -> int:
+        return self.pad_rows
+
+    @property
+    def w_pad(self) -> int:
+        return self.pad_words
 
 
 def _row_bits_impl(bs: BitsetMatrix, i: int) -> np.ndarray:

@@ -115,6 +115,22 @@ class FusedCandidates:
     include_same: bool
 
 
+def bucket_pow2(kmax: int, floor: int, cap: int) -> int:
+    """The smallest power-of-two multiple of ``floor`` that is ≥ ``kmax``,
+    capped at ``cap``: the top-k width of one extraction batch, as the
+    JAX package buckets it."""
+    k = floor
+    while k < int(kmax):
+        k *= 2
+    return min(k, cap)
+
+
+# Per-tile hit counts above this take the dense append instead of top-k
+# selection in the stream window extractor (k would approach the tile
+# area).
+TOPK_CAP = 1 << 17
+
+
 def unpack_words_to_int8(words, weights=None):
     """Packed words [R, W] (int32 or uint32 bit patterns) → int8 bit
     matrix [R, W*32].
@@ -146,28 +162,40 @@ def int8_gemm(a, b):
     return torch._int_mm(a, b.t())
 
 
-def counts_window(words, weights, ia: int, ja: int, *, s: int, jr: int,
-                  word_chunk: int = 0):
-    """int32 counts [s, jr] for the row windows (ia..ia+s) × (ja..ja+jr).
+def counts_window_pair(words_a, words_b, weights=None, *, word_chunk: int = 0):
+    """int32 counts [S, J] of two explicit packed row blocks ``words_a``
+    [S, W] and ``words_b`` [J, W] (the stream engine's operands).
 
-    ``weights`` (int8 [W*32] or None) scale the moving operand. With
+    ``weights`` (int8 [W*32] or None) scale the second operand. With
     ``word_chunk`` > 0 the contraction axis runs in word chunks, so the
-    unpacked int8 operands exist one chunk at a time.
+    unpacked int8 operands exist one chunk at a time and the partial
+    products are summed in place. A block against itself, unweighted,
+    is unpacked once.
     """
-    w_words = words.shape[1]
+    same = words_b is words_a and weights is None
+    w_words = words_a.shape[1]
     wc = word_chunk if 0 < word_chunk < w_words else w_words
     if w_words % wc:
         raise ValueError(f"word_chunk {wc} does not divide {w_words} words")
     counts = None
     for k0 in range(0, w_words, wc):
-        a = unpack_words_to_int8(words[ia : ia + s, k0 : k0 + wc])
-        b = unpack_words_to_int8(
-            words[ja : ja + jr, k0 : k0 + wc],
+        a = unpack_words_to_int8(words_a[:, k0 : k0 + wc])
+        b = a if same else unpack_words_to_int8(
+            words_b[:, k0 : k0 + wc],
             None if weights is None else weights[k0 * 32 : (k0 + wc) * 32],
         )
         part = int8_gemm(a, b)
         counts = part if counts is None else counts.add_(part)
     return counts
+
+
+def counts_window(words, weights, ia: int, ja: int, *, s: int, jr: int,
+                  word_chunk: int = 0):
+    """int32 counts [s, jr] for the row windows (ia..ia+s) × (ja..ja+jr)
+    of one packed matrix: :func:`counts_window_pair` on its two row
+    slices (``weights`` scale the moving operand)."""
+    return counts_window_pair(words[ia : ia + s], words[ja : ja + jr],
+                              weights, word_chunk=word_chunk)
 
 
 def accumulate_pair_block(row_stats, block_hits, rs, bh, i0: int, j0: int,

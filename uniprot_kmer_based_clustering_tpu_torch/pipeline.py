@@ -31,6 +31,7 @@ from uniprot_kmer_based_clustering_tpu_torch.io.fasta import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
     BitsetMatrix,
+    VirtualBitsetMatrix,
     pack_bitsets,
 )
 from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import encode_kmers
@@ -128,7 +129,9 @@ def run_pipeline(
     """Run the pipeline on one torch ``device`` ("cuda" or "cpu").
 
     With ``checkpoint_dir``, the index and pairs artifacts persist and a
-    rerun resumes from them. Each stage's time is closed after the
+    rerun resumes from them; a one-pass ``engine="stream"`` run also
+    persists its progress at stationary-group boundaries there. Each
+    stage's time is closed after the
     device has finished its work, so it measures the work and not the
     launches.
     """
@@ -187,13 +190,23 @@ def run_pipeline(
         )
 
     with stage("pack"):
-        bitset = pack_bitsets(
-            index.incidence_protein,
-            index.incidence_rank,
-            table.n,
-            index.n_repeated,
-            row_multiple=_row_multiple(config, table.n),
-        )
+        if config.engine == "stream" and config.stream_source == "csr":
+            # packless: the stream engine rebuilds its blocks on the
+            # device from the incidence lists, so the dense matrix is
+            # never built; only its geometry is carried, and any touch
+            # of .words raises
+            bitset = VirtualBitsetMatrix.make(
+                table.n, index.n_repeated,
+                row_multiple=_row_multiple(config, table.n),
+            )
+        else:
+            bitset = pack_bitsets(
+                index.incidence_protein,
+                index.incidence_rank,
+                table.n,
+                index.n_repeated,
+                row_multiple=_row_multiple(config, table.n),
+            )
 
     weights = blosum_weights(index, config, bitset)
 
@@ -206,10 +219,21 @@ def run_pipeline(
             cross_amr_only=config.cross_amr_only,
         )
     else:
+        # a stream run checkpoints its sweep PROGRESS at stationary-group
+        # boundaries under a sub-key of the pairs artifact (an interrupted
+        # out-of-core pass resumes mid-sweep), but only into a store that
+        # persists: with no checkpoint directory there is nothing to
+        # resume from and no boundary work is done
+        progress_key = key_pairs + "-stream-progress"
+        checkpoints = (config.engine == "stream"
+                       and store.path(progress_key) is not None)
         with stage("sweep"):
             pairwise = pairwise_similarity(
                 bitset, table.amr_class_ids, config,
-                weights=weights, index=index, device=device,
+                weights=weights, index=index,
+                checkpoint_store=store if checkpoints else None,
+                checkpoint_key=progress_key if checkpoints else None,
+                device=device,
             )
         store.save(
             key_pairs,

@@ -1,1 +1,12 @@
 """Pairwise similarity sweep and exact pair extraction."""
+
+from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (  # noqa: F401
+    PairwiseResult,
+    extract_pairs,
+    extract_pairs_fused,
+    packed_key,
+    packed_pair,
+    pairs_as_array,
+    pairwise_similarity,
+    unpack_pairs,
+)

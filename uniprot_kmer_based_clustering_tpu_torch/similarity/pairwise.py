@@ -1,7 +1,8 @@
 """Single-device pairwise similarity: sweep statistics + exact pair list.
 
 Counterpart of the JAX package's ``similarity/pairwise.py`` for the
-engines ``auto``, ``mxu``, ``popcount``, ``xla`` and ``native``.
+engines ``auto``, ``mxu``, ``popcount``, ``xla``, ``native`` and
+``stream``.
 
 - Two-pass extraction (:func:`extract_pairs`): pass 1 is the sweep,
   which reports exact per-tile hit counts; pass 2 recomputes only the hit
@@ -12,12 +13,18 @@ engines ``auto``, ``mxu``, ``popcount``, ``xla`` and ``native``.
   the scan schedule): the sweep kept each sub-tile's survivors; they are
   compacted and sorted the same way, and the sub-tiles whose exact hit
   count exceeded the capacity are redone by two-pass.
+- ``engine="stream"`` (``ops/stream.py``) keeps the packed matrix on the
+  host and streams row blocks through the device; its extractors append
+  survivors to global pair buffers on the device (:func:`_new_pair_buffers`,
+  sized by :func:`_vcap_bucket`) behind a cursor that stays on the device,
+  and :func:`_finalize_pairs` sorts and fetches them once, as int32
+  [M, 3] or in the packed ``i:24 | j:24 | count:16`` int64 format
+  (:func:`unpack_pairs`, :func:`pairs_as_array`, :func:`packed_key`,
+  :func:`packed_pair`).
 
-The TPU compaction workarounds (superblock coalescing, top_k selection
-in pass 2, the bucketed fixed-capacity buffers of ``_vcap_bucket``) are
-not carried over: they exist because scatter serializes on a TPU and
-XLA needs static shapes, while ``nonzero``/boolean indexing size their
-own output here (ROADMAP queue 1, item 3).
+The in-core extractors size their own output with ``nonzero``; the TPU
+compaction workarounds of the in-core path (superblock coalescing, top_k
+selection in pass 2) are not carried over.
 """
 
 from __future__ import annotations
@@ -113,6 +120,136 @@ class PairwiseResult:
             "pairs_over_threshold": self.cross_over + self.same_over,
             "max_shared_kmers": max(self.cross_max, self.same_max),
         }
+
+
+# Sentinel of unused slots in the global pair buffers: it sorts past
+# every real row index, so the occupied prefix of the sorted buffers is
+# the pair list. The count lane uses -1 (a surviving pair's score is
+# > threshold >= 0).
+_IMAX = np.int32(np.iinfo(np.int32).max)
+
+
+def _new_pair_buffers(vcap: int, device):
+    """Fresh global pair buffers on ``device``: (bi, bj, bc, cursor) with
+    sentinel slots (bi = bj = INT32_MAX, bc = -1) and an int64 cursor of
+    0 that stays on the device."""
+    return (
+        torch.full((vcap,), int(_IMAX), dtype=torch.int32, device=device),
+        torch.full((vcap,), int(_IMAX), dtype=torch.int32, device=device),
+        torch.full((vcap,), -1, dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+# Packed pair list: one int64 a pair, i(24) | j(24) | count(16). Sorting
+# the packed value is the canonical (i, j) sort, because a pair occurs
+# once and so the count bits never decide an order. Valid when every row
+# index is < 2^23 (the i field sits in bits 40-63 of a signed int64) and
+# every count < 2^16; the fetch checks both and falls back to [M, 3].
+_PACK_I_SHIFT = 40
+_PACK_J_SHIFT = 16
+_PACK_FIELD_MASK = (1 << 24) - 1
+_PACK_ROW_LIMIT = 1 << 23
+_PACK_COUNT_LIMIT = 1 << 16
+
+
+def _pack_sort_fetch(bi, bj, bc, total: int):
+    """The first ``total`` buffer slots packed to int64, sorted on the
+    device and copied to the host; None when a count reaches 2^16 (the
+    pack would corrupt it: callers fall back to [M, 3])."""
+    bc = bc[:total].to(torch.int64)
+    if total and int(bc.max()) >= _PACK_COUNT_LIMIT:
+        return None
+    packed = (
+        (bi[:total].to(torch.int64) << _PACK_I_SHIFT)
+        | (bj[:total].to(torch.int64) << _PACK_J_SHIFT)
+        | bc
+    )
+    return torch.sort(packed).values.cpu().numpy()
+
+
+def unpack_pairs(packed: np.ndarray) -> np.ndarray:
+    """Decode a packed int64 pair list to the canonical [M, 3] int32
+    matrix."""
+    out = np.empty((len(packed), 3), np.int32)
+    out[:, 0] = packed >> _PACK_I_SHIFT
+    out[:, 1] = (packed >> _PACK_J_SHIFT) & _PACK_FIELD_MASK
+    out[:, 2] = packed & (_PACK_COUNT_LIMIT - 1)
+    return out
+
+
+def pairs_as_array(pairs: np.ndarray) -> np.ndarray:
+    """Canonical [M, 3] int32 view of either pair-list format (packed
+    int64 [M] or already [M, 3])."""
+    return unpack_pairs(pairs) if pairs.ndim == 1 else pairs
+
+
+def packed_key(i: int, j: int) -> int:
+    """Packed value of pair (i, j) with count 0: the ``searchsorted``
+    lower bound of the pair in a sorted packed list (a stored pair's
+    value lies in [key, key + 2^16))."""
+    return (int(i) << _PACK_I_SHIFT) | (int(j) << _PACK_J_SHIFT)
+
+
+def packed_pair(v) -> tuple:
+    """Decode one packed int64 to (i, j, count)."""
+    v = int(v)
+    return (
+        v >> _PACK_I_SHIFT,
+        (v >> _PACK_J_SHIFT) & _PACK_FIELD_MASK,
+        v & (_PACK_COUNT_LIMIT - 1),
+    )
+
+
+def _sort_pairs(bi, bj, bc):
+    """Device sort of the buffers by (i, j) -> int32 [len, 3]; sentinel
+    slots sort to the tail."""
+    order = torch.argsort((bi.to(torch.int64) << 32) | bj.to(torch.int64))
+    return torch.stack([bi[order], bj[order], bc[order]], dim=1)
+
+
+def _fetch_sorted_pairs(bi, bj, bc, total: int, pair_format: str,
+                        n_rows: int) -> np.ndarray:
+    """Sort and fetch the pair list from compacted global buffers whose
+    first ``total`` slots are the survivors (the appends keep them a
+    prefix). ``pair_format="packed"`` fetches the packed int64 layout when
+    the ranges fit (row indices bounded by ``n_rows``, counts checked on
+    the device), else int32 [M, 3]."""
+    if pair_format == "packed" and n_rows < _PACK_ROW_LIMIT:
+        arr = _pack_sort_fetch(bi, bj, bc, total)
+        if arr is not None:
+            return arr
+    return _sort_pairs(bi[:total], bj[:total], bc[:total]).cpu().numpy()
+
+
+def _vcap_bucket(total: int, space: Optional[int] = None) -> int:
+    """Bucketed pair-buffer capacity for an exact survivor count, the JAX
+    package's rule (it enters the stream engine's budget, so both packages
+    block alike). ``space`` caps the bucket at the candidate space."""
+    g = 1 << 17 if total >= 1 << 17 else 1 << 14
+    vcap = max(1, (total + g - 1) // g * g)
+    if space is not None:
+        vcap = max(1, min(space, vcap))
+    return vcap
+
+
+def _finalize_pairs(buffers, expected_total: int, pair_format: str = "arr3",
+                    n_rows: int = 0) -> np.ndarray:
+    """Read the cursor (the one synchronisation), raise when the compacted
+    count disagrees with the sweep's exact tile hits (a capacity fault
+    must never truncate), then sort and fetch exactly ``expected_total``
+    rows. ``pair_format="packed"`` needs ``n_rows``, the row-index bound."""
+    bi, bj, bc, cursor = buffers
+    count = int(cursor)
+    if count != expected_total:
+        raise AssertionError(
+            f"extraction compacted {count} pairs, sweep stats promised "
+            f"{expected_total}"
+        )
+    if not n_rows:
+        pair_format = "arr3"
+    return _fetch_sorted_pairs(bi, bj, bc, expected_total, pair_format,
+                               n_rows)
 
 
 def _tile_runs(ti: np.ndarray, tj: np.ndarray):
@@ -384,22 +521,76 @@ def _pairwise_native(bitset, classes, config, threshold, index=None,
 
 def check_supported(config: PipelineConfig) -> None:
     """Raise for the configuration knobs the port does not carry yet."""
-    if config.engine == "stream":
-        raise NotImplementedError(
-            "engine='stream' needs the out-of-core stream engine (ROADMAP "
-            "queue 1, item 9), not yet ported; use auto, mxu, popcount, "
-            "xla or native"
-        )
-    if config.extract == "onepass":
-        raise NotImplementedError(
-            "extract='onepass' is a stream-engine mode, not yet ported "
-            "(ROADMAP queue 1, item 9)"
-        )
     if config.index_engine != "host":
         raise NotImplementedError(
             "index_engine='device' is not yet ported (ROADMAP queue 1, "
             "item 11)"
         )
+
+
+def _pairwise_stream(bitset, classes, config, threshold, weights, index,
+                     device, checkpoint_store, checkpoint_key):
+    """``engine="stream"``: the packed matrix stays in HOST memory and row
+    blocks stream through the device (``ops/stream.py``), for corpora
+    beyond the device's memory. The same int8 products as the MXU engine.
+    Returns (row_stats, pairs)."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+        extract_pairs_stream_auto,
+        extract_pairs_stream_fused,
+        sweep_extract_stream,
+        sweep_mxu_stream,
+    )
+
+    n = bitset.n
+    common = dict(n=n, threshold=threshold, weights=weights, device=device)
+    blocking = dict(bs=config.strip, block=config.tile)
+    gate = dict(cross_amr_only=config.cross_amr_only)
+    source = None
+    if config.stream_source == "csr":
+        # blocks materialize on the device from the incidence lists, on
+        # the packed matrix's padded geometry, so the tile enumeration is
+        # the host-words path's
+        if index is None or not getattr(index, "has_incidences", False):
+            raise ValueError(
+                "stream_source='csr' needs the host-built index "
+                "incidence lists (index_engine='host')"
+            )
+        source = CSRBlockSource(
+            index.incidence_protein, index.incidence_rank,
+            bitset.n_pad, bitset.w_pad,
+        )
+
+    if config.extract == "onepass" or source is not None:
+        # statistics and survivors in ONE streamed pass
+        row_stats, _, _, pairs = sweep_extract_stream(
+            None if source is not None else bitset.words, classes,
+            cap=config.extract_k or None, block_source=source,
+            checkpoint_store=checkpoint_store,
+            checkpoint_key=checkpoint_key, **common, **blocking, **gate,
+        )
+        return row_stats, pairs
+
+    if config.extract == "fused":
+        # the sweep drains survivor candidates inside its in-flight
+        # window, so extraction does not re-upload the matrix
+        k = config.extract_k or min(512, config.tile * config.tile)
+        row_stats, tile_hits, tiles, cands = sweep_mxu_stream(
+            bitset.words, classes, fused_k=k,
+            fused_same=not config.cross_amr_only, **common, **blocking,
+        )
+        pairs = extract_pairs_stream_fused(
+            bitset.words, classes, tile_hits, tiles, cands, **common, **gate,
+        )
+        return row_stats, pairs
+
+    row_stats, tile_hits, tiles = sweep_mxu_stream(
+        bitset.words, classes, **common, **blocking,
+    )
+    pairs = extract_pairs_stream_auto(
+        bitset.words, classes, tile_hits, tiles, **common, **gate,
+    )
+    return row_stats, pairs
 
 
 def pairwise_similarity(
@@ -408,6 +599,8 @@ def pairwise_similarity(
     config: Optional[PipelineConfig] = None,
     weights: Optional[np.ndarray] = None,
     index=None,
+    checkpoint_store=None,
+    checkpoint_key: Optional[str] = None,
     *,
     device,
 ) -> PairwiseResult:
@@ -420,11 +613,16 @@ def pairwise_similarity(
     ``popcount`` and ``xla`` both run the popcount formulation: K4 on
     CUDA, the plain sweep on the CPU, at ``config.tile``. ``weights``
     (int8 per bit column) switch to the BLOSUM-weighted score, which the
-    MXU engine carries as a column scale and the native engine only
-    through its sparse sweep; every other engine gives way to ``mxu``.
-    ``extract="fused"`` makes the MXU scan sweep keep its survivors
-    (capacity ``config.extract_k``, 0 = auto); on the strip schedule and
-    the popcount engines it is two-pass, as in the JAX package.
+    MXU and stream engines carry as a column scale and the native engine
+    only through its sparse sweep; every other engine gives way to
+    ``mxu``. ``extract="fused"`` makes the MXU scan sweep keep its
+    survivors (capacity ``config.extract_k``, 0 = auto); on the strip
+    schedule and the popcount engines it is two-pass, as in the JAX
+    package. ``engine="stream"`` keeps the matrix on the host
+    (:func:`_pairwise_stream`); ``extract="onepass"`` is its mode alone
+    and raises ``ValueError`` on any other engine.
+    ``checkpoint_store``/``checkpoint_key`` turn on the one-pass stream
+    sweep's group-boundary checkpoints.
     """
     config = config or PipelineConfig()
     check_supported(config)
@@ -443,8 +641,9 @@ def pairwise_similarity(
         if not (index is not None and index.has_incidences
                 and native.available()):
             engine = "mxu"
-    elif weights is not None:
-        # the popcount engines count unweighted bits
+    elif weights is not None and engine != "stream":
+        # the popcount engines count unweighted bits; the stream engine
+        # multiplies too and carries the weights itself
         engine = "mxu"
 
     threshold = (
@@ -452,10 +651,23 @@ def pairwise_similarity(
         if weights is not None
         else config.threshold
     )
+    if config.extract == "onepass" and engine != "stream":
+        raise ValueError(
+            "extract='onepass' is a stream-engine mode (the one-pass "
+            f"out-of-core sweep); resolved engine is {engine!r}"
+        )
     if engine == "native":
         return _pairwise_native(
             bitset, classes_np, config, threshold, index=index,
             weights=weights,
+        )
+    if engine == "stream":
+        row_stats, pairs = _pairwise_stream(
+            bitset, classes_np, config, threshold, weights, index, device,
+            checkpoint_store, checkpoint_key,
+        )
+        return PairwiseResult.from_row_stats(
+            row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
 
     words = bitset_to_torch(bitset, device)
