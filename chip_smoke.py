@@ -40,7 +40,27 @@ csrc`` with nvcc (one process per source, in parallel), then:
    and the oracle's pair list; K2 against its plain version on one
    stream-step block; upload, dispatch, drain and fetch seconds, the
    bytes uploaded and the host→device rates;
-5. K3 phase — the fused triangle sweep through its library entry
+5. query phase — query serving (``similarity.query.QueryServer``) on the
+   10,619 corpus, every kernel counter reset before it and 0 after it:
+   all corpus sequences as self-queries on a resident device server in
+   batches of 256, whose i<j cross-class matches must equal the scipy
+   oracle's pairs and whose self matches the rows' popcounts; device
+   answers equal to the host rank-CSR walk's at batches of 1, 16, 64 and
+   256 (unweighted and BLOSUM62; caps 512, 1 and 0) and for batches in
+   flight through ``query_async``/``query_wait``; ``cli query --device
+   cuda`` with ``--seq`` and ``--query-fasta``, its TSV equal to the host
+   server's; stream serving on the 30k corpus from the host and the csr
+   block source, at the default block and at 4,096 rows (8 blocks), equal
+   to a resident server; queries/s by batch, single-query latency with
+   and without the latency route, pipelined queries/s, one batch's device
+   times by layer, peak device memory (the resident server must hold one
+   corpus copy and a few unpacked chunks), stream seconds and GB
+   uploaded a batch;
+6. index phase — ``cli run --index-engine device`` on the 10,619 corpus
+   against the scipy oracle, and the device index and bitset equal to
+   the host build at k 5 and 7 (no kernel launched by the build), the
+   device index stage's seconds beside the host encode + index + pack;
+7. K3 phase — the fused triangle sweep through its library entry
    ``ops.tri_mxu.sweep_tri_mxu`` (counters reset before each call and
    read after it: K3 once): at 10,619 proteins int8 and bf16, unweighted
    and BLOSUM-weighted (the bf16 guard's verdict printed; a refusal must
@@ -462,6 +482,7 @@ def pipeline_phase(dev, tmp):
     print(f"oracle equals the documented corpus counters: "
           f"{want10 == expected}", flush=True)
     launches = {}
+    ns10 = ns
     launches["K1"] = cli_run(dev, fasta10, out, [], want10, pairs10,
                              {"K1": ns, "K2": 0, "K3": 0, "K4": 0})["K1"]
     launches["K4"] = cli_run(dev, fasta10, out, ["--engine", "popcount"],
@@ -484,7 +505,8 @@ def pipeline_phase(dev, tmp):
                       pairs30, {"K1": 0, "K2": steps, "K3": 0, "K4": 0})
         launches["K2"] = got["K2"]
     return (state10, pairs10, state30, pairs30, launches,
-            dict(fasta=fasta30, out=out, want=want30))
+            dict(fasta=fasta30, out=out, want=want30, want10=want10,
+                 ns10=ns10))
 
 
 def popc_bound_ms(pairs: int, words: int, sm_mhz: float) -> float:
@@ -1344,6 +1366,323 @@ def timing_phase(dev, state, want_pairs, stats):
                 epi_ms=epi_ms, **t)
 
 
+QUERY_BATCH = 256  # the self-query batch of the query phase
+QUERY_STREAM_BS = 4096  # a stream block that makes the 30k corpus 8 blocks
+
+
+def _query_batches(seqs, size):
+    return [seqs[i : i + size] for i in range(0, len(seqs), size)]
+
+
+def _same_answers(got, want, what):
+    import numpy as np
+
+    if len(got) != len(want) or not all(
+            np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: the answers differ")
+
+
+def _zero_launches(fns, what):
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{what}: kernel launches {launches}, "
+                             "expected none")
+    return launches
+
+
+def query_phase(dev, tmp, state10, pairs10, state30):
+    """Query serving (docstring, phase 5) on the 10,619 corpus, and stream
+    serving on the 30k corpus, every answer against an oracle that does
+    not share the code under test; the per-layer device times, rates and
+    peak memory of a resident server."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig, cli
+    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
+        int8_gemm,
+        unpack_words_to_int8,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
+        blosum_weights,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import query as q
+
+    t_phase = time.perf_counter()
+    fns = reset_counters()
+    table, index, bitset = state10
+    n = table.n
+    seqs = [table.seq(i) for i in range(n)]
+    strangers = ["MKT", "W" * 60, "MK@3xZJMKTAYIAKQRQISFVKSHFSRQ"]
+    corpus_bytes = bitset.words.nbytes
+
+    # a resident server: its build, one batch, and the peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = q.QueryServer(index, bitset, mode="device", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    srv.query(seqs[:QUERY_BATCH], threshold=THRESHOLD)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    chunk_bytes = bitset.n_pad * 4096
+    print(f"query server {N_PROTEINS}: built in {build_s:.3f} s; peak "
+          f"device memory over the build and one batch of {QUERY_BATCH} "
+          f"{peak:,} bytes (packed corpus {corpus_bytes:,}, one unpacked "
+          f"chunk {chunk_bytes:,})", flush=True)
+    if peak > corpus_bytes + 4 * chunk_bytes:
+        raise AssertionError("the resident server holds more than one "
+                             "corpus copy and a few chunks")
+
+    # every corpus sequence as a query: the i<j cross-class matches are
+    # the scipy oracle's pairs, and each self match the row's popcount
+    t0 = time.perf_counter()
+    answers = []
+    for b in _query_batches(seqs, QUERY_BATCH):
+        answers += srv.query(b, threshold=THRESHOLD)
+    self_s = time.perf_counter() - t0
+    popcount = np.bincount(index.incidence_protein, minlength=n)
+    cls = table.amr_class_ids
+    rows = []
+    for i, m in enumerate(answers):
+        js, cs = m[:, 0], m[:, 1]
+        own = cs[js == i]
+        want_own = [popcount[i]] if popcount[i] > THRESHOLD else []
+        if list(own) != want_own:
+            raise AssertionError(f"self match of {i}: {own}, popcount "
+                                 f"{popcount[i]}")
+        keep = (js > i) & (cls[js] != cls[i])
+        rows.append(np.stack([np.full(int(keep.sum()), i), js[keep],
+                              cs[keep]], axis=1))
+    got = np.concatenate(rows)
+    got = got[np.lexsort((got[:, 1], got[:, 0]))]
+    if not np.array_equal(got, pairs10):
+        raise AssertionError("self-queries differ from the scipy oracle")
+    print(f"self-queries: {n} in batches of {QUERY_BATCH} in "
+          f"{self_s:.3f} s ({n / self_s:.1f} queries/s): {len(got)} "
+          f"cross-class i<j pairs equal the scipy oracle, every self match "
+          f"the row's popcount", flush=True)
+
+    # device against host (the rank-CSR walk), unweighted and weighted,
+    # caps 512, 1 and 0, and async batches in flight
+    weights = blosum_weights(index, PipelineConfig(weighting="blosum62"),
+                             bitset)
+    sample = seqs[7::41][:253] + strangers
+    host = {w: q.QueryServer(index, bitset, weights=weights if w else None,
+                             mode="host", device="cpu")
+            for w in (False, True)}
+    servers = {(False, 512): srv}
+    for w, cap in ((True, 512), (False, 1), (False, 0), (True, 1)):
+        servers[(w, cap)] = q.QueryServer(
+            index, bitset, weights=weights if w else None, mode="device",
+            topk_cap=cap, device=dev)
+    checked = 0
+    for size in (1, 16, 64, 256):
+        batch = sample[:size]
+        for (w, cap), s in servers.items():
+            want = host[w].query(batch, threshold=THRESHOLD)
+            _same_answers(s.query(batch, threshold=THRESHOLD), want,
+                          f"batch {size}, weighted {w}, cap {cap}")
+            checked += 1
+    batches = _query_batches(sample, 64)
+    handles = [srv.query_async(b, threshold=THRESHOLD) for b in batches]
+    for h, b in zip(handles, batches):
+        _same_answers(srv.query_wait(h), host[False].query(
+            b, threshold=THRESHOLD), "async batch of 64")
+    print(f"device = host (rank-CSR walk) on {checked} batches of 1, 16, "
+          f"64 and 256 (unweighted and BLOSUM62, caps 512, 1, 0) and "
+          f"{len(batches)} async batches of 64 in flight", flush=True)
+
+    # cli query --device cuda with --seq and --query-fasta
+    qfasta = os.path.join(tmp, "queries.fasta")
+    qrows = list(range(0, n, n // 62))[:62]
+    with open(qfasta, "w") as f:
+        for i in qrows:
+            f.write(f">Q{i}|query\n{seqs[i]}\n")
+    cli_seqs = [seqs[5], strangers[2]]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["query", os.path.join(tmp, "synth10619.fasta"),
+                       "--device", dev.type, "--seq", cli_seqs[0], "--seq",
+                       cli_seqs[1], "--query-fasta", qfasta])
+    cli_s = time.perf_counter() - t0
+    names = ["query0", "query1"] + [f"Q{i}|query" for i in qrows]
+    qseqs = cli_seqs + [seqs[i] for i in qrows]
+    lines = ["query\tprotein\tid\tamr_class\tshared_kmers"]
+    for name, m in zip(names, host[False].query(qseqs,
+                                                 threshold=THRESHOLD)):
+        lines += [f"{name}\t{j}\t{table.ids[j]}\t{table.amr_classes[j]}\t{c}"
+                  for j, c in m]
+    if rc != 0 or buf.getvalue() != "\n".join(lines) + "\n":
+        raise AssertionError("cli query's TSV differs from the host server")
+    print(f"cli query --device {dev.type} --seq x2 --query-fasta (62): "
+          f"{cli_s:.3f} s, {len(lines) - 1} TSV rows equal the host "
+          f"server's", flush=True)
+
+    # rates: sync queries/s by batch, the latency route, pipelining
+    routed = q.QueryServer(index, bitset, mode="device", host_route_max=4,
+                           device=dev)
+    routed.query(seqs[:1], threshold=THRESHOLD)
+    rates = {}
+    for size in (1, 16, 64, 256):
+        s, _ = best_seconds(lambda: srv.query(seqs[:size],
+                                              threshold=THRESHOLD))
+        rates[size] = size / s
+    lat_dev, _ = best_seconds(lambda: srv.query(seqs[3:4],
+                                                threshold=THRESHOLD), reps=5)
+    lat_route, _ = best_seconds(lambda: routed.query(
+        seqs[3:4], threshold=THRESHOLD), reps=5)
+    pipe = _query_batches(seqs[:16 * 64], 64)
+
+    def pipelined():
+        hs = [srv.query_async(b, threshold=THRESHOLD) for b in pipe]
+        return [srv.query_wait(h) for h in hs]
+
+    pipe_s, _ = best_seconds(pipelined, reps=2, warmup=1)
+    print(f"sync queries/s: " + ", ".join(
+        f"batch {k} {v:.1f}" for k, v in rates.items())
+        + f"; single query {lat_dev * 1e3:.3f} ms on the device, "
+        f"{lat_route * 1e3:.3f} ms through the latency route (rank-CSR "
+        f"walk); pipelined {len(pipe)} batches of 64 in flight "
+        f"{len(pipe) * 64 / pipe_s:.1f} queries/s", flush=True)
+
+    # per-layer device times of one batch of 256 (CUDA events)
+    batch = seqs[:QUERY_BATCH]
+    t0 = time.perf_counter()
+    qwords = q.pack_query_bitsets(index, batch, bitset.w_pad)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    qp = srv._upload_queries(qwords, QUERY_BATCH)
+    chunks = list(srv._blocks)
+    unpack_ms = cuda_ms(lambda: [unpack_words_to_int8(c) for c in chunks],
+                        reps=5)
+    a_all = [unpack_words_to_int8(c) for c in chunks]
+    q_all = [unpack_words_to_int8(qp[:, k0 : k0 + 128])
+             for k0 in range(0, bitset.w_pad, 128)]
+    mm_ms = cuda_ms(lambda: [int8_gemm(a, b) for a, b in zip(a_all, q_all)],
+                    reps=5)
+    del a_all, q_all
+    ops = 2 * bitset.n_pad * QUERY_BATCH * bitset.w_pad * 32
+    counts_ms = cuda_ms(lambda: srv._resident_counts(qp), reps=5)
+    counts = srv._resident_counts(qp)
+    epi_ms = cuda_ms(lambda: q.topk_epilogue(counts, THRESHOLD, n, 512),
+                     reps=20)
+    packed = q.topk_epilogue(counts, THRESHOLD, n, 512)
+    torch.cuda.synchronize()
+    fetch_s, _ = best_seconds(lambda: packed.cpu(), reps=5)
+    print(f"one batch of {QUERY_BATCH} on the resident {N_PROTEINS} corpus "
+          f"({bitset.w_pad // 128} chunks): host encode + pack "
+          f"{pack_ms:.3f} ms; device: counts {counts_ms:.4f} ms = unpack "
+          f"of the corpus {unpack_ms:.4f} + _int_mm products {mm_ms:.4f} "
+          f"({ops / mm_ms / 1e9:.1f} TOP/s) + the rest; top-k epilogue "
+          f"{epi_ms:.4f} ms; fetch of [{QUERY_BATCH}, 1025] lanes "
+          f"{fetch_s * 1e3:.4f} ms", flush=True)
+    del srv, servers, routed, counts, packed, chunks
+    torch.cuda.empty_cache()
+
+    # stream serving on the 30k corpus against a resident server
+    table30, index30, bitset30 = state30
+    batch = [table30.seq(i) for i in range(0, table30.n, 469)][:64]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res30 = q.QueryServer(index30, bitset30, mode="device", device=dev)
+    want = res30.query(batch, threshold=THRESHOLD)
+    res_s, _ = best_seconds(lambda: res30.query(batch, threshold=THRESHOLD),
+                            reps=2, warmup=0)
+    peak30 = torch.cuda.max_memory_allocated() - base
+    print(f"resident server {N_SCALE} (packed {bitset30.words.nbytes:,} "
+          f"bytes): batch of 64 in {res_s:.3f} s; peak {peak30:,} bytes",
+          flush=True)
+    if peak30 > bitset30.words.nbytes * 1.25:
+        raise AssertionError("the resident 30k server exceeds one corpus "
+                             "copy by more than a quarter")
+    del res30
+    torch.cuda.empty_cache()
+    stream_s = {}
+    for source in ("host", "csr"):
+        for sbs in (None, QUERY_STREAM_BS):
+            t0 = time.perf_counter()
+            s = q.QueryServer(index30, bitset30, mode="stream",
+                              stream_source=source, stream_bs=sbs,
+                              device=dev)
+            set_up = time.perf_counter() - t0
+            nbk = -(-bitset30.n_pad // s._stream_bs)
+            _same_answers(s.query(batch, threshold=THRESHOLD), want,
+                          f"stream {source} bs {s._stream_bs}")
+            before = dict(s.stream_trace)
+            sec, _ = best_seconds(lambda: s.query(batch,
+                                                  threshold=THRESHOLD),
+                                  reps=2, warmup=0)
+            up = (s.stream_trace["upload_bytes"]
+                  - before["upload_bytes"]) / 2
+            stream_s[(source, s._stream_bs)] = sec
+            print(f"stream {source} bs {s._stream_bs} ({nbk} blocks): "
+                  f"set-up {set_up:.3f} s; a batch of 64 in {sec:.3f} s "
+                  f"({64 / sec:.1f} queries/s), {up / 1e9:.3f} GB uploaded "
+                  f"a batch; answers equal the resident server's",
+                  flush=True)
+            if sbs and nbk < 8:
+                raise AssertionError(f"bs {sbs} gives {nbk} blocks")
+            del s
+            torch.cuda.empty_cache()
+    launches = _zero_launches(fns, "query phase")
+    print(f"query phase: kernel launches {launches}; "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def index_phase(dev, tmp, state10, pairs10, want10, ns):
+    """The device index build (docstring, phase 6): `cli run --index-engine
+    device` on the 10,619 corpus against the scipy oracle, and the device
+    index and bitset against the host build at k 5 and 7."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch import pipeline as pl
+
+    t_phase = time.perf_counter()
+    fasta = os.path.join(tmp, "synth10619.fasta")
+    cli_run(dev, fasta, os.path.join(tmp, "out"),
+            ["--index-engine", "device"], want10, pairs10,
+            {"K1": ns, "K2": 0, "K3": 0, "K4": 0})
+    table = state10[0]
+    fns = reset_counters()
+    for k in (5, 7):
+        cfg = PipelineConfig(k=k)
+
+        def host():
+            codes, koff = pl.encode_kmers(table.seq_buf, table.offsets, k)
+            index = pl.build_index(codes, koff, k)
+            return index, pl.pack_bitsets(
+                index.incidence_protein, index.incidence_rank, table.n,
+                index.n_repeated, row_multiple=pl._row_multiple(cfg, table.n))
+
+        host_s, (h_index, h_bitset) = best_seconds(host, reps=2, warmup=0)
+        dev_s, (d_index, d_bitset) = best_seconds(
+            lambda: pl._device_index(table, cfg, dev), reps=2, warmup=1)
+        for f in ("codes", "doc_freq", "repeated_codes", "hash_doc_freq"):
+            if not np.array_equal(getattr(d_index, f), getattr(h_index, f)):
+                raise AssertionError(f"k={k}: device index {f} differs")
+        if not np.array_equal(d_bitset.words, h_bitset.words):
+            raise AssertionError(f"k={k}: device bitset differs")
+        torch.cuda.synchronize()
+        print(f"device index k={k}: {d_index.n_repeated} repeated, "
+              f"bitset {d_bitset.words.shape[0]} x {d_bitset.words.shape[1]}"
+              f" equal to the host build bit for bit; device index stage "
+              f"{dev_s:.3f} s, host encode + index + pack {host_s:.3f} s",
+              flush=True)
+    launches = _zero_launches(fns, "device index")
+    print(f"index phase: kernel launches in the direct builds {launches}; "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -1387,6 +1726,9 @@ def main() -> int:
         scan = scan_timing_phase(dev, state30, pairs30)
         st = stream_phase(dev, tmp, state30, pairs30, run30,
                           scan["sweep_s"])
+        q_launches = query_phase(dev, tmp, state10, pairs10, state30)
+        i_launches = index_phase(dev, tmp, state10, pairs10,
+                                 run30["want10"], run30["ns10"])
         k3 = k3_phase(dev, state10, state30, sm_mhz)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -1410,6 +1752,8 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "query_launches": q_launches["K1"],
+            "device_index_launches": i_launches["K1"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -1425,6 +1769,8 @@ def main() -> int:
             "bound_ms": k2["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+            "query_launches": q_launches["K2"],
+            "device_index_launches": i_launches["K2"],
         },
         {
             "name": "sweep_tri_mxu",
@@ -1439,6 +1785,8 @@ def main() -> int:
             "bound_ms": k3["bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
+            "query_launches": q_launches["K3"],
+            "device_index_launches": i_launches["K3"],
         },
         {
             "name": "popcount_sweep",
@@ -1453,6 +1801,8 @@ def main() -> int:
             "bound_ms": k4["bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
+            "query_launches": q_launches["K4"],
+            "device_index_launches": i_launches["K4"],
         },
     ]
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",

@@ -714,3 +714,158 @@ def test_stream_pipeline_gpu_matches_cpu(cuda, synth_fasta):
         assert gpu.parity_report()["pairs_over_threshold"] > 0
         assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
         assert np.array_equal(gpu.cluster_labels, cpu.cluster_labels)
+
+
+# ---- query serving and the device index build -------------------------
+
+@pytest.fixture(scope="module")
+def served(synth_fasta):
+    """The 1200-protein corpus up to its bitset (N_pad 1536), its BLOSUM
+    weights and a query batch of corpus sequences plus two strangers."""
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
+        blosum_weights,
+    )
+
+    res = run_pipeline(synth_fasta, PipelineConfig(), device="cpu",
+                       stop_after="pack")
+    weights = blosum_weights(res.index, PipelineConfig(weighting="blosum62"),
+                             res.bitset)
+    seqs = [res.table.seq(i) for i in range(0, 1200, 7)] + ["MKT", "W" * 40]
+    return res, weights, seqs
+
+
+def _host_answers(res, seqs, weights=None, threshold=10, corpus=None):
+    """The CPU rank-CSR walk's answers over res's corpus, or over
+    ``corpus`` = (index, bitset)."""
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    index, bitset = corpus or (res.index, res.bitset)
+    return QueryServer(index, bitset, weights=weights, mode="host",
+                       device="cpu").query(seqs, threshold=threshold)
+
+
+def _same_matches(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("cap", [512, 1, 0])
+@pytest.mark.parametrize("nq", [1, 9, 16, 64, 173])
+def test_query_device_matches_host(cuda, served, nq, cap, weighted):
+    """The _int_mm shape edges: one query (bucket 8, the query operand's
+    8 rows), 9 (bucket 16), 173 (bucket 256); cap 1 redoes every
+    multi-hit query through its own bucket, cap 0 fetches full counts."""
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, weights, seqs = served
+    w = weights if weighted else None
+    batch = seqs[:nq]
+    srv = QueryServer(res.index, res.bitset, weights=w, mode="device",
+                      topk_cap=cap, device=cuda)
+    got = srv.query(batch, threshold=10)
+    _same_matches(got, _host_answers(res, batch, w))
+    assert sum(m.shape[0] for m in got) >= nq - 2
+
+
+@pytest.mark.parametrize("source", ["host", "csr"])
+@pytest.mark.parametrize("sbs,cap", [(16, 512), (16, 1), (100, 2),
+                                     (None, 512)])
+def test_query_stream_matches_resident(cuda, served, source, sbs, cap):
+    """Stream mode from both block sources: 16-row blocks (the corpus
+    operand padded to 24 rows for _int_mm), ragged 100-row blocks, the
+    default block, and the per-block redo at caps 1–2, against the
+    resident server on the card."""
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, weights, seqs = served
+    batch = seqs[:40]
+    resident = QueryServer(res.index, res.bitset, mode="device",
+                           device=cuda).query(batch, threshold=10)
+    srv = QueryServer(res.index, res.bitset, mode="stream", stream_bs=sbs,
+                      stream_source=source, topk_cap=cap, device=cuda)
+    _same_matches(srv.query(batch, threshold=10), resident)
+    nbk = -(-res.bitset.n_pad // srv._stream_bs)
+    assert srv.stream_trace["uploads"] >= nbk
+    ws = QueryServer(res.index, res.bitset, weights=weights, mode="stream",
+                     stream_bs=sbs, stream_source=source, topk_cap=cap,
+                     device=cuda)
+    _same_matches(ws.query(batch, threshold=10),
+                  _host_answers(res, batch, weights))
+
+
+@pytest.mark.parametrize("mode", ["device", "stream-host", "stream-csr"])
+def test_query_async_does_not_synchronise(cuda, served, mode):
+    """query_async makes no host synchronisation: two batches dispatched
+    under torch.cuda.set_sync_debug_mode("error"), then answered exactly
+    by query_wait."""
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, _, seqs = served
+    kw = dict(mode="device")
+    if mode != "device":
+        kw = dict(mode="stream", stream_bs=512,
+                  stream_source=mode.split("-")[1])
+    srv = QueryServer(res.index, res.bitset, device=cuda, **kw)
+    srv.query(seqs[:3], threshold=10)
+    torch.cuda.synchronize()
+    batches = [seqs[:8], seqs[8:40]]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [srv.query_async(b, threshold=10) for b in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for h, b in zip(handles, batches):
+        _same_matches(srv.query_wait(h), _host_answers(res, b))
+
+
+def test_query_add_proteins_on_card(cuda, served):
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.append import (
+        append_to_index,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, _, seqs = served
+    new = [res.table.seq(i) + "MKTAYIAKQR" for i in (3, 500)]
+    srv = QueryServer(res.index, res.bitset, mode="device", device=cuda)
+    report = srv.add_proteins(new, threshold=10)
+    host = QueryServer(res.index, res.bitset, mode="host", device="cpu")
+    assert np.array_equal(report, host.add_proteins(new, threshold=10))
+    _same_matches(srv.query(seqs[:20], threshold=10),
+                  _host_answers(res, seqs[:20], corpus=append_to_index(
+                      res.index, res.bitset, new)))
+
+
+@pytest.mark.parametrize("k", [5, 7])
+def test_device_index_on_card_matches_host(cuda, synth_fasta, k,
+                                           monkeypatch):
+    """index_engine="device" on the card: the bitset and doc-freqs equal
+    the host build's, and so do the pairs; pack_bitsets_device too."""
+    from uniprot_kmer_based_clustering_tpu_torch.kmers import bitset
+
+    monkeypatch.setattr(bitset, "_PACK_CHUNK", 1 << 16)
+    cfg = dict(k=k, tile=128, strip=256)
+    host = run_pipeline(synth_fasta, PipelineConfig(**cfg), device="cpu")
+    dev = run_pipeline(synth_fasta, PipelineConfig(index_engine="device",
+                                                   **cfg), device=cuda)
+    assert np.array_equal(dev.bitset.words, host.bitset.words)
+    assert np.array_equal(dev.index.codes, host.index.codes)
+    assert np.array_equal(dev.index.doc_freq, host.index.doc_freq)
+    assert np.array_equal(dev.pairwise.pairs, host.pairwise.pairs)
+    packed = bitset.pack_bitsets_device(
+        host.index.incidence_protein, host.index.incidence_rank,
+        host.table.n, host.index.n_repeated, row_multiple=128,
+        device=cuda)
+    assert np.array_equal(packed.words.cpu().numpy().view(np.uint32),
+                          host.bitset.words)

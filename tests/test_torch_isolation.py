@@ -86,6 +86,39 @@ def test_cli_run_loads_neither_jax_nor_the_jax_package(toy_fasta, tmp_path):
     assert (tmp_path / "out" / "pairs.tsv").exists()
 
 
+@pytest.mark.parametrize("argv", [
+    ["query", "{fasta}", "--device", "cpu", "--seq",
+     "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQ"],
+    ["run", "{fasta}", "--device", "cpu", "--index-engine", "device",
+     "--out", "{out}"],
+], ids=["query", "run-device-index"])
+def test_query_and_device_index_load_neither_jax_nor_the_jax_package(
+        toy_fasta, tmp_path, argv):
+    """The serving path (`cli query`, QueryServer, kmers.append) and the
+    device index build in a fresh interpreter: neither name reaches
+    sys.modules."""
+    code = (
+        "import sys, json\n"
+        f"from {PORT}.cli import main\n"
+        f"from {PORT}.similarity import QueryServer\n"
+        f"from {PORT}.kmers import append, index_device\n"
+        "assert main(json.loads(sys.argv[1])) == 0\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED_OK')\n"
+    )
+    import json
+
+    argv = [a.format(fasta=toy_fasta, out=str(tmp_path / "out"))
+            for a in argv]
+    proc = subprocess.run(
+        [sys.executable, "-c", code, json.dumps(argv)],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ISOLATED_OK" in proc.stdout
+
+
 CONFIGS = [
     {},
     dict(k=7),

@@ -328,12 +328,13 @@ def test_extract_pairs_in_windows_matches_whole(toy, monkeypatch):
 @pytest.mark.parametrize("knob,raises,match", [
     (dict(engine="stream", tile=16), None, None),
     (dict(extract="onepass"), ValueError, "stream-engine mode"),
-    (dict(index_engine="device"), NotImplementedError, "item 11"),
+    (dict(index_engine="device"), None, None),
 ])
 def test_unported_knobs_raise(toy, knob, raises, match):
-    """What is still refused raises with its ROADMAP item; the stream
-    engine, ported since, runs and gives the JAX result, and its one-pass
-    mode on any other engine raises the JAX package's ValueError."""
+    """Knobs refused until they were ported now run and give the JAX
+    result (the stream engine; a config naming the device index build,
+    whose bitset the sweep takes like any other); the one-pass mode on any
+    other engine raises the JAX package's ValueError."""
     table, _, bitset, _ = toy
     cfg = PipelineConfig(**knob)
     if raises is None:

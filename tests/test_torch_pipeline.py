@@ -196,7 +196,7 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cluster", "tree"], ["--index-engine", "device"], ["--devices", "4"],
+    ["--cluster", "tree"], ["--shard-axis", "kmers"], ["--devices", "4"],
     ["--mesh-shape", "2x4"], ["--align", "sw"], ["--dump-kmers"],
 ])
 def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):

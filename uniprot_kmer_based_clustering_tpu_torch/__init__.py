@@ -12,7 +12,9 @@ Layout:
   io/, kmers/, utils/
               host stages: FASTA ingest, the C++ runtime's binding (built
               into build/ at first use), k-mer encode, doc-freq index, bit
-              packing, BLOSUM weights, timers, checkpoints
+              packing, corpus append, BLOSUM weights, timers, checkpoints;
+              kmers/index_device.py builds the index and bitset on the
+              device instead
   device.py   explicit device selection (no silent CPU fallback)
   state.py    packed words / classes / weights onto a torch device
   csrc/       CUDA C++ kernels, built at first use by ops/_build.py
@@ -20,9 +22,10 @@ Layout:
               the fused triangle sweep (tri_mxu), the popcount engines
               (popcount), each kernel beside its plain PyTorch version, and
               the out-of-core stream engine (stream)
-  similarity/ sweep + exact pair extraction (two-pass, fused, one-pass)
+  similarity/ sweep + exact pair extraction (two-pass, fused, one-pass);
+              query serving (QueryServer)
   models/     connected components
-  pipeline.py run_pipeline; cli.py the `run` command
+  pipeline.py run_pipeline; cli.py the `run` and `query` commands
 """
 
 __version__ = "0.1.0"

@@ -9,9 +9,15 @@
       [--stream-source {host,csr}] [--all-pairs] [--checkpoint-dir DIR]
       [--out DIR] [--profile DIR] [--cpu] [--verbose]
 
-writes pairs.tsv, clusters.tsv and stats.json to --out in the same
-format as the JAX package's ``cli run``. The remaining flags of that CLI
-are accepted and refused with the ROADMAP item that will bring them.
+  python -m uniprot_kmer_based_clustering_tpu_torch.cli query <fasta>
+      [--seq AASEQ ...] [--query-fasta FASTA] [--device {cuda,cpu}]
+      [--k {5,7}] [--threshold N] [--weighting {none,blosum62}] [--top N]
+      [--checkpoint-dir DIR] [--cpu]
+
+``run`` writes pairs.tsv, clusters.tsv and stats.json to --out in the
+same format as the JAX package's ``cli run``; the remaining flags of that
+CLI are accepted and refused with the ROADMAP item that will bring them.
+``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
 from __future__ import annotations
@@ -35,9 +41,6 @@ def _refuse_unported(args) -> None:
         (args.cluster in ("tree", "agglomerative"),
          f"--cluster {args.cluster}: tree/agglomerative clustering "
          "(ROADMAP queue 1, item 13)"),
-        (args.index_engine != "host",
-         "--index-engine device: the device index build (ROADMAP queue 1, "
-         "item 11)"),
         (args.dump_kmers or args.dump_proteins or args.dump_debug,
          "--dump-*: the k-mer dumps, whose JAX-package modules load jax "
          "through similarity/__init__ (ROADMAP queue 1, item 1)"),
@@ -144,6 +147,76 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_query(args) -> int:
+    """Serve shared-k-mer searches against a corpus index.
+
+    The corpus pipeline runs up to the bitset (resuming from
+    --checkpoint-dir when given, written by either package), then the
+    queries go through one :class:`QueryServer` on the device; matches
+    print as TSV (query, corpus row, id, AMR class, shared k-mers).
+    """
+    from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+    from uniprot_kmer_based_clustering_tpu_torch.similarity.query import (
+        query_shared_kmers,
+    )
+
+    device = resolve_device("cpu" if args.cpu else args.device)
+    seqs = list(args.seq or [])
+    names = [f"query{i}" for i in range(len(seqs))]
+    if args.query_fasta:
+        from uniprot_kmer_based_clustering_tpu_torch.io.fasta import (
+            _read_file_bytes,
+            parse_fasta_bytes,
+        )
+
+        # gzip handled as on the corpus path; latin-1 round-trips any
+        # residue byte (those outside the alphabet hit the '*' catch-all)
+        qids, qbuf, qoff = parse_fasta_bytes(
+            _read_file_bytes(args.query_fasta)
+        )
+        for qi, qid in enumerate(qids):
+            names.append(qid)
+            seqs.append(
+                qbuf[qoff[qi] : qoff[qi + 1]].tobytes().decode("latin-1")
+            )
+    if not seqs:
+        raise SystemExit("no queries: pass --seq and/or --query-fasta")
+
+    config = PipelineConfig(
+        k=args.k, threshold=args.threshold, cluster="none",
+        weighting=args.weighting,
+    )
+    res = run_pipeline(
+        args.fasta, config, checkpoint_dir=args.checkpoint_dir,
+        device=device, stop_after="pack",
+    )
+    weights = None
+    threshold = args.threshold
+    if args.weighting == "blosum62":
+        from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
+            blosum_weights,
+        )
+
+        weights = blosum_weights(res.index, config, res.bitset)
+        # the weighted batch sweep's gate scaling (a raw 10 on BLOSUM
+        # scores would pass any pair sharing one k-mer)
+        threshold = config.effective_weighted_threshold(weights)
+    matches = query_shared_kmers(
+        res.index, res.bitset, seqs, threshold=threshold, weights=weights,
+        top=args.top, device=device,
+    )
+    print("query\tprotein\tid\tamr_class\tshared_kmers")
+    for name, m in zip(names, matches):
+        for j, c in m:
+            print(
+                f"{name}\t{j}\t{res.table.ids[j]}\t"
+                f"{res.table.amr_classes[j]}\t{c}"
+            )
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="uniprot-kmer-cluster-torch",
@@ -209,6 +282,30 @@ def main(argv=None) -> int:
                         "DIR/trace.json (a Chrome trace)")
     r.add_argument("-v", "--verbose", action="store_true")
     r.set_defaults(func=cmd_run)
+
+    q = sub.add_parser(
+        "query",
+        help="search new sequences against a corpus index (serving)",
+    )
+    q.add_argument("fasta", help="corpus FASTA (the standing index)")
+    q.add_argument("--seq", action="append", metavar="AASEQ",
+                   help="query amino-acid sequence (repeatable)")
+    q.add_argument("--query-fasta", default=None,
+                   help="FASTA of query sequences")
+    q.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda raises when no GPU is visible; the CPU walks "
+                        "the corpus's rank-CSR")
+    q.add_argument("--k", type=int, default=5, choices=(5, 7))
+    q.add_argument("--threshold", type=int, default=10)
+    q.add_argument("--weighting", default="none",
+                   choices=("none", "blosum62"))
+    q.add_argument("--top", type=int, default=None,
+                   help="keep only the best N matches per query")
+    q.add_argument("--checkpoint-dir", default=None,
+                   help="reuse/persist the corpus index (warm startup)")
+    q.add_argument("--cpu", action="store_true",
+                   help="the same as --device cpu")
+    q.set_defaults(func=cmd_query)
 
     args = p.parse_args(argv)
     return args.func(args)

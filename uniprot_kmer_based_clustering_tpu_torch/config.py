@@ -9,7 +9,7 @@ random-10% sampling in the dead ``Protein::new_with_rand_fivemers`` at
 The port's own copy of the JAX package's ``config.py``: every field,
 default and ``cache_key`` is the same, so checkpoints cross between the
 packages. Knobs the port does not carry yet are refused where they are
-read (``similarity.pairwise.check_supported``, the CLI).
+read (``pipeline.run_pipeline``, the CLI).
 """
 
 from __future__ import annotations

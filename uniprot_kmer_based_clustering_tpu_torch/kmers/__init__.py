@@ -1,2 +1,2 @@
-"""k-mer encoding, the doc-freq index and the packed presence bitsets
-(host numpy / C++)."""
+"""k-mer encoding, the doc-freq index, the packed presence bitsets and
+corpus appends (host numpy / C++), and the device index build (torch)."""

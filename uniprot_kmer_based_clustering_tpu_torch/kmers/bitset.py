@@ -13,9 +13,10 @@ Padding: the word axis is padded to a multiple of 128 (TPU lane count) and
 the protein axis to a multiple of the sweep tile; pad bits are zero so they
 never contribute to a popcount.
 
-The port's own copy of the JAX package's ``kmers/bitset.py``, host paths
-only: ``state.bitset_to_torch`` carries the words to a torch device, and
-the stream engine reads them from the host block by block.
+The port's own copy of the JAX package's ``kmers/bitset.py``:
+``state.bitset_to_torch`` carries the words to a torch device, the stream
+engine reads them from the host block by block, and
+:func:`pack_bitsets_device` packs the incidences on the device instead.
 """
 
 from __future__ import annotations
@@ -154,3 +155,59 @@ def pack_bitsets(
         words[lo:hi] = packed.view(np.uint32)
     return BitsetMatrix(words=words, n=n, n_bits=n_bits)
 
+
+
+# The JAX package's refusal size, set for one 16 GB TPU (~15.75 GB with
+# working space); kept so both packages refuse alike
+_DEVICE_PACK_LIMIT_GB = 13.0
+# incidences uploaded and scattered per step of pack_bitsets_device
+_PACK_CHUNK = 1 << 22
+
+
+def pack_bitsets_device(
+    incidence_protein: np.ndarray,
+    incidence_rank: np.ndarray,
+    n: int,
+    n_bits: int,
+    row_multiple: int = 512,
+    word_multiple: int = 128,
+    device="cuda",
+) -> BitsetMatrix:
+    """Pack the presence matrix ON the device: the (protein, rank)
+    incidences (8 bytes each) go up in chunks of ``_PACK_CHUNK`` and each
+    adds its own power of two into ``words[p, r >> 5]``.
+
+    Several distinct ranks of one protein can share a word, so the
+    scatter accumulates (``index_add_`` of int32 bit patterns, bit 31 the
+    sign bit): distinct bits never carry, and the sum is the OR.
+
+    Returns a BitsetMatrix whose ``words`` is an int32 tensor [N_pad,
+    W_pad] on ``device`` holding the uint32 bit patterns.
+    """
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import _BIT
+
+    n_pad = _round_up(max(n, 1), row_multiple)
+    w = _round_up(max(n_bits, 1), 32) // 32
+    w_pad = _round_up(w, word_multiple)
+    gb = n_pad * w_pad * 4 / 2**30
+    if gb > _DEVICE_PACK_LIMIT_GB:
+        raise ValueError(
+            f"packed bitset would be {gb:.1f} GB — beyond the "
+            f"{_DEVICE_PACK_LIMIT_GB:.0f} GB device-pack limit (the JAX "
+            f"package's, kept so both refuse alike). Pack on the host "
+            f"(pack_bitsets), or stream the corpus (engine='stream')."
+        )
+    device = resolve_device(device)
+    words = torch.zeros(n_pad * w_pad, dtype=torch.int32, device=device)
+    table = torch.tensor(_BIT, dtype=torch.int32, device=device)
+    ip = np.asarray(incidence_protein, np.int32)
+    ir = np.asarray(incidence_rank, np.int32)
+    for lo in range(0, ip.shape[0], _PACK_CHUNK):
+        p = torch.from_numpy(ip[lo : lo + _PACK_CHUNK]).to(device)
+        r = torch.from_numpy(ir[lo : lo + _PACK_CHUNK]).to(device)
+        flat = p.to(torch.int64) * w_pad + (r >> 5).to(torch.int64)
+        words.index_add_(0, flat, table[(r & 31).to(torch.int64)])
+    return BitsetMatrix(words=words.view(n_pad, w_pad), n=n, n_bits=n_bits)

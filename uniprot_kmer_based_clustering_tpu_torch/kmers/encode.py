@@ -17,8 +17,8 @@ Reference semantics (``src/protein.rs:9-54``):
     reference uses a nondeterministic RNG; we derive a per-protein
     deterministic stream from (seed, protein index) instead.
 
-The port's own copy of the JAX package's ``kmers/encode.py``, host paths
-only (the device stencil encoder is not ported).
+The port's own copy of the JAX package's ``kmers/encode.py``; the
+device stencil encoder (:func:`encode_kmers_device`) takes torch tensors.
 """
 
 from __future__ import annotations
@@ -48,6 +48,20 @@ def _window_codes(idx: np.ndarray, k: int) -> np.ndarray:
     for j in range(k):
         codes += idx[j : r - k + 1 + j].astype(np.int64) * (21 ** (k - 1 - j))
     return codes
+
+
+def seqs_to_buffer(seqs) -> tuple[np.ndarray, np.ndarray]:
+    """Sequence strings → (uint8 buffer, int64 offsets [n+1]).
+
+    latin-1 keeps byte-for-byte parity with the pipeline's raw-byte
+    ingest: any byte outside the 21-letter alphabet routes through the
+    '*' catch-all exactly as in a FASTA record (src/protein.rs:49-54);
+    characters above U+00FF have no byte form and raise.
+    """
+    buf = np.frombuffer("".join(seqs).encode("latin-1"), np.uint8)
+    offsets = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(s) for s in seqs], out=offsets[1:])
+    return buf, offsets
 
 
 def encode_kmers(
@@ -125,3 +139,38 @@ def _ranges(counts: np.ndarray) -> np.ndarray:
     out = np.arange(total, dtype=np.int64)
     starts = np.repeat(np.cumsum(np.concatenate([[0], counts[:-1]])), counts)
     return out - starts
+
+
+def encode_kmers_device(residue_idx, lengths, k: int):
+    """Device k-mer encoding over a padded residue-index matrix.
+
+    Args:
+      residue_idx: int32 tensor ``[N, Lmax]`` of alphabet indices (pad
+        value arbitrary), on the device the build runs on.
+      lengths: int32 tensor ``[N]`` of true lengths.
+      k: k-mer size.
+
+    Returns (codes int32 ``[N, Lmax−k+1]``, valid bool mask of the real
+    windows): the stencil sum over every window, padding windows masked
+    rather than cut, as the JAX package's encoder returns them.
+    """
+    import torch
+
+    if k > 7:
+        # 21^8 > 2^31: the int32 stencil would wrap silently, and wrapped
+        # codes still sort/dedup "successfully" into a corrupt index
+        raise ValueError(f"k={k} overflows int32 k-mer codes (max 7)")
+    n, lmax = residue_idx.shape
+    if lmax < k:
+        # every sequence shorter than k: zero real windows; pad to one
+        # fully-masked window so the callers' empty-index paths get a
+        # well-formed (all-invalid) window matrix
+        residue_idx = torch.nn.functional.pad(residue_idx, (0, k - lmax))
+        lmax = k
+    w = lmax - k + 1
+    codes = torch.zeros((n, w), dtype=torch.int32, device=residue_idx.device)
+    for j in range(k):
+        codes += residue_idx[:, j : j + w].to(torch.int32) * (21 ** (k - 1 - j))
+    pos = torch.arange(w, dtype=torch.int32, device=residue_idx.device)
+    valid = pos[None, :] < (lengths.to(torch.int32)[:, None] - (k - 1))
+    return codes, valid

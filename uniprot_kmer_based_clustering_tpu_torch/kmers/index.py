@@ -16,9 +16,10 @@ is invariant under that bijection. We use the **dense rank in ascending
 code order** — a deterministic minimal perfect hash by construction —
 computed by the C++ radix builder or with numpy sort/unique.
 
-The port's own copy of the JAX package's ``kmers/index.py``, host paths
-only (the device doc-freq build is not ported): the same ``KmerIndex``
-fields and the same index, so checkpoints cross between the packages.
+The port's own copy of the JAX package's ``kmers/index.py``: the same
+``KmerIndex`` fields and the same index, so checkpoints cross between the
+packages. The device doc-freq build (:func:`doc_freq_dense_device`) takes
+torch tensors; ``kmers/index_device.py`` builds on it.
 """
 
 from __future__ import annotations
@@ -94,12 +95,58 @@ class KmerIndex:
     def has_incidences(self) -> bool:
         return self.incidence_rank.shape[0] > 0 or self.nnz == 0
 
+    @classmethod
+    def from_dense_freq(cls, freq: np.ndarray, k: int) -> "KmerIndex":
+        """Index view over a dense doc-freq vector (device path output)."""
+        codes = np.nonzero(freq)[0].astype(np.int64)
+        doc_freq = freq[codes].astype(np.int64)
+        repeated = doc_freq >= 2
+        return cls(
+            k=k,
+            codes=codes,
+            doc_freq=doc_freq,
+            repeated_codes=codes[repeated],
+            incidence_protein=np.zeros(0, np.int32),
+            incidence_rank=np.zeros(0, np.int32),
+            hash_doc_freq=doc_freq[repeated],
+            nnz_count=int(doc_freq[repeated].sum()),
+        )
+
+    @classmethod
+    def from_sparse_freq(
+        cls, codes: np.ndarray, doc_freq: np.ndarray, k: int
+    ) -> "KmerIndex":
+        """Index view over (ascending codes, doc-freq) pairs — the sorted
+        device path's output (k=7: the 21⁷ universe has no dense form)."""
+        codes = np.asarray(codes, np.int64)
+        doc_freq = np.asarray(doc_freq, np.int64)
+        repeated = doc_freq >= 2
+        return cls(
+            k=k,
+            codes=codes,
+            doc_freq=doc_freq,
+            repeated_codes=codes[repeated],
+            incidence_protein=np.zeros(0, np.int32),
+            incidence_rank=np.zeros(0, np.int32),
+            hash_doc_freq=doc_freq[repeated],
+            nnz_count=int(doc_freq[repeated].sum()),
+        )
+
     def multigraph_edge_count(self) -> int:
         """Σ f(f−1)/2 over rank-space docfreq — the number of edge slots the
         reference materializes (src/graph/mod.rs:44-48): 258,621,291 on the
         bundled dataset."""
         f = self.hash_doc_freq.astype(np.int64)
         return int((f * (f - 1) // 2).sum())
+
+    def rank_of(self, codes: np.ndarray) -> np.ndarray:
+        """Map k-mer codes → rank-hash ids (-1 for non-repeated codes)."""
+        if self.n_repeated == 0:
+            return np.full(np.shape(codes), -1, dtype=np.int64)
+        pos = np.searchsorted(self.repeated_codes, codes)
+        pos = np.clip(pos, 0, self.n_repeated - 1)
+        ok = self.repeated_codes[pos] == codes
+        return np.where(ok, pos, -1).astype(np.int64)
 
 
 def build_index(
@@ -224,3 +271,35 @@ def _unique_owners(
     hit = unique_codes[pos] == codes
     owner[pos[hit]] = protein_of[hit].astype(np.int32)
     return owner
+
+
+def doc_freq_dense_device(codes, valid, k: int):
+    """Device doc-freq over the dense 21^k universe (k=5 only).
+
+    Args:
+      codes: int32 tensor [N, W] of window codes (``encode_kmers_device``).
+      valid: bool tensor [N, W], the real-window mask.
+
+    Returns int32 [21^k] document frequencies on the codes' device. Each
+    row is sorted and only the first occurrence of a code survives
+    (``index_device._row_dedup``), so the bincount counts documents, not
+    windows. The 21⁷ universe of k=7 has no dense form: the sorted build
+    (``index_device.build_bitset_device_sorted``) covers it.
+    """
+    import torch
+
+    if k != 5:
+        raise ValueError("dense device doc-freq supports k=5 only")
+    # late import: index_device imports this module
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.index_device import (
+        _row_dedup,
+    )
+
+    universe = 21**k
+    # padding and duplicate windows carry the out-of-range sentinel code,
+    # counted into the extra slot that is cut away
+    flat = _row_dedup(codes, valid, sent=universe).reshape(-1)
+    counts = torch.zeros(universe + 1, dtype=torch.int32, device=codes.device)
+    counts.index_add_(0, flat.to(torch.int64),
+                      torch.ones_like(flat, dtype=torch.int32))
+    return counts[:universe]

@@ -44,7 +44,6 @@ from uniprot_kmer_based_clustering_tpu_torch.models.components import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
     PairwiseResult,
-    check_supported,
     pairwise_similarity,
 )
 from uniprot_kmer_based_clustering_tpu_torch.utils.blosum import (
@@ -61,7 +60,7 @@ class PipelineResult:
     table: ProteinTable
     index: KmerIndex
     bitset: BitsetMatrix
-    pairwise: PairwiseResult
+    pairwise: Optional[PairwiseResult]
     cluster_labels: Optional[np.ndarray]
     timings: Dict[str, float]
     dendrogram: Optional[np.ndarray] = None
@@ -125,6 +124,7 @@ def run_pipeline(
     checkpoint_dir: Optional[str] = None,
     device="cuda",
     echo_timings: bool = False,
+    stop_after: Optional[str] = None,
 ) -> PipelineResult:
     """Run the pipeline on one torch ``device`` ("cuda" or "cpu").
 
@@ -134,9 +134,19 @@ def run_pipeline(
     stage's time is closed after the
     device has finished its work, so it measures the work and not the
     launches.
+
+    ``stop_after="pack"`` returns once the index and bitset exist,
+    skipping the BLOSUM weights, the sweep and clustering — the serving
+    path (``cli query``) needs only the standing corpus; ``pairwise`` and
+    ``cluster_labels`` are None in the result.
+
+    ``config.index_engine="device"`` builds the index and the bitset on
+    ``device`` (``kmers/index_device.py``) instead of the host stages; such
+    an index carries no incidence lists and is not checkpointed.
     """
+    if stop_after not in (None, "pack"):
+        raise ValueError(f"unknown stop_after {stop_after!r}")
     config = config or PipelineConfig()
-    check_supported(config)
     if config.cluster not in ("components", "none"):
         raise NotImplementedError(
             f"cluster={config.cluster!r} is not yet ported (ROADMAP queue "
@@ -156,57 +166,71 @@ def run_pipeline(
         table = read_fasta(fasta_path)
 
     fingerprint = _fasta_fingerprint(fasta_path)
-    key_index = config.cache_key("index", fingerprint)
-    cached = store.load(key_index)
-    index = None
-    if cached is not None:
-        index = KmerIndex(k=config.k, sampling=config.sampling, **cached)
-    if index is None:
-        with stage("encode"):
-            codes, koff = encode_kmers(
-                table.seq_buf,
-                table.offsets,
-                config.k,
-                sampling=config.sampling,
-                seed=config.seed,
-            )
+    if config.index_engine == "device":
         with stage("index"):
-            index = build_index(codes, koff, config.k)
-            index.sampling = config.sampling
-        extra = (
-            {"unique_owner": index.unique_owner}
-            if index.unique_owner is not None
-            else {}
-        )
-        store.save(
-            key_index,
-            codes=index.codes,
-            doc_freq=index.doc_freq,
-            repeated_codes=index.repeated_codes,
-            incidence_protein=index.incidence_protein,
-            incidence_rank=index.incidence_rank,
-            hash_doc_freq=index.hash_doc_freq,
-            **extra,
-        )
+            index, bitset = _device_index(table, config, device)
+    else:
+        key_index = config.cache_key("index", fingerprint)
+        cached = store.load(key_index)
+        index = None
+        if cached is not None:
+            index = KmerIndex(k=config.k, sampling=config.sampling, **cached)
+        if index is None:
+            with stage("encode"):
+                codes, koff = encode_kmers(
+                    table.seq_buf,
+                    table.offsets,
+                    config.k,
+                    sampling=config.sampling,
+                    seed=config.seed,
+                )
+            with stage("index"):
+                index = build_index(codes, koff, config.k)
+                index.sampling = config.sampling
+            extra = (
+                {"unique_owner": index.unique_owner}
+                if index.unique_owner is not None
+                else {}
+            )
+            store.save(
+                key_index,
+                codes=index.codes,
+                doc_freq=index.doc_freq,
+                repeated_codes=index.repeated_codes,
+                incidence_protein=index.incidence_protein,
+                incidence_rank=index.incidence_rank,
+                hash_doc_freq=index.hash_doc_freq,
+                **extra,
+            )
 
-    with stage("pack"):
-        if config.engine == "stream" and config.stream_source == "csr":
-            # packless: the stream engine rebuilds its blocks on the
-            # device from the incidence lists, so the dense matrix is
-            # never built; only its geometry is carried, and any touch
-            # of .words raises
-            bitset = VirtualBitsetMatrix.make(
-                table.n, index.n_repeated,
-                row_multiple=_row_multiple(config, table.n),
-            )
-        else:
-            bitset = pack_bitsets(
-                index.incidence_protein,
-                index.incidence_rank,
-                table.n,
-                index.n_repeated,
-                row_multiple=_row_multiple(config, table.n),
-            )
+        with stage("pack"):
+            if config.engine == "stream" and config.stream_source == "csr":
+                # packless: the stream engine rebuilds its blocks on the
+                # device from the incidence lists, so the dense matrix is
+                # never built; only its geometry is carried, and any touch
+                # of .words raises
+                bitset = VirtualBitsetMatrix.make(
+                    table.n, index.n_repeated,
+                    row_multiple=_row_multiple(config, table.n),
+                )
+            else:
+                bitset = pack_bitsets(
+                    index.incidence_protein,
+                    index.incidence_rank,
+                    table.n,
+                    index.n_repeated,
+                    row_multiple=_row_multiple(config, table.n),
+                )
+
+    if stop_after == "pack":
+        return PipelineResult(
+            table=table,
+            index=index,
+            bitset=bitset,
+            pairwise=None,
+            cluster_labels=None,
+            timings=timers.as_dict(),
+        )
 
     weights = blosum_weights(index, config, bitset)
 
@@ -266,3 +290,56 @@ def run_pipeline(
         cluster_labels=labels,
         timings=timers.as_dict(),
     )
+
+
+def _device_index(table: ProteinTable, config: PipelineConfig, device):
+    """Index + bitset built on ``device`` (``kmers/index_device.py``).
+
+    k=5 takes the dense 21⁵ bincount, k=7 the global-sort build (the 21⁷
+    universe has no dense form). Bit-identical to the host path; random10
+    sampling stays on the host (the reference's sampler is positional,
+    src/protein.rs:83-94). The index carries no incidence lists.
+    """
+    if config.sampling != "all":
+        raise ValueError("index_engine='device' supports sampling='all'")
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
+        residues_to_indices,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.index_device import (
+        build_bitset_device,
+        build_bitset_device_sorted,
+    )
+
+    lengths = table.lengths.astype(np.int32)
+    lmax = int(lengths.max()) if table.n else 1
+    # the padded [N, Lmax] residue matrix, by one offsets-based scatter
+    mat = np.zeros((table.n, lmax), np.int32)
+    res = residues_to_indices(table.seq_buf)
+    starts = np.asarray(table.offsets[:-1], np.int64)
+    rows = np.repeat(np.arange(table.n, dtype=np.int64), lengths)
+    cols = np.arange(res.shape[0], dtype=np.int64) - np.repeat(
+        starts, lengths
+    )
+    mat[rows, cols] = res
+    row_multiple = _row_multiple(config, table.n)
+    if config.k == 5:
+        words, freq, n_repeated = build_bitset_device(
+            mat, lengths, table.n, row_multiple=row_multiple, device=device,
+        )
+        index = KmerIndex.from_dense_freq(freq.cpu().numpy(), config.k)
+    else:
+        words, codes, counts, n_repeated = build_bitset_device_sorted(
+            mat, lengths, table.n, config.k, row_multiple=row_multiple,
+            device=device,
+        )
+        index = KmerIndex.from_sparse_freq(codes, counts, config.k)
+    if index.n_repeated != n_repeated:
+        raise AssertionError(
+            f"device index: {index.n_repeated} repeated codes in the "
+            f"doc-freqs, {n_repeated} in the rank space"
+        )
+    bitset = BitsetMatrix(
+        words=words.cpu().numpy().view(np.uint32), n=table.n,
+        n_bits=n_repeated,
+    )
+    return index, bitset

@@ -1,4 +1,4 @@
-"""Pairwise similarity sweep and exact pair extraction."""
+"""Pairwise similarity sweep, exact pair extraction and query serving."""
 
 from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (  # noqa: F401
     PairwiseResult,
@@ -9,4 +9,10 @@ from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (  # noq
     pairs_as_array,
     pairwise_similarity,
     unpack_pairs,
+)
+from uniprot_kmer_based_clustering_tpu_torch.similarity.query import (  # noqa: F401
+    QueryServer,
+    pack_query_bitsets,
+    query_ranks,
+    query_shared_kmers,
 )

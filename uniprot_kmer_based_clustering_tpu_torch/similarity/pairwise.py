@@ -519,15 +519,6 @@ def _pairwise_native(bitset, classes, config, threshold, index=None,
     )
 
 
-def check_supported(config: PipelineConfig) -> None:
-    """Raise for the configuration knobs the port does not carry yet."""
-    if config.index_engine != "host":
-        raise NotImplementedError(
-            "index_engine='device' is not yet ported (ROADMAP queue 1, "
-            "item 11)"
-        )
-
-
 def _pairwise_stream(bitset, classes, config, threshold, weights, index,
                      device, checkpoint_store, checkpoint_key):
     """``engine="stream"``: the packed matrix stays in HOST memory and row
@@ -625,7 +616,6 @@ def pairwise_similarity(
     sweep's group-boundary checkpoints.
     """
     config = config or PipelineConfig()
-    check_supported(config)
     device = resolve_device(device)
     n, n_pad = bitset.n, bitset.n_pad
     classes_np = np.full(n_pad, -1, dtype=np.int32)
