@@ -71,6 +71,29 @@ csrc`` with nvcc (one process per source, in parallel), then:
    products-only yardstick (``torch._int_mm`` over the triangle's tile
    rows on operands unpacked beforehand, never called by the port); peak
    device memory.
+8. post-processing phase — on the corpora above and
+   ``synth_proteins(2000, seed=0)``, every `cli run` with the counters
+   reset before it (K1 once a strip, no other kernel) and every library
+   step required to launch none:
+   a. ``connected_components_device`` on the card over the 10,619 and
+      30k oracle pairs, equal to the host union-find (seconds, rounds);
+   b. ``cli run --cluster agglomerative`` at 10,619 and 2,000 proteins:
+      clusters.tsv and dendrogram.tsv equal to
+      ``agglomerative_cluster_device`` and to the strip mode (forced by a
+      budget below the one-shot plan) on the card, and at 2,000 to an
+      independent scipy-sparse transcription of the rounds; one round's
+      device ms by layer, rounds, merges, seconds and peak memory;
+   c. ``cli run --cluster tree`` at 2,000 proteins equal to the tree on
+      its numpy path;
+   d. T, the smallest threshold leaving at most 1,000 oracle pairs at
+      10,619: ``cli run --threshold T --align sw``, ``auto`` and
+      ``diamond`` (no diamond on PATH: the sw fallback) byte-equal to
+      ``align_pairs_sw(device_scores=False)``; ``sw_scores_device`` equal
+      to ``sw_align_host`` on every pair; device and host seconds;
+   e. ``cli run --threshold T --dump-kmers --dump-proteins --dump-debug``
+      with the host index and with ``--index-engine device``: the three
+      files equal to each other and to the dump functions on the
+      oracle's pairs.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -1683,6 +1706,476 @@ def index_phase(dev, tmp, state10, pairs10, want10, ns):
     return launches
 
 
+N_SMALL = 2000  # the post-processing phase's scipy-transcription corpus
+ALIGN_MAX_PAIRS = 1000  # the alignment step's pair budget
+
+
+# kernel launches of the post-processing phase's library steps, summed
+POST_LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+
+
+def _library_step(what, fn):
+    """fn() with every kernel counter set to 0 just before and required
+    to be 0 just after (a library step of the post-processing phase),
+    bracketed by synchronize(): (seconds, result)."""
+    import torch
+
+    fns = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for k, v in _zero_launches(fns, what).items():
+        POST_LAUNCHES[k] += v
+    return seconds, out
+
+
+def _tsv_labels(path):
+    import numpy as np
+
+    with open(path) as f:
+        next(f)
+        return np.array([int(line.split("\t")[3]) for line in f], np.int32)
+
+
+def _tsv_merges(path):
+    import numpy as np
+
+    if not os.path.exists(path):  # no merge: the CLI writes no file
+        return np.zeros((0, 3), np.int64)
+    with open(path) as f:
+        next(f)
+        return np.array([[int(x) for x in line.split("\t")] for line in f],
+                        np.int64).reshape(-1, 3)
+
+
+def _same_clustering(what, got, labels, merges, rounds=None):
+    import numpy as np
+
+    if not (np.array_equal(got.labels, labels)
+            and np.array_equal(got.merges, merges)
+            and (rounds is None or got.rounds == rounds)):
+        raise AssertionError(f"{what} differs from the cli run's clusters")
+
+
+def scipy_agglomerative(index, n: int, min_shared: int = 1):
+    """An independent transcription of the agglomerative rounds over
+    scipy sparse rows: counts S·Sᵀ, the diagonal and inactive rows and
+    columns masked to −1, first-max argmax, mutual pairs with i < j at
+    ≥ min_shared, the winner's row the AND of both, the loser inactive;
+    labels the minimum member of each union. (labels, merges [M, 3],
+    rounds)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    ip, ir = index.incidence_protein, index.incidence_rank
+    starts = np.searchsorted(ip, np.arange(n + 1))
+    rows = [ir[starts[p] : starts[p + 1]] for p in range(n)]
+    active = np.ones(n, bool)
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            x = parent[x]
+        return x
+
+    merges = []
+    rounds = 0
+    while True:
+        rounds += 1
+        lens = np.array([len(r) for r in rows])
+        s = sp.csr_matrix(
+            (np.ones(int(lens.sum()), np.int32),
+             np.concatenate(rows) if lens.sum() else np.zeros(0, np.int64),
+             np.concatenate([[0], np.cumsum(lens)])),
+            shape=(n, index.n_repeated))
+        c = (s @ s.T).toarray().astype(np.int64)
+        c[~active, :] = -1
+        c[:, ~active] = -1
+        np.fill_diagonal(c, -1)
+        bj = c.argmax(axis=1)
+        bc = c[np.arange(n), bj]
+        i = np.arange(n)
+        mutual = active & (bc >= min_shared) & (bj[bj] == i) & (i < bj)
+        if not mutual.any():
+            break
+        for w, l in zip(i[mutual], bj[mutual]):
+            merges.append((int(w), int(l), int(bc[w])))
+            rows[w] = np.intersect1d(rows[w], rows[l])
+            rows[l] = rows[l][:0]
+            active[l] = False
+            parent[find(int(l))] = find(int(w))
+    roots = {}
+    labels = np.empty(n, np.int32)
+    for p in range(n):
+        labels[p] = roots.setdefault(find(p), p)
+    return labels, np.array(merges, np.int64).reshape(-1, 3), rounds
+
+
+def _strip_budget(bitset):
+    """A budget below the one-shot plan's, so the rounds go through the
+    strips with a word chunk: 1 GiB, halved until it forces them."""
+    from uniprot_kmer_based_clustering_tpu_torch.models import agglomerative
+
+    budget = 1 << 30
+    while agglomerative._argmax_plan(bitset.n_pad, bitset.w_pad,
+                                     budget) is None:
+        budget //= 2
+    plan = agglomerative._argmax_plan(bitset.n_pad, bitset.w_pad, budget)
+    if agglomerative._argmax_plan(bitset.n_pad, bitset.w_pad,
+                                  13 << 30) is not None or not plan[1]:
+        raise AssertionError(f"plans {plan} do not cover both paths")
+    return budget, plan
+
+
+def _agglomerative_checks(dev, label, fasta, state, out, want, want_pairs,
+                          ns, scipy_ref=False):
+    """`cli run --cluster agglomerative` (the strips' K1 and nothing
+    else), then both library loops on the card, one-shot and strips,
+    each equal to the cli run's clusters.tsv and dendrogram.tsv, and
+    optionally to the scipy transcription. Returns the times."""
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.models import agglomerative
+
+    table, index, bitset = state
+    n = table.n
+    cli_run(dev, fasta, out, ["--cluster", "agglomerative"],
+            want, want_pairs, {"K1": ns, "K2": 0, "K3": 0, "K4": 0})
+    with open(os.path.join(out, "stats.json")) as f:
+        stage_s = json.load(f)["timings_s"]["cluster"]
+    labels = _tsv_labels(os.path.join(out, "clusters.tsv"))
+    merges = _tsv_merges(os.path.join(out, "dendrogram.tsv"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    dev_s, dres = _library_step(
+        "agglomerative_cluster_device",
+        lambda: agglomerative.agglomerative_cluster_device(bitset, n,
+                                                           device=dev))
+    dev_peak = torch.cuda.max_memory_allocated(dev)
+    _same_clustering(f"{label}: agglomerative_cluster_device", dres, labels,
+                     merges)
+    budget, plan = _strip_budget(bitset)
+    torch.cuda.reset_peak_memory_stats(dev)
+    strip_s, sres = _library_step(
+        "agglomerative_cluster (strips)",
+        lambda: agglomerative.agglomerative_cluster(
+            bitset, n, hbm_budget_bytes=budget, device=dev))
+    strip_peak = torch.cuda.max_memory_allocated(dev)
+    _same_clustering(f"{label}: strip mode", sres, labels, merges,
+                     dres.rounds)
+    line = (f"agglomerative {label}: {dres.rounds} rounds, {len(merges)} "
+            f"merges, {len(set(labels.tolist()))} clusters; cli cluster "
+            f"stage {stage_s:.4f} s; device loop {dev_s:.3f} s (peak "
+            f"{dev_peak} bytes); strips {plan} under {budget} bytes "
+            f"{strip_s:.3f} s (peak {strip_peak} bytes); equal")
+    if scipy_ref:
+        t0 = time.perf_counter()
+        ref = scipy_agglomerative(index, n)
+        ref_s = time.perf_counter() - t0
+        _same_clustering(f"{label}: scipy transcription",
+                         dres, ref[0], ref[1], ref[2])
+        line += f"; scipy transcription {ref_s:.3f} s, equal"
+    print(line, flush=True)
+    return dict(stage_s=stage_s, device_s=dev_s, strip_s=strip_s,
+                rounds=dres.rounds, merges=len(merges), peak=dev_peak)
+
+
+def _round_times(dev, bitset, n):
+    """Device ms of one agglomerative round on the full corpus, by layer
+    (CUDA events): the unpack, the `_int_mm` product, the mask and
+    argmax."""
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.models import agglomerative
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.state import bitset_to_torch
+
+    fns = reset_counters()
+    sigs = bitset_to_torch(bitset, dev)
+    n_pad = sigs.shape[0]
+    active = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    active[:n] = True
+    iota = torch.arange(n_pad, device=dev)
+    a = bitmul.unpack_words_to_int8(sigs)
+    counts = bitmul.int8_gemm(a, a)
+    unpack_ms = cuda_ms(lambda: bitmul.unpack_words_to_int8(sigs), reps=5,
+                        warmup=1)
+    mm_ms = cuda_ms(lambda: bitmul.int8_gemm(a, a), reps=5, warmup=1)
+    argmax_ms = cuda_ms(lambda: agglomerative._best_of(
+        counts, active[None, :] & active[:, None]
+        & (iota[:, None] != iota[None, :])), reps=5, warmup=1)
+    ops = 2 * n_pad * n_pad * a.shape[1]
+    del a, counts
+    torch.cuda.empty_cache()
+    _zero_launches(fns, "agglomerative round timing")
+    print(f"agglomerative round at N_pad {n_pad} x K {bitset.w_pad * 32}: "
+          f"unpack {unpack_ms:.4f} ms, _int_mm {mm_ms:.4f} ms "
+          f"({ops / mm_ms / 1e9:.1f} TOP/s), mask + argmax {argmax_ms:.4f} "
+          f"ms", flush=True)
+    return dict(unpack_ms=unpack_ms, mm_ms=mm_ms, argmax_ms=argmax_ms)
+
+
+def _no_diamond_path():
+    """PATH without any directory that holds a diamond executable."""
+    keep = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if not shutil.which("diamond", path=d)]
+    return os.pathsep.join(keep)
+
+
+def _host_align_reference(table, pairs, path):
+    """The host DP's blastp_output.tsv (``align_pairs_sw`` with
+    ``device_scores=False``); run in a worker process. Its seconds."""
+    from uniprot_kmer_based_clustering_tpu_torch.align.sw_pairs import (
+        align_pairs_sw,
+    )
+
+    t0 = time.perf_counter()
+    align_pairs_sw(table, pairs, path, device_scores=False)
+    return time.perf_counter() - t0
+
+
+def _host_scores(table, pairs):
+    """``sw_align_host``'s score of every (i, j) pair (query j, subject
+    i, as ``align_pairs_sw`` aligns them); run in a worker process."""
+    from uniprot_kmer_based_clustering_tpu_torch.align.sw_host import (
+        sw_align_host,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
+        residues_to_indices,
+    )
+
+    res = residues_to_indices(table.seq_buf).astype("int32")
+    off = table.offsets
+    return [sw_align_host(res[off[j] : off[j + 1]], res[off[i] : off[i + 1]]).score
+            for i, j in ((int(r[0]), int(r[1])) for r in pairs)]
+
+
+def _align_checks(dev, tmp, fasta, state10, want10, pairs10, ns10):
+    """Step d: T from the oracle's counts, `cli run --threshold T --align
+    sw|auto|diamond` (no diamond on PATH) against the host DP's TSV, the
+    device scores against the host DP's on every pair, the align stage's
+    device and host seconds. The two host references run in two worker
+    processes meanwhile. Returns (T, pairsT, wantT, times)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from uniprot_kmer_based_clustering_tpu_torch.align import (
+        sw_pairs,
+        sw_scores_device,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
+        residues_to_indices,
+    )
+
+    table = state10[0]
+    counts = np.sort(pairs10[:, 2])[::-1]
+    t = int(counts[ALIGN_MAX_PAIRS]) if len(counts) > ALIGN_MAX_PAIRS else 10
+    pairs_t = pairs10[pairs10[:, 2] > t]
+    want_t = dict(want10, pairs_over_threshold=len(pairs_t))
+    print(f"alignment threshold T = {t}: {len(pairs_t)} oracle pairs with "
+          f"count > T (T - 1 would give {(pairs10[:, 2] > t - 1).sum()})",
+          flush=True)
+    expect = {"K1": ns10, "K2": 0, "K3": 0, "K4": 0}
+    ref = os.path.join(tmp, "blastp_host.tsv")
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=2, mp_context=spawn) as pool:
+        ref_job = pool.submit(_host_align_reference, table, pairs_t, ref)
+        scores_job = pool.submit(_host_scores, table, pairs_t)
+        outs = {}
+        path = os.environ.get("PATH", "")
+        os.environ["PATH"] = _no_diamond_path()
+        try:
+            for mode in ("sw", "auto", "diamond"):
+                outs[mode] = os.path.join(tmp, f"align_{mode}")
+                cli_run(dev, fasta, outs[mode], ["--threshold", str(t),
+                                                  "--align", mode],
+                        want_t, pairs_t, expect)
+        finally:
+            os.environ["PATH"] = path
+        # the align stage alone, then its device passes batch by batch
+        stage_s, _ = _library_step(
+            "align_pairs_sw", lambda: sw_pairs.align_pairs_sw(
+                table, pairs_t, os.path.join(tmp, "blastp_dev.tsv"),
+                device=dev))
+        res = residues_to_indices(table.seq_buf).astype(np.int32)
+        dev_s = 0.0
+        shapes = []
+        dev_scores = np.full(len(pairs_t), -1, np.int64)
+        for sel, _, q_idx, q_len, s_idx, s_len, nv in sw_pairs._pair_batches(
+                table, pairs_t, 512, res):
+            s, _ = _library_step(
+                "sw passes", lambda: sw_pairs.sw_ends_and_starts_device(
+                    q_idx, q_len, s_idx, s_len, device=dev))
+            dev_s += s
+            shapes.append((nv, q_idx.shape[1], s_idx.shape[1]))
+            _, scores = _library_step("sw scores", lambda: sw_scores_device(
+                q_idx, q_len, s_idx, s_len, device=dev))
+            dev_scores[sel] = scores[0][:nv]
+        host_full_s = ref_job.result()
+        host_scores = np.asarray(scores_job.result(), np.int64)
+    if not np.array_equal(dev_scores, host_scores):
+        bad = int(np.nonzero(dev_scores != host_scores)[0][0])
+        raise AssertionError(f"sw_scores_device on pair {pairs_t[bad]}: "
+                             f"{dev_scores[bad]} != host {host_scores[bad]}")
+    with open(ref, "rb") as f:
+        want = f.read()
+    for mode, out in outs.items():
+        with open(os.path.join(out, "blastp_output.tsv"), "rb") as f:
+            if f.read() != want:
+                raise AssertionError(f"--align {mode}: blastp_output.tsv "
+                                     "differs from the host DP's")
+    print(f"alignment of {len(pairs_t)} pairs: cli --align sw, auto and "
+          f"diamond (no binary on PATH) byte-equal to the host DP's TSV "
+          f"({host_full_s:.3f} s in a worker process); sw_scores_device = "
+          f"sw_align_host on every pair (scores {host_scores.min()}.."
+          f"{host_scores.max()}); align stage {stage_s:.3f} s = device "
+          f"passes {dev_s:.3f} s over {len(shapes)} batches (real rows, Lq, "
+          f"Ls) {shapes} + host {stage_s - dev_s:.3f} s (window tracebacks, "
+          f"batching)", flush=True)
+    return t, pairs_t, want_t, dict(stage_s=stage_s, device_s=dev_s,
+                                    host_s=stage_s - dev_s,
+                                    host_full_s=host_full_s,
+                                    batches=shapes, threshold=t)
+
+
+def _dump_checks(dev, tmp, fasta, state10, t, pairs_t, want_t, ns10):
+    """Step e: the three dumps of `cli run --threshold T` with the host
+    index and with --index-engine device, equal to each other and to the
+    port's dump functions on the oracle's pairs."""
+    from types import SimpleNamespace
+
+    from uniprot_kmer_based_clustering_tpu_torch import cli
+
+    names = ("pair_kmers.tsv", "proteins.tsv", "graph_debug.txt")
+    flags = ["--threshold", str(t), "--dump-kmers", "--dump-proteins",
+             "--dump-debug"]
+    expect = {"K1": ns10, "K2": 0, "K3": 0, "K4": 0}
+    files = {}
+    for label, extra in (("host index", []),
+                         ("device index", ["--index-engine", "device"])):
+        out = os.path.join(tmp, "dump_" + label.split()[0])
+        cli_run(dev, fasta, out, flags + extra, want_t, pairs_t, expect)
+        files[label] = {}
+        for name in names:
+            with open(os.path.join(out, name), "rb") as f:
+                files[label][name] = f.read()
+    table, index, bitset = state10
+    ref = os.path.join(tmp, "dump_ref")
+    os.makedirs(ref)
+    t0 = time.perf_counter()
+    cli._write_dumps(
+        SimpleNamespace(out=ref, dump_kmers=True, dump_proteins=True,
+                        dump_debug=True),
+        SimpleNamespace(table=table, index=index, bitset=bitset,
+                        pairwise=SimpleNamespace(pairs=pairs_t)))
+    ref_s = time.perf_counter() - t0
+    for name in names:
+        with open(os.path.join(ref, name), "rb") as f:
+            want = f.read()
+        for label in files:
+            if files[label][name] != want:
+                raise AssertionError(f"{name} of the {label} run differs")
+    sizes = {k: len(v) for k, v in files["host index"].items()}
+    print(f"dumps at T = {t}: the host-index and device-index runs and the "
+          f"dump functions on the oracle's pairs give the same bytes "
+          f"{sizes}; writing them {ref_s:.3f} s", flush=True)
+    return ref_s
+
+
+def post_phase(dev, tmp, state10, pairs10, want10, ns10, state30, pairs30):
+    """Post-processing (docstring, phase 8) on the corpora the earlier
+    phases built: components, agglomerative, tree, alignment, dumps."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.models import (
+        components,
+        tree,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
+        resolve_schedule,
+    )
+
+    t_phase = time.perf_counter()
+    fasta10 = os.path.join(tmp, f"synth{N_PROTEINS}.fasta")
+    times = {}
+    # a. components
+    for label, state, pairs in ((N_PROTEINS, state10, pairs10),
+                                (N_SCALE, state30, pairs30)):
+        n = state[0].n
+        t0 = time.perf_counter()
+        host = components.connected_components(n, pairs)
+        host_s = time.perf_counter() - t0
+        # the second call is timed: the first one pays the launches' and
+        # the allocator's start-up
+        for _ in range(2):
+            dev_s, got = _library_step(
+                "connected_components_device",
+                lambda: components.connected_components_device(
+                    pairs[:, 0], pairs[:, 1], n=n, device=dev))
+        _, (labels, rounds) = _library_step(
+            "label propagation", lambda: components._propagate_labels(
+                torch.from_numpy(pairs[:, 0]).to(dev),
+                torch.from_numpy(pairs[:, 1]).to(dev), n))
+        if not (np.array_equal(got, host)
+                and np.array_equal(labels.cpu().numpy(), host)):
+            raise AssertionError(f"{label}: device components differ")
+        print(f"components {label} ({len(pairs)} pairs): device "
+              f"{dev_s:.4f} s, {rounds} rounds; host union-find "
+              f"{host_s:.4f} s; {len(np.unique(host))} components, equal",
+              flush=True)
+        times[f"components_{label}"] = (dev_s, rounds, host_s)
+
+    # b. agglomerative, 10,619 and the 2,000-protein corpus
+    small = os.path.join(tmp, f"synth{N_SMALL}.fasta")
+    write_fasta(small, N_SMALL)
+    state2 = host_state(small)
+    want2, pairs2 = oracle(state2, f"{N_SMALL}")
+    ns2 = resolve_schedule(state2[2].n_pad, 512)[2]
+    times["round"] = _round_times(dev, state10[2], state10[0].n)
+    times["agg10"] = _agglomerative_checks(
+        dev, f"{N_PROTEINS}", fasta10, state10, os.path.join(tmp, "agg10"),
+        want10, pairs10, ns10)
+    times["agg2"] = _agglomerative_checks(
+        dev, f"{N_SMALL}", small, state2, os.path.join(tmp, "agg2"), want2,
+        pairs2, ns2, scipy_ref=True)
+
+    # c. tree, 2,000 proteins
+    out = os.path.join(tmp, "tree2")
+    cli_run(dev, small, out, ["--cluster", "tree"], want2, pairs2,
+            {"K1": ns2, "K2": 0, "K3": 0, "K4": 0})
+    with open(os.path.join(out, "stats.json")) as f:
+        tree_s = json.load(f)["timings_s"]["cluster"]
+    saved = tree._native_rows
+    tree._native_rows = None
+    try:
+        numpy_s, want = _library_step("tree (numpy)", lambda: (
+            tree.cluster_tree_labels(state2[2], N_SMALL)))
+    finally:
+        tree._native_rows = saved
+    if not np.array_equal(_tsv_labels(os.path.join(out, "clusters.tsv")),
+                          want):
+        raise AssertionError("cli run --cluster tree differs from the tree")
+    print(f"tree {N_SMALL}: cli cluster stage {tree_s:.4f} s (native AND + "
+          f"popcount), numpy path {numpy_s:.3f} s, {len(np.unique(want))} "
+          f"clusters, equal", flush=True)
+    times["tree"] = (tree_s, numpy_s)
+
+    # d. alignment, e. dumps, 10,619 proteins at T
+    t, pairs_t, want_t, times["align"] = _align_checks(
+        dev, tmp, fasta10, state10, want10, pairs10, ns10)
+    times["dumps_s"] = _dump_checks(dev, tmp, fasta10, state10, t, pairs_t,
+                                    want_t, ns10)
+    times["phase_s"] = time.perf_counter() - t_phase
+    print(f"post-processing phase: every cli run launched K1 once a strip "
+          f"and no other kernel; library steps {POST_LAUNCHES}; "
+          f"{times['phase_s']:.3f} s", flush=True)
+    return times
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -1730,6 +2223,8 @@ def main() -> int:
         i_launches = index_phase(dev, tmp, state10, pairs10,
                                  run30["want10"], run30["ns10"])
         k3 = k3_phase(dev, state10, state30, sm_mhz)
+        post_phase(dev, tmp, state10, pairs10, run30["want10"],
+                   run30["ns10"], state30, pairs30)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -1754,6 +2249,7 @@ def main() -> int:
             "library_ms": None,
             "query_launches": q_launches["K1"],
             "device_index_launches": i_launches["K1"],
+            "post_library_launches": POST_LAUNCHES["K1"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -1771,6 +2267,7 @@ def main() -> int:
             "library_ms": None,
             "query_launches": q_launches["K2"],
             "device_index_launches": i_launches["K2"],
+            "post_library_launches": POST_LAUNCHES["K2"],
         },
         {
             "name": "sweep_tri_mxu",
@@ -1787,6 +2284,7 @@ def main() -> int:
             "library_ms": None,
             "query_launches": q_launches["K3"],
             "device_index_launches": i_launches["K3"],
+            "post_library_launches": POST_LAUNCHES["K3"],
         },
         {
             "name": "popcount_sweep",
@@ -1803,6 +2301,7 @@ def main() -> int:
             "library_ms": None,
             "query_launches": q_launches["K4"],
             "device_index_launches": i_launches["K4"],
+            "post_library_launches": POST_LAUNCHES["K4"],
         },
     ]
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",

@@ -869,3 +869,123 @@ def test_device_index_on_card_matches_host(cuda, synth_fasta, k,
         device=cuda)
     assert np.array_equal(packed.words.cpu().numpy().view(np.uint32),
                           host.bitset.words)
+
+
+def _sw_batch(seed, b=96, lo=20, hi=300, alphabet=21):
+    rng = np.random.default_rng(seed)
+    lq = rng.integers(lo, hi, b)
+    ls = rng.integers(lo, hi, b)
+    q_idx = rng.integers(0, alphabet, (b, int(lq.max()))).astype(np.int32)
+    s_idx = rng.integers(0, alphabet, (b, int(ls.max()))).astype(np.int32)
+    # every third subject carries a stretch of its query: long alignments
+    for r in range(0, b, 3):
+        n = min(int(lq[r]), int(ls[r])) - 4
+        s_idx[r, 2 : 2 + n] = q_idx[r, :n]
+    return q_idx, lq, s_idx, ls
+
+
+@pytest.mark.parametrize("seed,alphabet", [(0, 21), (1, 3)])
+def test_sw_on_card_matches_cpu(cuda, seed, alphabet):
+    """Both Smith-Waterman entries on the card equal their CPU run (ties
+    are common with 3 letters), and the scores equal the host DP's."""
+    from uniprot_kmer_based_clustering_tpu_torch.align import (
+        sw_align_host,
+        sw_ends_and_starts_device,
+        sw_scores_device,
+    )
+
+    args = _sw_batch(seed, alphabet=alphabet)
+    got = sw_scores_device(*args, device=cuda)
+    want = sw_scores_device(*args, device="cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    got = sw_ends_and_starts_device(*args, device=cuda)
+    want = sw_ends_and_starts_device(*args, device="cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    q_idx, lq, s_idx, ls = args
+    for r in range(0, len(lq), 7):
+        host = sw_align_host(q_idx[r, : lq[r]], s_idx[r, : ls[r]])
+        assert host.score == got[0][r]
+
+
+@pytest.fixture(scope="module")
+def small_fasta(tmp_path_factory):
+    from bench_scale import synth_proteins
+
+    seq_buf, offsets, classes = synth_proteins(300, seed=4)
+    path = tmp_path_factory.mktemp("small") / "small.fasta"
+    with open(path, "w") as f:
+        for i in range(300):
+            seq = seq_buf[offsets[i] : offsets[i + 1]].tobytes().decode()
+            f.write(f">S{i:05d}|FEATURES|UNIPROT|c{classes[i]}|g{i}\n{seq}\n")
+    return str(path)
+
+
+def test_components_device_on_card(cuda, synth_fasta):
+    from uniprot_kmer_based_clustering_tpu_torch.models import (
+        connected_components,
+        connected_components_device,
+    )
+
+    res = run_pipeline(synth_fasta, PipelineConfig(tile=128, strip=256,
+                                                   cluster="none"),
+                       device=cuda)
+    pairs = res.pairwise.pairs
+    for p in (pairs, pairs[:0], pairs[::5]):
+        got = connected_components_device(p[:, 0], p[:, 1], n=1200,
+                                          device=cuda)
+        assert np.array_equal(got, connected_components_device(
+            p[:, 0], p[:, 1], n=1200, device="cpu"))
+        assert np.array_equal(got, connected_components(1200, p))
+
+
+@pytest.mark.parametrize("budget", [13 << 30, 1 << 20],
+                         ids=["one-shot", "strips"])
+def test_agglomerative_loops_on_card_match_cpu(cuda, small_fasta, budget):
+    """Both loops on the card (N_pad 384 and the words a multiple of 128,
+    legal `_int_mm` shapes) equal the host loop on the CPU."""
+    from uniprot_kmer_based_clustering_tpu_torch.models import (
+        agglomerative_cluster,
+        agglomerative_cluster_device,
+    )
+
+    res = run_pipeline(small_fasta, PipelineConfig(tile=128, cluster="none"),
+                       device="cpu")
+    bs, n = res.bitset, res.table.n
+    assert bs.n_pad % 128 == 0 and bs.w_pad % 128 == 0
+    want = agglomerative_cluster(bs, n, min_shared=2, device="cpu")
+    assert len(want.merges) > 0
+    for got in (
+        agglomerative_cluster(bs, n, min_shared=2, hbm_budget_bytes=budget,
+                              device=cuda),
+        agglomerative_cluster_device(bs, n, min_shared=2, device=cuda),
+    ):
+        assert np.array_equal(got.labels, want.labels)
+        assert np.array_equal(got.merges, want.merges)
+        assert got.rounds == want.rounds
+
+
+def test_cli_align_agglomerative_dump_on_card_matches_cpu(cuda, small_fasta,
+                                                          tmp_path):
+    """`cli run --align sw --cluster agglomerative --dump-debug` on the
+    card writes the same files as on the CPU."""
+    import os
+
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main
+
+    flags = ["--align", "sw", "--cluster", "agglomerative", "--dump-debug",
+             "--threshold", "150"]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        assert main(["run", small_fasta, "--device", dev, "--out", outs[dev],
+                     *flags]) == 0
+    for name in ("pairs.tsv", "clusters.tsv", "dendrogram.tsv",
+                 "blastp_output.tsv", "graph_debug.txt"):
+        with open(os.path.join(outs["cuda"], name), "rb") as f:
+            got = f.read()
+        with open(os.path.join(outs["cpu"], name), "rb") as f:
+            assert got == f.read(), name
+    with open(os.path.join(outs["cuda"], "blastp_output.tsv")) as f:
+        assert len(f.read().splitlines()) > 2

@@ -91,17 +91,26 @@ def test_cli_run_loads_neither_jax_nor_the_jax_package(toy_fasta, tmp_path):
      "MKTAYIAKQRQISFVKSHFSRQLEERLGLIEVQ"],
     ["run", "{fasta}", "--device", "cpu", "--index-engine", "device",
      "--out", "{out}"],
-], ids=["query", "run-device-index"])
+    ["run", "{fasta}", "--device", "cpu", "--threshold", "2", "--align",
+     "sw", "--cluster", "agglomerative", "--out", "{out}"],
+    ["run", "{fasta}", "--device", "cpu", "--align", "diamond", "--cluster",
+     "tree", "--out", "{out}"],
+    ["run", "{fasta}", "--device", "cpu", "--threshold", "0", "--dump-kmers",
+     "--dump-proteins", "--dump-debug", "--out", "{out}"],
+], ids=["query", "run-device-index", "run-align-agglomerative",
+        "run-diamond-fallback-tree", "run-dumps"])
 def test_query_and_device_index_load_neither_jax_nor_the_jax_package(
         toy_fasta, tmp_path, argv):
-    """The serving path (`cli query`, QueryServer, kmers.append) and the
-    device index build in a fresh interpreter: neither name reaches
+    """The serving path (`cli query`, QueryServer, kmers.append), the
+    device index build, alignment, tree and agglomerative clustering and
+    the dumps in a fresh interpreter: neither name reaches
     sys.modules."""
     code = (
         "import sys, json\n"
         f"from {PORT}.cli import main\n"
         f"from {PORT}.similarity import QueryServer\n"
         f"from {PORT}.kmers import append, index_device\n"
+        f"from {PORT} import align, models\n"
         "assert main(json.loads(sys.argv[1])) == 0\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

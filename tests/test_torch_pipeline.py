@@ -196,15 +196,18 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cluster", "tree"], ["--shard-axis", "kmers"], ["--devices", "4"],
-    ["--mesh-shape", "2x4"], ["--align", "sw"], ["--dump-kmers"],
+    ["--distributed"], ["--shard-axis", "kmers"], ["--devices", "4"],
+    ["--mesh-shape", "2x4"], ["--devices", "2", "--align", "sw"],
+    ["--mesh-shape", "1x2", "--dump-kmers"],
 ])
 def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
+    """Only the mesh flags (item 14) are refused, before any output."""
     from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
 
-    with pytest.raises(SystemExit, match="not yet ported"):
+    with pytest.raises(SystemExit, match="not yet ported.*item 14"):
         tmain(["run", toy_fasta, "--device", "cpu", "--out",
                str(tmp_path / "o"), *flags])
+    assert not (tmp_path / "o").exists()
 
 
 def test_cli_accepts_cpu_and_profile(toy_fasta, tmp_path, capsys):
@@ -231,5 +234,10 @@ def test_cluster_fasta_api(toy_fasta):
 
     got = cluster_fasta(toy_fasta, device="cpu", **TOY)
     _same(jrun(toy_fasta, PipelineConfig(**TOY)), got)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cluster_fasta(toy_fasta, device="cpu", cluster="agglomerative")
+    agg = cluster_fasta(toy_fasta, device="cpu", cluster="agglomerative",
+                        min_shared=2, **TOY)
+    want = jrun(toy_fasta, PipelineConfig(cluster="agglomerative",
+                                          min_shared=2, **TOY))
+    _same(want, agg)
+    assert np.array_equal(agg.dendrogram, want.dendrogram)
+    assert len(agg.dendrogram) > 0 and got.dendrogram is None

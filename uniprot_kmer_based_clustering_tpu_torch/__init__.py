@@ -1,10 +1,10 @@
 """PyTorch/CUDA port of uniprot_kmer_based_clustering_tpu.
 
 The same pipeline as the JAX package — FASTA → k-mer index → packed
-bitsets → pairwise sweep → exact pair list → clusters — on one torch
-device. The host stages are the port's own copies of the JAX package's
-numpy/C++ modules; the device stages are PyTorch, with each TPU kernel
-rewritten by hand for Hopper. This package imports neither jax nor the
+bitsets → pairwise sweep → exact pair list → clusters, alignments and
+dumps — on one torch device. The host stages are the port's own copies
+of the JAX package's numpy/C++ modules; the device stages are PyTorch,
+with each TPU kernel rewritten by hand for Hopper. This package imports neither jax nor the
 JAX package.
 
 Layout:
@@ -23,8 +23,12 @@ Layout:
               (popcount), each kernel beside its plain PyTorch version, and
               the out-of-core stream engine (stream)
   similarity/ sweep + exact pair extraction (two-pass, fused, one-pass);
-              query serving (QueryServer)
-  models/     connected components
+              query serving (QueryServer); the shared k-mers of pairs
+  models/     connected components (host union-find, device label
+              propagation), agglomerative rounds, the insertion tree
+  align/      batched Smith-Waterman on the device, host traceback,
+              diamond orchestration
+  io/debug_dump.py  the reference's Rust {:#?} graph dump
   pipeline.py run_pipeline; cli.py the `run` and `query` commands
 """
 

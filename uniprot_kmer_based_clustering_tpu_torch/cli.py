@@ -3,20 +3,28 @@
   python -m uniprot_kmer_based_clustering_tpu_torch.cli run <fasta>
       [--device {cuda,cpu}] [--k {5,7}] [--threshold N]
       [--weighted-threshold N] [--sampling {all,random10}] [--seed N]
-      [--weighting {none,blosum62}] [--cluster {components,none}]
+      [--weighting {none,blosum62}]
+      [--cluster {components,tree,agglomerative,none}] [--min-shared N]
       [--engine {auto,mxu,popcount,xla,native,stream}]
       [--extract {auto,two_pass,fused,onepass}] [--extract-k N]
-      [--stream-source {host,csr}] [--all-pairs] [--checkpoint-dir DIR]
-      [--out DIR] [--profile DIR] [--cpu] [--verbose]
+      [--stream-source {host,csr}] [--index-engine {host,device}]
+      [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
+      [--dump-kmers] [--dump-proteins] [--dump-debug]
+      [--checkpoint-dir DIR] [--out DIR] [--profile DIR] [--cpu]
+      [--verbose]
 
   python -m uniprot_kmer_based_clustering_tpu_torch.cli query <fasta>
       [--seq AASEQ ...] [--query-fasta FASTA] [--device {cuda,cpu}]
       [--k {5,7}] [--threshold N] [--weighting {none,blosum62}] [--top N]
       [--checkpoint-dir DIR] [--cpu]
 
-``run`` writes pairs.tsv, clusters.tsv and stats.json to --out in the
-same format as the JAX package's ``cli run``; the remaining flags of that
-CLI are accepted and refused with the ROADMAP item that will bring them.
+``run`` writes to --out, in the same format as the JAX package's ``cli
+run``: pairs.tsv, clusters.tsv, stats.json, dendrogram.tsv
+(agglomerative), blastp_output.tsv (--align), pair_kmers.tsv and
+proteins.tsv (--dump-kmers, --dump-proteins) and graph_debug.txt
+(--dump-debug, the reference's stdout Debug dump). The mesh flags of
+that CLI (--devices, --shard-axis, --distributed, --mesh-shape) are
+accepted and refused with the ROADMAP item that will bring them.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
@@ -26,6 +34,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 
 
 def _refuse_unported(args) -> None:
@@ -36,14 +45,6 @@ def _refuse_unported(args) -> None:
          "(ROADMAP queue 1, item 14)"),
         (args.mesh_shape is not None,
          "--mesh-shape: the mesh engines (ROADMAP queue 1, item 14)"),
-        (args.align != "none" or args.diamond,
-         "--align/--diamond: pair alignment (ROADMAP queue 1, item 12)"),
-        (args.cluster in ("tree", "agglomerative"),
-         f"--cluster {args.cluster}: tree/agglomerative clustering "
-         "(ROADMAP queue 1, item 13)"),
-        (args.dump_kmers or args.dump_proteins or args.dump_debug,
-         "--dump-*: the k-mer dumps, whose JAX-package modules load jax "
-         "through similarity/__init__ (ROADMAP queue 1, item 1)"),
     ]
     for hit, what in refused:
         if hit:
@@ -93,6 +94,7 @@ def cmd_run(args) -> int:
         extract=args.extract,
         extract_k=args.extract_k,
         stream_source=args.stream_source,
+        run_diamond=args.diamond,
     )
     with _profile(args.profile, device):
         result = run_pipeline(
@@ -125,6 +127,12 @@ def cmd_run(args) -> int:
                     f"{result.cluster_labels[i]}\n"
                 )
 
+    if result.dendrogram is not None and len(result.dendrogram):
+        with open(os.path.join(args.out, "dendrogram.tsv"), "w") as f:
+            f.write("winner\tloser\tshared_kmers\n")
+            for w, l, c in result.dendrogram:
+                f.write(f"{w}\t{l}\t{c}\n")
+
     stats = {
         "config": {
             k: v for k, v in vars(args).items()
@@ -143,8 +151,99 @@ def cmd_run(args) -> int:
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=2)
 
+    _write_dumps(args, result)
+    _align(args, config, result, device)
     print(json.dumps(stats["parity"]))
     return 0
+
+
+def _write_dumps(args, result) -> None:
+    """pair_kmers.tsv, proteins.tsv and graph_debug.txt, as the JAX CLI
+    writes them."""
+    table = result.table
+    pairs = result.pairwise.pairs
+    if args.dump_kmers and len(pairs):
+        from uniprot_kmer_based_clustering_tpu_torch.similarity.kmers_of_pairs import (
+            shared_kmer_strings,
+        )
+
+        with open(os.path.join(args.out, "pair_kmers.tsv"), "w") as f:
+            f.write("protein_i\tprotein_j\tshared_kmers\n")
+            for row, kmers in zip(
+                pairs,
+                shared_kmer_strings(result.index, pairs, result.bitset),
+            ):
+                f.write(f"{row[0]}\t{row[1]}\t{','.join(kmers)}\n")
+
+    if args.dump_proteins:
+        # the reference's protein Debug dump (decoded k-mer strings,
+        # src/protein.rs:65-74) + vertex degree (src/graph/vertex.rs:159-166)
+        from uniprot_kmer_based_clustering_tpu_torch.similarity.kmers_of_pairs import (
+            protein_kmer_strings,
+        )
+
+        degree = [0] * table.n
+        for i, j, _ in pairs:
+            degree[int(i)] += 1
+            degree[int(j)] += 1
+        with open(os.path.join(args.out, "proteins.tsv"), "w") as f:
+            f.write(
+                "protein\tid\tamr_class\tlength\tdegree\trepeated_kmers\n"
+            )
+            for i, kmers in enumerate(
+                protein_kmer_strings(result.index, result.bitset)
+            ):
+                f.write(
+                    f"{i}\t{table.ids[i]}\t{table.amr_classes[i]}\t"
+                    f"{table.lengths[i]}\t{degree[i]}\t{','.join(kmers)}\n"
+                )
+
+    if args.dump_debug:
+        # the reference's stdout Debug dump (src/main.rs:235) in the
+        # literal Rust {:#?} format; the reference-equivalent full dump
+        # is a --threshold 0 run (io/debug_dump.py)
+        from uniprot_kmer_based_clustering_tpu_torch.io.debug_dump import (
+            rust_debug_dump_to_path,
+        )
+
+        rust_debug_dump_to_path(
+            os.path.join(args.out, "graph_debug.txt"),
+            result.index, pairs, table.n, bitset=result.bitset,
+        )
+
+
+def _align(args, config, result, device) -> None:
+    """blastp_output.tsv for ``--align``/``--diamond``, as the JAX CLI
+    writes it: ``--diamond`` is ``--align diamond``, ``auto`` takes
+    diamond when it is on PATH, and diamond without the binary falls back
+    to the device Smith-Waterman aligner."""
+    pairs = result.pairwise.pairs
+    align_mode = args.align
+    if config.run_diamond and align_mode == "none":
+        align_mode = "diamond"
+    if align_mode == "none" or not len(pairs):
+        return
+    from uniprot_kmer_based_clustering_tpu_torch.align import (
+        align_pairs,
+        align_pairs_sw,
+        diamond_available,
+    )
+
+    tsv = os.path.join(args.out, "blastp_output.tsv")
+    if align_mode == "auto":
+        align_mode = "diamond" if diamond_available() else "sw"
+    if align_mode == "diamond" and not diamond_available():
+        print(
+            "diamond not found on PATH — falling back to the batched "
+            f"Smith-Waterman aligner on {device.type} (--align sw)",
+            file=sys.stderr,
+        )
+        align_mode = "sw"
+    if align_mode == "diamond":
+        out = align_pairs(result.table, pairs, tsv)
+    else:
+        out = align_pairs_sw(result.table, pairs, tsv, device=device)
+    print(f"wrote {out} ({align_mode})", file=sys.stderr)
 
 
 def cmd_query(args) -> int:
@@ -236,9 +335,14 @@ def main(argv=None) -> int:
     r.add_argument("--sampling", default="all", choices=("all", "random10"))
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--weighting", default="none", choices=("none", "blosum62"))
-    r.add_argument("--min-shared", type=int, default=1)
+    r.add_argument("--min-shared", type=int, default=1,
+                   help="agglomerative merge gate: min shared k-mers "
+                        "between cluster signatures")
     r.add_argument("--cluster", default="components",
-                   choices=("components", "tree", "agglomerative", "none"))
+                   choices=("components", "tree", "agglomerative", "none"),
+                   help="agglomerative = batched mutual-argmax signature "
+                        "merges on the device; tree = the reference's "
+                        "insertion tree on the host")
     r.add_argument("--engine", default="auto",
                    choices=("auto", "mxu", "popcount", "xla", "native",
                             "stream"),
@@ -269,12 +373,21 @@ def main(argv=None) -> int:
     r.add_argument("--distributed", action="store_true")
     r.add_argument("--checkpoint-dir", default=None)
     r.add_argument("--out", default="ukc_out")
-    r.add_argument("--diamond", action="store_true")
+    r.add_argument("--diamond", action="store_true",
+                   help="alias for --align diamond")
     r.add_argument("--align", default="none",
-                   choices=("none", "diamond", "sw", "auto"))
-    r.add_argument("--dump-kmers", action="store_true")
-    r.add_argument("--dump-proteins", action="store_true")
-    r.add_argument("--dump-debug", action="store_true")
+                   choices=("none", "diamond", "sw", "auto"),
+                   help="alignment of the surviving pairs: diamond "
+                        "subprocesses, sw = batched Smith-Waterman on "
+                        "the device, auto = diamond if installed else sw")
+    r.add_argument("--dump-kmers", action="store_true",
+                   help="write each pair's shared k-mers (decoded)")
+    r.add_argument("--dump-proteins", action="store_true",
+                   help="write per-protein decoded repeated k-mers and "
+                        "pair degree")
+    r.add_argument("--dump-debug", action="store_true",
+                   help="write graph_debug.txt, the reference's stdout "
+                        "graph dump (use --threshold 0 for the full dump)")
     r.add_argument("--cpu", action="store_true",
                    help="the same as --device cpu")
     r.add_argument("--profile", default=None, metavar="DIR",

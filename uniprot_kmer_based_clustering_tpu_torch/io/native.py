@@ -118,6 +118,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p,  # int8 weights or NULL
         _i64p, _i64p, _i64, ctypes.c_int, ctypes.c_int,
     ]
+    lib.ukc_and_popcnt_rows.restype = None
+    lib.ukc_and_popcnt_rows.argtypes = [_u64p, _i64, _i64, _u64p, _i64p]
     lib.ukc_index_build.restype = ctypes.c_int
     lib.ukc_index_build.argtypes = [
         _i64p, _i64p, _i64, _i64, _i64p, _i64p, _i32p, _i32p,
@@ -253,6 +255,26 @@ def encode_kmers(
     if rc != 0:
         raise RuntimeError(f"ukc_encode failed: {rc}")
     return codes, koff
+
+
+def and_popcnt_rows_fn():
+    """Bound fused AND+popcount row kernel, or None when unavailable.
+
+    Returns a callable ``f(mat_u64_2d, m, vec_u64, out_i64)`` filling
+    ``out[i] = popcount(mat[i] & vec)`` for the first ``m`` rows. The
+    caller owns layout discipline (C-contiguous uint64 rows, matching
+    widths): this is the tree model's per-insertion hot loop, called
+    tens of thousands of times a build, so the wrapper resolves the
+    symbol once and adds no per-call checks."""
+    lib = _load()
+    if lib is None:
+        return None
+    fn = lib.ukc_and_popcnt_rows
+
+    def call(mat: np.ndarray, m: int, vec: np.ndarray, out: np.ndarray):
+        fn(mat, m, mat.shape[1], vec, out)
+
+    return call
 
 
 def popcount_sweep(

@@ -39,6 +39,17 @@ def residues_to_indices(seq_buf: np.ndarray) -> np.ndarray:
     return _LUT[seq_buf]
 
 
+def decode_kmer(code: int, k: int) -> str:
+    """Inverse of the base-21 encoding (``five_mer_back_to_amino_acid``,
+    src/protein.rs:38-48)."""
+    out = []
+    for i in range(k):
+        p = 21 ** (k - 1 - i)
+        out.append(AMINO_ACIDS[code // p])
+        code %= p
+    return "".join(out)
+
+
 def _window_codes(idx: np.ndarray, k: int) -> np.ndarray:
     """All length-k window codes over a flat index buffer (int64 [R−k+1])."""
     r = idx.shape[0]

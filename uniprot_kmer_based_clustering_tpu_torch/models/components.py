@@ -1,14 +1,18 @@
 """Connected-component clustering over the thresholded pair graph.
 
-A copy of the host union-find of the JAX package's
-``models/components.py`` (that module imports jax at its top). The
-device label propagation ``connected_components_device`` is still to be
-ported (ROADMAP queue 1, item 4).
+The port's counterpart of the JAX package's ``models/components.py``:
+the host union-find (what the pipeline runs on one device) and the
+device min-label propagation ``connected_components_device`` (a library
+entry, for large pair lists). Both label each component by its smallest
+member index, whatever the edge order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 
 
 def connected_components(n: int, pairs: np.ndarray) -> np.ndarray:
@@ -35,3 +39,41 @@ def connected_components(n: int, pairs: np.ndarray) -> np.ndarray:
             else:
                 parent[ri] = rj
     return np.array([find(i) for i in range(n)], dtype=np.int32)
+
+
+def _propagate_labels(pairs_i, pairs_j, n: int):
+    """Min-label propagation with pointer halving over int64 edge tensors
+    on one device: (labels int64 [n], rounds). A round scatters the
+    smaller label of each edge's ends into both ends
+    (``scatter_reduce`` "amin", the JAX ``.at[].min``), then halves
+    pointers (label[i] ← label[label[i]]); it repeats until a round
+    changes nothing, one scalar read a round. Labels only fall and stay
+    node indices of the same component, so the fixpoint is each
+    component's minimum."""
+    labels = torch.arange(n, dtype=torch.int64, device=pairs_i.device)
+    rounds = 0
+    while True:
+        rounds += 1
+        m = torch.minimum(labels[pairs_i], labels[pairs_j])
+        new = labels.scatter_reduce(0, pairs_i, m, "amin", include_self=True)
+        new = new.scatter_reduce(0, pairs_j, m, "amin", include_self=True)
+        new = new[new]
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            return labels, rounds
+
+
+def connected_components_device(pairs_i, pairs_j, *, n: int, device="cuda"):
+    """Device min-label propagation (the JAX package's
+    ``connected_components_device``) on ``device``.
+
+    ``pairs_i``/``pairs_j`` are the edge ends (numpy arrays or tensors);
+    padding edges are self-edges (i = j), which change nothing. Returns
+    int32 numpy [n] labels equal to :func:`connected_components`'.
+    """
+    device = resolve_device(device)
+    pi = torch.as_tensor(pairs_i).to(device=device, dtype=torch.int64)
+    pj = torch.as_tensor(pairs_j).to(device=device, dtype=torch.int64)
+    labels, _ = _propagate_labels(pi, pj, n)
+    return labels.to(torch.int32).cpu().numpy()

@@ -1,5 +1,5 @@
 """End-to-end pipeline on one torch device: FASTA → index → bitsets →
-sweep → clusters.
+sweep → clusters (components, agglomerative or the tree).
 
 The counterpart of the JAX package's ``pipeline.run_pipeline`` with the
 same stage order, checkpoint keys and result fields. The host stages
@@ -39,8 +39,14 @@ from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (
     KmerIndex,
     build_index,
 )
+from uniprot_kmer_based_clustering_tpu_torch.models.agglomerative import (
+    agglomerative_cluster,
+)
 from uniprot_kmer_based_clustering_tpu_torch.models.components import (
     connected_components,
+)
+from uniprot_kmer_based_clustering_tpu_torch.models.tree import (
+    cluster_tree_labels,
 )
 from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
     PairwiseResult,
@@ -147,11 +153,6 @@ def run_pipeline(
     if stop_after not in (None, "pack"):
         raise ValueError(f"unknown stop_after {stop_after!r}")
     config = config or PipelineConfig()
-    if config.cluster not in ("components", "none"):
-        raise NotImplementedError(
-            f"cluster={config.cluster!r} is not yet ported (ROADMAP queue "
-            "1, item 13); use components or none"
-        )
     device = resolve_device(device)
     store = CheckpointStore(checkpoint_dir)
     timers = StageTimers(echo=echo_timings)
@@ -204,11 +205,16 @@ def run_pipeline(
             )
 
         with stage("pack"):
-            if config.engine == "stream" and config.stream_source == "csr":
+            if (
+                config.engine == "stream"
+                and config.stream_source == "csr"
+                and config.cluster in ("none", "components")
+            ):
                 # packless: the stream engine rebuilds its blocks on the
                 # device from the incidence lists, so the dense matrix is
                 # never built; only its geometry is carried, and any touch
-                # of .words raises
+                # of .words raises. Tree and agglomerative clustering read
+                # the dense rows, so those configs keep the real pack
                 bitset = VirtualBitsetMatrix.make(
                     table.n, index.n_repeated,
                     row_multiple=_row_multiple(config, table.n),
@@ -278,9 +284,22 @@ def run_pipeline(
         )
 
     labels = None
+    dendrogram = None
     if config.cluster == "components":
         with stage("cluster"):
             labels = connected_components(table.n, pairwise.pairs)
+    elif config.cluster == "agglomerative":
+        with stage("cluster"):
+            # host-looped rounds, as the JAX pipeline runs them; each
+            # round's argmax runs on the device
+            agg = agglomerative_cluster(
+                bitset, table.n, min_shared=config.min_shared, device=device
+            )
+            labels = agg.labels
+            dendrogram = agg.merges
+    elif config.cluster == "tree":
+        with stage("cluster"):
+            labels = cluster_tree_labels(bitset, table.n)
 
     return PipelineResult(
         table=table,
@@ -289,6 +308,7 @@ def run_pipeline(
         pairwise=pairwise,
         cluster_labels=labels,
         timings=timers.as_dict(),
+        dendrogram=dendrogram,
     )
 
 

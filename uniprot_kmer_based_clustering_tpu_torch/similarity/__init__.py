@@ -1,5 +1,11 @@
-"""Pairwise similarity sweep, exact pair extraction and query serving."""
+"""Pairwise similarity sweep, exact pair extraction, query serving and
+the shared k-mers of pairs."""
 
+from uniprot_kmer_based_clustering_tpu_torch.similarity.kmers_of_pairs import (  # noqa: F401
+    protein_kmer_strings,
+    shared_kmer_ranks,
+    shared_kmer_strings,
+)
 from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (  # noqa: F401
     PairwiseResult,
     extract_pairs,
