@@ -94,6 +94,35 @@ csrc`` with nvcc (one process per source, in parallel), then:
       with the host index and with ``--index-engine device``: the three
       files equal to each other and to the dump functions on the
       oracle's pairs.
+9. mesh phase — the flat row ring (``parallel/``) on meshes whose D
+   shards all sit on this one card (``make_mesh(devices=[dev] * D)``;
+   their launches share one stream, so a ring's time is the sum over its
+   shards, not a scaling figure):
+   a. ``run_pipeline(mesh=D4)`` at 30,000 proteins two-pass and with
+      ``extract="fused"``, counters reset before each: K1 once a ring
+      sub-step (``parallel.count_substeps``) and no other kernel; pairs
+      and parity counters equal to the oracle, component labels equal to
+      the host union-find's, stage seconds, peak device memory under
+      two corpus copies plus one sub-step's working set;
+      ``engine="stream"`` on the mesh must be refused naming item 14;
+   b. the warm ring sweep (beside the in-core scan), extraction and
+      fused pass on staged shards, with their peaks and the counters
+      reset before and read after every call (K1 once a sub-step of the
+      sweep and the fused pass, none in the extraction); then the
+      packless staging (``stage_mesh_inputs_csr``: shards built on the
+      card from the incidence lists) equal to the packed shards, and its
+      sweep and extraction equal to the oracle;
+   c. K1 on a wrapped block pair and a diagonal strip of that ring at
+      its fake offsets, equal to its plain version and to the plain
+      statistics at the real indices; kernel-only time beside its bound;
+   d. 10,619 proteins at D = 1, 2, 3 and 8: the sweep's totals equal to
+      D = 1's and to ``sweep_mxu``'s (its rows too at D = 1), extraction
+      and the fused pass equal to the oracle, ``doc_freq_psum`` equal to
+      the host doc-freqs;
+   e. ``cli run --devices <cards + 1>`` must exit nonzero with JAX's
+      "requested N devices, only M available" and write nothing; with
+      more than one card visible, the 10,619 ring also runs on two
+      distinct cards.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -528,7 +557,8 @@ def pipeline_phase(dev, tmp):
                       pairs30, {"K1": 0, "K2": steps, "K3": 0, "K4": 0})
         launches["K2"] = got["K2"]
     return (state10, pairs10, state30, pairs30, launches,
-            dict(fasta=fasta30, out=out, want=want30, want10=want10,
+            dict(fasta=fasta30, fasta10=fasta10, out=out, want=want30,
+                 want10=want10,
                  ns10=ns10))
 
 
@@ -2176,6 +2206,428 @@ def post_phase(dev, tmp, state10, pairs10, want10, ns10, state30, pairs30):
     return times
 
 
+MESH_D = 4  # shards of the 30k ring, all on the one card
+MESH_DS = (1, 2, 3, 8)  # shards of the 10,619 rings
+
+
+def _ring_counts(words, sub, wc):
+    """The counts of one ring sub-step from the whole matrix on the card
+    (stationary rows against the moving rows it holds)."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+
+    return bitmul.counts_window_pair(
+        words[sub.gi0 : sub.gi0 + sub.rows],
+        words[sub.gj0 : sub.gj0 + sub.cols], word_chunk=wc)
+
+
+def _k1_ring_block(dev, label, words, classes, n, sub, wc):
+    """K1 at the ring's fake offsets on one sub-step's counts, against its
+    plain version at the same offsets and against the plain masked
+    statistics at the real global indices (gi < n, gj < n, and gi < gj
+    on a diagonal strip); then its kernel-only time (L2 cold), its
+    back-to-back call, the plain version and the needed-bytes bound of
+    what it is given (every count of the block at those offsets)."""
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stats
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    counts = _ring_counts(words, sub, wc)
+    ca = classes[sub.gi0 : sub.gi0 + sub.rows]
+    cb = classes[sub.gj0 : sub.gj0 + sub.cols]
+    i_off, j_off = sharded.fake_offsets(sub)
+    kw = dict(i_off=i_off, j_off=j_off, n=sharded.FAKE_N,
+              threshold=THRESHOLD, tile=128)
+    nbi, nbj = sub.rows // 128, sub.cols // 128
+
+    def fresh():
+        return (torch.empty((sub.rows, 8), dtype=torch.int32, device=dev),
+                torch.zeros((nbi, nbj, 2), dtype=torch.int32, device=dev))
+
+    rs, bh = fresh()
+    stats.stats_from_counts_into(counts, ca, cb, rs, bh, **kw)
+    rs_p, bh_p = fresh()
+    stats.stats_from_counts_into_reference(counts, ca, cb, rs_p, bh_p, **kw)
+    gi = torch.arange(sub.gi0, sub.gi0 + sub.rows, device=dev)[:, None]
+    gj = torch.arange(sub.gj0, sub.gj0 + sub.cols, device=dev)[None, :]
+    valid = (gi < n) & (gj < n)
+    if sub.triangle:
+        valid &= gi < gj
+    cross = valid & (ca[:, None] != cb[None, :])
+    rs_r, over_c, over_s = stats.stack_row_stats(counts, cross,
+                                                 valid & ~cross, THRESHOLD)
+    shape = (nbi, 128, nbj, 128)
+    bh_r = torch.stack([over_c.reshape(shape).sum((1, 3)),
+                        over_s.reshape(shape).sum((1, 3))], -1).int()
+    torch.cuda.synchronize()
+    err = max(max_abs_err(rs, rs_p), max_abs_err(bh, bh_p),
+              max_abs_err(rs, rs_r), max_abs_err(bh, bh_r))
+    out_rs, out_bh = fresh()
+
+    def launch():
+        stats.stats_from_counts_into(counts, ca, cb, out_rs, out_bh, **kw)
+
+    def plain():
+        stats.stats_from_counts_into_reference(counts, ca, cb, out_rs,
+                                               out_bh, **kw)
+
+    bound = epilogue_bound_ms(sub.rows, sub.cols, i_off, j_off,
+                              sharded.FAKE_N, sub.rows * 8 + nbi * nbj * 2)
+    t = dict(err=err, ms=kernel_only_ms(launch), call_ms=cuda_ms(launch),
+             plain_ms=cuda_ms(plain, reps=5, warmup=1), bound_ms=bound)
+    print(f"K1 on the ring's {label} (rows {sub.gi0}.., columns {sub.gj0}.., "
+          f"[{sub.rows}, {sub.cols}], offsets ({i_off}, {j_off}), n 2^30): "
+          f"max_abs_err {err} against its plain version and against the "
+          f"plain statistics at the real indices (tolerance {TOL}), "
+          f"{int(bh.sum())} tile hits; kernel-only {t['ms']:.4f} ms (L2 "
+          f"cold), bound {bound:.4f} ms (needed bytes), share "
+          f"{bound / t['ms']:.3f}; back-to-back call {t['call_ms']:.4f} ms; "
+          f"plain torch {t['plain_ms']:.4f} ms", flush=True)
+    if err > TOL:
+        raise AssertionError(f"K1 on the ring's {label} disagrees")
+    return t
+
+
+def _doc_freq_inputs(dev, table, multiple):
+    """Window codes and validity [N', L-4] of the corpus on the card, rows
+    padded to a multiple of ``multiple`` with invalid windows."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
+        encode_kmers_device,
+        residues_to_indices,
+    )
+
+    lengths = table.lengths.astype(np.int32)
+    n_rows = -(-table.n // multiple) * multiple
+    mat = np.zeros((n_rows, int(lengths.max())), np.int32)
+    res = residues_to_indices(table.seq_buf).astype(np.int32)
+    starts = np.asarray(table.offsets[:-1], np.int64)
+    rows = np.repeat(np.arange(table.n, dtype=np.int64), lengths)
+    mat[rows, np.arange(res.shape[0]) - np.repeat(starts, lengths)] = res
+    full = np.zeros(n_rows, np.int32)
+    full[: table.n] = lengths
+    return encode_kmers_device(torch.from_numpy(mat).to(dev),
+                               torch.from_numpy(full).to(dev), 5)
+
+
+def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
+               smi):
+    """The flat row ring (docstring, phase 9) on meshes whose shards share
+    the one card."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.models.components import (
+        connected_components,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_substeps,
+        doc_freq_psum,
+        make_mesh,
+        pad_for_mesh,
+        sharded,
+        sharded_extract_pairs,
+        sharded_pairwise_fused,
+        sharded_pairwise_similarity,
+        stage_mesh_inputs,
+        stage_mesh_inputs_csr,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"mesh phase on {smi}: every mesh's shards share this one card, "
+          f"so their launches queue on one stream and a ring's time is the "
+          f"sum over its shards (no scaling figure)", flush=True)
+    table30, _, bitset30 = state30
+    n30 = table30.n
+    want30 = run30["want"]
+    n_pad30 = pad_for_mesh(bitset30.n_pad, MESH_D, 128)
+    block30 = n_pad30 // MESH_D
+    steps30 = count_substeps(MESH_D, n_pad30)
+    wc30 = sharded.ring_word_chunk(block30, bitset30.w_pad)
+    corpus = bitset30.n_pad * bitset30.w_pad * 4
+    print(f"{N_SCALE} on a D={MESH_D} mesh: N_pad {n_pad30}, {block30} rows "
+          f"a shard ({corpus // MESH_D} bytes), {steps30} sub-steps a pass, "
+          f"word chunk {wc30} of {bitset30.w_pad} words", flush=True)
+    # the peak a 30k ring pass may reach: the stationary shards, the D
+    # moving copies, and one sub-step's working set (the two unpacked
+    # operand chunks, the counts and one chunk's partial counts, one
+    # compaction window at 64 bytes a lane, and each shard's pair-buffer
+    # slack of one window at 12 bytes a lane)
+    window = sharded.append_window(block30)
+    step_bytes = (sharded.RING_UNPACK_BYTES + 2 * 4 * block30 * block30
+                  + 64 * window + MESH_D * 12 * window)
+    mem_limit = 2 * corpus + step_bytes
+    t0 = time.perf_counter()
+    labels30 = connected_components(n30, pairs30)
+    print(f"host union-find on the oracle's pairs "
+          f"{time.perf_counter() - t0:.3f} s; peak memory limit of a pass "
+          f"{mem_limit} bytes (2 x {corpus} + {step_bytes})", flush=True)
+    mesh4 = make_mesh(devices=[dev] * MESH_D)
+    want_launches = {"K1": steps30, "K2": 0, "K3": 0, "K4": 0}
+    runs = {}
+    for name, cfg in (
+        ("two-pass", PipelineConfig()),
+        ("fused", PipelineConfig(extract="fused")),
+    ):
+        fns = reset_counters()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_pipeline(run30["fasta"], cfg, mesh=mesh4)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        got = {k: res.parity_report()[k] for k in want30}
+        print(f"run_pipeline(mesh=D{MESH_D}) {name}: {wall:.3f} s; kernel "
+              f"launches {launches}; parity {got}, pairs "
+              f"{len(res.pairwise.pairs)}, clusters "
+              f"{res.cluster_summary()}; peak device memory {peak} bytes; "
+              f"stage seconds {json.dumps(res.timings)}", flush=True)
+        if launches != want_launches:
+            raise AssertionError(f"mesh {name}: launches {launches}, "
+                                 f"expected {want_launches}")
+        if got != want30:
+            raise AssertionError(f"mesh {name}: parity {got} != {want30}")
+        if not np.array_equal(res.pairwise.pairs, pairs30):
+            raise AssertionError(f"mesh {name}: pairs differ from the oracle")
+        if not np.array_equal(res.cluster_labels, labels30):
+            raise AssertionError(f"mesh {name}: labels differ from the "
+                                 f"union-find's")
+        if peak > mem_limit:
+            raise AssertionError(f"mesh {name}: peak {peak} bytes over "
+                                 f"{mem_limit}")
+        runs[name] = dict(wall=wall, peak=peak, timings=res.timings)
+        del res
+    if len(pairs30) > 1 << 20:
+        print(f"(the fused run's default cap 1,048,576 is below the "
+              f"{len(pairs30)} pairs, so, as in the JAX package, it "
+              f"extracted again after its pass)", flush=True)
+    try:
+        run_pipeline(run30["fasta"], PipelineConfig(
+            engine="stream", stream_source="csr"), mesh=mesh4)
+    except NotImplementedError as e:
+        print(f"run_pipeline(mesh=D{MESH_D}, engine='stream', "
+              f"stream_source='csr') refused: {e}", flush=True)
+        if "item 14" not in str(e):
+            raise
+    else:
+        raise AssertionError("the stream engine on a mesh was not refused")
+
+    # warm library passes on staged shards; the kernel counters are set
+    # to 0 before, and read after, every call
+    cls30 = np.full(n_pad30, -1, np.int32)
+    cls30[:n30] = table30.amr_class_ids
+    t0 = time.perf_counter()
+    words_s, classes_s = stage_mesh_inputs(mesh4, bitset30.words, cls30)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    total = len(pairs30)
+    counted = {}
+
+    def count(name, fn):
+        def run():
+            fns = reset_counters()
+            out = fn()
+            counted.setdefault(name, []).append(
+                {k: f.launches for k, f in fns.items()})
+            return out
+        return run
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    sweep_s, (rs, th, _) = best_seconds(count(
+        "sweep", lambda: sharded_pairwise_similarity(
+            mesh4, words_s, classes_s, n30, THRESHOLD)),
+        reps=2, warmup=1)
+    peak_sweep = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ext_s, pairs = best_seconds(count(
+        "extraction", lambda: sharded_extract_pairs(
+            mesh4, words_s, classes_s, n30, THRESHOLD,
+            cap=max(1 << 18, total), expected_total=total)),
+        reps=2, warmup=1)
+    peak_ext = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fused_s, fused = best_seconds(count(
+        "fused", lambda: sharded_pairwise_fused(
+            mesh4, words_s, classes_s, n30, THRESHOLD, cap=1 << 21)),
+        reps=2, warmup=1)
+    peak_fused = torch.cuda.max_memory_allocated(dev)
+    if max(peak_sweep, peak_ext, peak_fused) > mem_limit:
+        raise AssertionError("a warm 30k ring pass went over the peak "
+                             "memory limit")
+    if not (np.array_equal(pairs, pairs30)
+            and np.array_equal(fused[3], pairs30)
+            and np.array_equal(fused[0], rs) and np.array_equal(fused[1], th)
+            and int(th[:, 0].sum()) == total):
+        raise AssertionError("warm 30k ring passes differ from the oracle")
+    pair_count = n30 * (n30 - 1) // 2
+    print(f"{N_SCALE} D={MESH_D} warm ring (best of 2 after a warm-up): "
+          f"staging {stage_s:.6f} s; sweep {sweep_s:.6f} s = "
+          f"{pair_count / sweep_s:.6e} pairs/s (in-core scan "
+          f"{scan_s:.6f} s, ratio {sweep_s / scan_s:.3f}), peak "
+          f"{peak_sweep} bytes; extraction {ext_s:.6f} s, peak {peak_ext} "
+          f"bytes; fused pass (cap 2^21, no second pass) {fused_s:.6f} s, "
+          f"peak {peak_fused} bytes; corpus {corpus} bytes", flush=True)
+    del fused, pairs
+
+    # the packless staging: each shard built on the card from the
+    # incidence lists, equal to the packed shards, then swept and
+    # extracted
+    index30 = state30[1]
+    t0 = time.perf_counter()
+    words_c, classes_c = stage_mesh_inputs_csr(
+        mesh4, index30.incidence_protein, index30.incidence_rank, n_pad30,
+        bitset30.w_pad, table30.amr_class_ids)
+    torch.cuda.synchronize()
+    stage_csr_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(words_c, words_s)) and all(
+        torch.equal(a, b) for a, b in zip(classes_c, classes_s))
+    del words_s, classes_s
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rs_c, th_c, _ = count("packless sweep", lambda: (
+        sharded_pairwise_similarity(mesh4, words_c, classes_c, n30,
+                                    THRESHOLD)))()
+    pairs_c = count("packless extraction", lambda: sharded_extract_pairs(
+        mesh4, words_c, classes_c, n30, THRESHOLD,
+        cap=max(1 << 18, total), expected_total=total))()
+    packless_s = time.perf_counter() - t0
+    peak_csr = torch.cuda.max_memory_allocated(dev)
+    print(f"packless staging (stage_mesh_inputs_csr) {stage_csr_s:.6f} s, "
+          f"shards = the packed staging's {same}; its sweep + extraction "
+          f"{packless_s:.6f} s (single calls), peak {peak_csr} bytes",
+          flush=True)
+    if not (same and np.array_equal(rs_c, rs) and np.array_equal(th_c, th)
+            and np.array_equal(pairs_c, pairs30) and peak_csr <= mem_limit):
+        raise AssertionError("the packless staging's ring differs from "
+                             "the oracle or went over the memory limit")
+    del words_c, classes_c
+    want_k1 = {"sweep": steps30, "extraction": 0, "fused": steps30,
+               "packless sweep": steps30, "packless extraction": 0}
+    ring_launches = {}
+    for name, logs in counted.items():
+        for got in logs:
+            if got != {"K1": want_k1[name], "K2": 0, "K3": 0, "K4": 0}:
+                raise AssertionError(f"warm ring {name}: launches {got}, "
+                                     f"expected K1 = {want_k1[name]} and "
+                                     f"no other kernel")
+        ring_launches[name] = logs[-1]["K1"]
+    print(f"K1 launches of each warm 30k D={MESH_D} call (counters reset "
+          f"before each): {ring_launches}", flush=True)
+
+    # K1 on the ring's own blocks: a wrapped block pair and a diagonal strip
+    words30 = bitset_to_torch(bitset30, dev)
+    classes30 = classes_to_torch(table30.amr_class_ids, n_pad30, dev)
+    wrapped = sharded.ring_substeps(1, MESH_D, MESH_D - 1, block30, 128)[0]
+    strip = sharded.ring_substeps(0, MESH_D, 1, block30, 128)[0]
+    k1 = _k1_ring_block(dev, "wrapped block pair", words30, classes30, n30,
+                        wrapped, wc30)
+    k1_strip = _k1_ring_block(dev, "diagonal strip", words30, classes30,
+                              n30, strip, wc30)
+    del words30, classes30
+
+    # b. 10,619 proteins at D = 1, 2, 3, 8
+    table10, index10, bitset10 = state10
+    n10 = table10.n
+    words10 = bitset_to_torch(bitset10, dev)
+    classes10 = classes_to_torch(table10.amr_class_ids, bitset10.n_pad, dev)
+    rs_mxu, th_mxu, _ = bitmul.sweep_mxu(words10, classes10, n10, THRESHOLD)
+    codes, valid = _doc_freq_inputs(dev, table10, 24)
+    ref_totals = None
+    for d in MESH_DS:
+        mesh = make_mesh(devices=[dev] * d)
+        n_pad = pad_for_mesh(bitset10.n_pad, d, 128)
+        words = np.zeros((n_pad, bitset10.w_pad), np.uint32)
+        words[: bitset10.n_pad] = bitset10.words
+        cls = np.full(n_pad, -1, np.int32)
+        cls[:n10] = table10.amr_class_ids
+        ws, cs = stage_mesh_inputs(mesh, words, cls)
+        fns = reset_counters()
+        t0 = time.perf_counter()
+        rs, th, _ = sharded_pairwise_similarity(mesh, ws, cs, n10, THRESHOLD)
+        t_sweep = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        t0 = time.perf_counter()
+        pairs = sharded_extract_pairs(mesh, ws, cs, n10, THRESHOLD)
+        t_ext = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = sharded_pairwise_fused(mesh, ws, cs, n10, THRESHOLD)
+        t_fused = time.perf_counter() - t0
+        freq = doc_freq_psum(mesh, codes, valid, 5)
+        totals = (rs[:, [0, 1, 2, 4, 5, 6]].sum(0), rs[:, [3, 7]].max(0),
+                  th.sum(0))
+        if ref_totals is None:
+            ref_totals = totals
+        mxu = (rs_mxu[:, [0, 1, 2, 4, 5, 6]].sum(0), rs_mxu[:, [3, 7]].max(0),
+               th_mxu.sum(0))
+        dense = freq.cpu().numpy()
+        checks = {
+            "launches": launches == {"K1": count_substeps(d, n_pad),
+                                     "K2": 0, "K3": 0, "K4": 0},
+            "totals = D1": all(np.array_equal(a, b)
+                               for a, b in zip(totals, ref_totals)),
+            "totals = sweep_mxu": all(np.array_equal(a, b)
+                                      for a, b in zip(totals, mxu)),
+            "rows = sweep_mxu": d != 1 or np.array_equal(rs, rs_mxu),
+            "extract = oracle": np.array_equal(pairs, pairs10),
+            "fused = oracle": np.array_equal(fused[3], pairs10)
+            and np.array_equal(fused[0], rs) and np.array_equal(fused[1], th),
+            "doc_freq = host": np.array_equal(dense[index10.codes],
+                                              index10.doc_freq)
+            and int(dense.sum()) == int(index10.doc_freq.sum()),
+        }
+        print(f"{N_PROTEINS} D={d} (N_pad {n_pad}): sweep {t_sweep:.4f} s, "
+              f"extraction {t_ext:.4f} s, fused {t_fused:.4f} s (single "
+              f"calls); launches {launches}; {len(pairs)} pairs; checks "
+              f"{checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"10,619 ring at D={d}: {checks}")
+        del ws, cs, fused
+    del words10, classes10, codes, valid
+
+    # c. no fallback: --devices 2 where the machine has fewer cards
+    out = os.path.join(tmp, "mesh_refused")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli", "run", run30["fasta10"],
+         "--device", "cuda", "--devices", str(torch.cuda.device_count() + 1),
+         "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    msg = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    want_msg = (f"requested {torch.cuda.device_count() + 1} devices, only "
+                f"{torch.cuda.device_count()} available")
+    print(f"cli run --device cuda --devices "
+          f"{torch.cuda.device_count() + 1}: exit {proc.returncode}, "
+          f"stderr {msg!r}, output written: {os.path.exists(out)}",
+          flush=True)
+    if proc.returncode == 0 or want_msg not in msg or os.path.exists(out):
+        raise AssertionError("--devices beyond the visible cards did not "
+                             "fail loudly")
+    if torch.cuda.device_count() > 1:
+        cls = np.full(bitset10.n_pad, -1, np.int32)
+        cls[:n10] = table10.amr_class_ids
+        pairs = sharded_extract_pairs(make_mesh(2), bitset10.words, cls, n10,
+                                      THRESHOLD)
+        print(f"{N_PROTEINS} ring on 2 distinct cards: pairs = oracle "
+              f"{np.array_equal(pairs, pairs10)}", flush=True)
+        if not np.array_equal(pairs, pairs10):
+            raise AssertionError("the ring on distinct cards differs")
+    phase_s = time.perf_counter() - t_phase
+    print(f"mesh phase: K1 {steps30} launches a 30k D={MESH_D} pass, no "
+          f"other kernel; {phase_s:.3f} s", flush=True)
+    return dict(launches=ring_launches, k1=k1, k1_strip=k1_strip, runs=runs,
+                sweep_s=sweep_s, ext_s=ext_s, fused_s=fused_s,
+                phase_s=phase_s)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -2225,6 +2677,8 @@ def main() -> int:
         k3 = k3_phase(dev, state10, state30, sm_mhz)
         post_phase(dev, tmp, state10, pairs10, run30["want10"],
                    run30["ns10"], state30, pairs30)
+        mesh = mesh_phase(dev, tmp, state10, pairs10, run30, state30,
+                          pairs30, scan["sweep_s"], smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -2240,7 +2694,8 @@ def main() -> int:
             "source": f"{PKG}/csrc/stats_epilogue.cu",
             "replaces": replaces + "stats_pallas.py:275",
             "launches": launches["K1"],
-            "max_abs_err": max(err, t["err"]),
+            "max_abs_err": max(err, t["err"], mesh["k1"]["err"],
+                               mesh["k1_strip"]["err"]),
             "ms": t["ms"],
             "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"],
@@ -2250,6 +2705,14 @@ def main() -> int:
             "query_launches": q_launches["K1"],
             "device_index_launches": i_launches["K1"],
             "post_library_launches": POST_LAUNCHES["K1"],
+            "ring_launches": {k: mesh["launches"][k]
+                              for k in ("sweep", "extraction", "fused")},
+            "ring_max_abs_err": max(mesh["k1"]["err"],
+                                    mesh["k1_strip"]["err"]),
+            "ring_ms": mesh["k1"]["ms"],
+            "ring_call_ms": mesh["k1"]["call_ms"],
+            "ring_plain_ms": mesh["k1"]["plain_ms"],
+            "ring_bound_ms": mesh["k1"]["bound_ms"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -2268,6 +2731,7 @@ def main() -> int:
             "query_launches": q_launches["K2"],
             "device_index_launches": i_launches["K2"],
             "post_library_launches": POST_LAUNCHES["K2"],
+            "ring_launches": 0,
         },
         {
             "name": "sweep_tri_mxu",
@@ -2285,6 +2749,7 @@ def main() -> int:
             "query_launches": q_launches["K3"],
             "device_index_launches": i_launches["K3"],
             "post_library_launches": POST_LAUNCHES["K3"],
+            "ring_launches": 0,
         },
         {
             "name": "popcount_sweep",
@@ -2302,6 +2767,7 @@ def main() -> int:
             "query_launches": q_launches["K4"],
             "device_index_launches": i_launches["K4"],
             "post_library_launches": POST_LAUNCHES["K4"],
+            "ring_launches": 0,
         },
     ]
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",

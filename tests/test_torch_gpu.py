@@ -989,3 +989,103 @@ def test_cli_align_agglomerative_dump_on_card_matches_cpu(cuda, small_fasta,
             assert got == f.read(), name
     with open(os.path.join(outs["cuda"], "blastp_output.tsv")) as f:
         assert len(f.read().splitlines()) > 2
+
+
+def _ring_problem(n_pad):
+    """500 proteins over 1,500 k-mers, rows padded to ``n_pad``."""
+    from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+        pack_bitsets,
+    )
+
+    rng = np.random.default_rng(5)
+    rows, cols = np.nonzero(rng.random((500, 1500)) < 0.04)
+    bs = pack_bitsets(rows.astype(np.int32), cols.astype(np.int32), 500,
+                      1500, row_multiple=n_pad, word_multiple=128)
+    classes = np.full(bs.n_pad, -1, np.int32)
+    classes[:500] = rng.integers(0, 4, 500)
+    return bs, classes, 500
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_ring_on_a_shared_card_matches_cpu(cuda, d):
+    """The flat ring on D shards of one card (sweep, extraction, fused)
+    equals the same ring on D CPU shards; K1 launches once a sub-step of
+    each pass and no other kernel runs."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount, tri_mxu
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_substeps,
+        make_mesh,
+        sharded_extract_pairs,
+        sharded_pairwise_fused,
+        sharded_pairwise_similarity,
+    )
+
+    bs, classes, n = _ring_problem(768 if d == 3 else 1024)
+    card = make_mesh(devices=[cuda] * d)
+    host = make_mesh(d, device="cpu")
+    fns = (stats.stats_from_counts_into, stats.stats_from_counts_traced_into,
+           tri_mxu.tri_mxu_sweep, popcount.popcount_sweep)
+    for fn in fns:
+        fn.launches = 0
+    got = sharded_pairwise_similarity(card, bs.words, classes, n, 4)
+    pairs = sharded_extract_pairs(card, bs.words, classes, n, 4)
+    fused = sharded_pairwise_fused(card, bs.words, classes, n, 4)
+    steps = count_substeps(d, bs.n_pad)
+    assert [fn.launches for fn in fns] == [2 * steps, 0, 0, 0]
+    want = sharded_pairwise_similarity(host, bs.words, classes, n, 4)
+    want_pairs = sharded_extract_pairs(host, bs.words, classes, n, 4)
+    for a, b in zip(got[:2] + fused[:2], want[:2] * 2):
+        assert np.array_equal(a, b)
+    assert np.array_equal(pairs, want_pairs)
+    assert np.array_equal(fused[3], want_pairs)
+    assert len(want_pairs) > 1000
+
+
+def test_k1_on_a_wrapped_ring_block_matches_reference(cuda):
+    """K1 at the ring's fake offsets on a block pair whose moving rows lie
+    below the stationary ones (D = 4, step 1 on the last device; N_pad
+    512, so its rows 384.. hold proteins)."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    bs, classes, n = _ring_problem(512)
+    sub = sharded.ring_substeps(1, 4, 3, 128, 128)[0]
+    assert sub.gj0 < sub.gi0
+    words = torch.from_numpy(bs.words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(classes).to(cuda)
+    counts = bitmul.counts_window_pair(
+        words[sub.gi0 : sub.gi0 + sub.rows], words[sub.gj0 : sub.gj0 + sub.cols]
+    )
+    ca = cls[sub.gi0 : sub.gi0 + sub.rows]
+    cb = cls[sub.gj0 : sub.gj0 + sub.cols]
+    i_off, j_off = sharded.fake_offsets(sub)
+    kw = dict(i_off=i_off, j_off=j_off, n=sharded.FAKE_N, threshold=4,
+              tile=128)
+    before = stats.stats_from_counts_into.launches
+    rs, th, _ = stats.stats_from_counts(counts, ca, cb, **kw)
+    rs_ref, th_ref, _ = stats.stats_from_counts_reference(counts, ca, cb, **kw)
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_into.launches == before + 1
+    assert torch.equal(rs, rs_ref) and torch.equal(th, th_ref)
+    assert int(rs[:, 0].sum()) > 0
+
+
+def test_ring_on_the_card_refuses_tiles_k1_cannot_take(cuda):
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        sharded_extract_pairs,
+    )
+
+    bs, classes, n = _ring_problem(512)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        sharded_extract_pairs(make_mesh(devices=[cuda] * 2), bs.words,
+                              classes, n, 4, block_tile=16)
+
+
+def test_make_mesh_refuses_more_cards_than_visible(cuda):
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {n + 1} devices, "
+                                         f"only {n} available"):
+        make_mesh(n + 1)
+    assert make_mesh(n).size == n

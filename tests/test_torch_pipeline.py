@@ -155,6 +155,51 @@ def test_checkpoints_cross_packages(toy_fasta, tmp_path):
     assert sorted(os.listdir(j_dir)) == sorted(os.listdir(t_dir))
 
 
+def test_cli_devices_matches_jax_cli(toy_fasta, tmp_path, capsys):
+    """`cli run --device cpu --devices 4` (the flat ring on four CPU
+    shards) against the JAX CLI's `--cpu --devices 4` (four virtual
+    devices): pairs.tsv and clusters.tsv byte for byte; stats.json's
+    parity, clusters, n_devices and stage names."""
+    from uniprot_kmer_based_clustering_tpu.cli import main as jmain
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jmain(["run", toy_fasta, "--cpu", "--devices", "4", "--out",
+                  jout]) == 0
+    assert tmain(["run", toy_fasta, "--device", "cpu", "--devices", "4",
+                  "--out", tout]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == json.loads(lines[-2])
+    js, jp, jc = _cli_outputs(jout)
+    ts, tp, tc = _cli_outputs(tout)
+    assert tp == jp and tc == jc
+    assert ts["parity"] == js["parity"] and ts["clusters"] == js["clusters"]
+    assert ts["n_devices"] == js["n_devices"] == 4
+    assert set(ts["timings_s"]) == set(js["timings_s"])
+    assert ts["parity"]["pairs_over_threshold"] > 0
+
+
+@pytest.mark.parametrize("writer", ["jax_single_device", "torch_mesh"])
+def test_mesh_checkpoints_cross_packages(toy_fasta, tmp_path, writer):
+    """A mesh run resumes from a JAX single-device checkpoint directory,
+    and a JAX single-device run from a mesh run's (the artifacts do not
+    depend on the device layout): the resumed run skips the sweep."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import make_mesh
+
+    cfg = PipelineConfig(**TOY)
+    mesh = make_mesh(4, device="cpu")
+    ckpt = str(tmp_path / "ckpt")
+    if writer == "jax_single_device":
+        first = jrun(toy_fasta, cfg, checkpoint_dir=ckpt)
+        second = trun(toy_fasta, cfg, checkpoint_dir=ckpt, mesh=mesh)
+    else:
+        first = trun(toy_fasta, cfg, checkpoint_dir=ckpt, mesh=mesh)
+        assert "sweep" in first.timings
+        second = jrun(toy_fasta, cfg, checkpoint_dir=ckpt)
+    assert "sweep" not in second.timings and "index" not in second.timings
+    _same(first, second)
+
+
 def test_port_never_imports_jax(toy_fasta):
     """In a fresh interpreter (this one has jax from conftest) the port's
     whole pipeline and CLI run without loading jax."""
@@ -196,12 +241,14 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--distributed"], ["--shard-axis", "kmers"], ["--devices", "4"],
-    ["--mesh-shape", "2x4"], ["--devices", "2", "--align", "sw"],
+    ["--distributed"], ["--shard-axis", "kmers"],
+    ["--devices", "2", "--engine", "stream", "--stream-source", "csr"],
+    ["--mesh-shape", "2x4"], ["--devices", "2", "--shard-axis", "kmers"],
     ["--mesh-shape", "1x2", "--dump-kmers"],
 ])
 def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
-    """Only the mesh flags (item 14) are refused, before any output."""
+    """The mesh flags beyond the flat ring (item 14) are refused, before
+    any output."""
     from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
 
     with pytest.raises(SystemExit, match="not yet ported.*item 14"):

@@ -2,7 +2,8 @@
 
 The same pipeline as the JAX package — FASTA → k-mer index → packed
 bitsets → pairwise sweep → exact pair list → clusters, alignments and
-dumps — on one torch device. The host stages are the port's own copies
+dumps — on one torch device, or with the sweep on a mesh of devices
+(``parallel/``). The host stages are the port's own copies
 of the JAX package's numpy/C++ modules; the device stages are PyTorch,
 with each TPU kernel rewritten by hand for Hopper. This package imports neither jax nor the
 JAX package.
@@ -22,6 +23,9 @@ Layout:
               the fused triangle sweep (tri_mxu), the popcount engines
               (popcount), each kernel beside its plain PyTorch version, and
               the out-of-core stream engine (stream)
+  parallel/   the flat row ring over a mesh of devices (--devices N):
+              the sweep, extraction, fused pass and CSR staging, with
+              the collectives as device copies
   similarity/ sweep + exact pair extraction (two-pass, fused, one-pass);
               query serving (QueryServer); the shared k-mers of pairs
   models/     connected components (host union-find, device label

@@ -8,7 +8,7 @@
       [--engine {auto,mxu,popcount,xla,native,stream}]
       [--extract {auto,two_pass,fused,onepass}] [--extract-k N]
       [--stream-source {host,csr}] [--index-engine {host,device}]
-      [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
+      [--devices N] [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
       [--dump-kmers] [--dump-proteins] [--dump-debug]
       [--checkpoint-dir DIR] [--out DIR] [--profile DIR] [--cpu]
       [--verbose]
@@ -22,9 +22,12 @@
 run``: pairs.tsv, clusters.tsv, stats.json, dendrogram.tsv
 (agglomerative), blastp_output.tsv (--align), pair_kmers.tsv and
 proteins.tsv (--dump-kmers, --dump-proteins) and graph_debug.txt
-(--dump-debug, the reference's stdout Debug dump). The mesh flags of
-that CLI (--devices, --shard-axis, --distributed, --mesh-shape) are
-accepted and refused with the ROADMAP item that will bring them.
+(--dump-debug, the reference's stdout Debug dump). ``--devices N``
+runs the sweep, extraction and components on the flat row ring over the
+first N cards (or N CPU shards with --device cpu); the other mesh flags
+of that CLI (--shard-axis kmers, --distributed, --mesh-shape) and
+--engine stream with --devices > 1 are accepted and refused with the
+ROADMAP item that will bring them.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
@@ -39,16 +42,37 @@ import sys
 
 def _refuse_unported(args) -> None:
     """Raise SystemExit for a flag the port does not carry yet."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        UNPORTED,
+    )
+
     refused = [
-        (args.devices > 1 or args.shard_axis != "rows" or args.distributed,
-         "--devices/--shard-axis/--distributed: the mesh engines "
-         "(ROADMAP queue 1, item 14)"),
-        (args.mesh_shape is not None,
-         "--mesh-shape: the mesh engines (ROADMAP queue 1, item 14)"),
+        (args.shard_axis != "rows", "--shard-axis kmers"),
+        (args.mesh_shape is not None, "--mesh-shape"),
+        (args.distributed, "--distributed"),
+        (args.devices > 1 and args.engine == "stream",
+         "--engine stream with --devices > 1"),
     ]
     for hit, what in refused:
         if hit:
-            raise SystemExit(f"not yet ported to the torch package: {what}")
+            raise SystemExit(
+                f"not yet ported to the torch package: {what}: {UNPORTED}"
+            )
+
+
+def _make_mesh(args, device):
+    """The flat ring's mesh for ``--devices N`` (N > 1) on ``device``'s
+    type, else None. Too few cards exit with JAX's message."""
+    if args.devices <= 1:
+        return None
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    try:
+        return make_mesh(args.devices, device=device.type)
+    except ValueError as e:
+        raise SystemExit(f"--devices {args.devices}: {e}") from e
 
 
 @contextlib.contextmanager
@@ -79,6 +103,9 @@ def cmd_run(args) -> int:
 
     _refuse_unported(args)
     device = resolve_device("cpu" if args.cpu else args.device)
+    mesh = _make_mesh(args, device)
+    if mesh is not None:
+        device = mesh.devices[0]
     config = PipelineConfig(
         k=args.k,
         threshold=args.threshold,
@@ -103,6 +130,7 @@ def cmd_run(args) -> int:
             checkpoint_dir=args.checkpoint_dir,
             device=device,
             echo_timings=args.verbose,
+            mesh=mesh,
         )
 
     os.makedirs(args.out, exist_ok=True)
@@ -146,7 +174,7 @@ def cmd_run(args) -> int:
             torch.cuda.get_device_name(device)
             if device.type == "cuda" else "cpu"
         ),
-        "n_devices": 1,
+        "n_devices": mesh.size if mesh is not None else 1,
     }
     with open(os.path.join(args.out, "stats.json"), "w") as f:
         json.dump(stats, f, indent=2)
@@ -367,7 +395,10 @@ def main(argv=None) -> int:
                    choices=("host", "device"))
     r.add_argument("--all-pairs", action="store_true",
                    help="keep same-AMR-class pairs too")
-    r.add_argument("--devices", type=int, default=0)
+    r.add_argument("--devices", type=int, default=0,
+                   help="N > 1: the sweep on the flat row ring over N "
+                        "devices of --device's type (N CPU shards on the "
+                        "CPU); more cards than are visible is an error")
     r.add_argument("--shard-axis", default="rows", choices=("rows", "kmers"))
     r.add_argument("--mesh-shape", default=None, metavar="HxC")
     r.add_argument("--distributed", action="store_true")

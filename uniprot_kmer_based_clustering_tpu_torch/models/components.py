@@ -1,10 +1,11 @@
 """Connected-component clustering over the thresholded pair graph.
 
 The port's counterpart of the JAX package's ``models/components.py``:
-the host union-find (what the pipeline runs on one device) and the
-device min-label propagation ``connected_components_device`` (a library
-entry, for large pair lists). Both label each component by its smallest
-member index, whatever the edge order.
+the host union-find (what the pipeline runs on one device), the device
+min-label propagation ``connected_components_device`` (a library entry,
+for large pair lists) and ``connected_components_sharded`` (what the
+pipeline runs on a mesh). Each labels a component by its smallest member
+index, whatever the edge order.
 """
 
 from __future__ import annotations
@@ -77,3 +78,45 @@ def connected_components_device(pairs_i, pairs_j, *, n: int, device="cuda"):
     pj = torch.as_tensor(pairs_j).to(device=device, dtype=torch.int64)
     labels, _ = _propagate_labels(pi, pj, n)
     return labels.to(torch.int32).cpu().numpy()
+
+
+def connected_components_sharded(mesh, pairs, n: int):
+    """Min-label propagation over edges sharded across ``mesh`` (the JAX
+    package's ``connected_components_sharded``).
+
+    The edge list is split evenly over the mesh's devices (padding edges
+    are self-edges of node 0); the [n] labels are replicated. A round
+    scatters each shard's edge minima into its copy of the labels
+    (``scatter_reduce`` "amin", i then j), merges the copies by an
+    elementwise minimum on the first device (JAX's ``pmin``), then halves
+    pointers; one scalar read a round tests the fixpoint. Min-reductions
+    are order-free, so the labels equal the host union-find's for every
+    device count. The edges shard over every device of the mesh. Returns
+    int32 numpy [n]."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        broadcast_from_first,
+        min_to_first,
+        shard_rows,
+    )
+
+    d = mesh.size
+    edges = np.asarray(pairs)[:, :2].astype(np.int64)
+    m_pad = max(d, -(-edges.shape[0] // d) * d)
+    padded = np.zeros((m_pad, 2), dtype=np.int64)
+    padded[: edges.shape[0]] = edges
+    shards = shard_rows(mesh, padded)
+    labels = torch.arange(n, dtype=torch.int64, device=mesh.devices[0])
+    while True:
+        parts = []
+        for lab, e in zip(broadcast_from_first(labels, mesh), shards):
+            pi, pj = e[:, 0], e[:, 1]
+            m = torch.minimum(lab[pi], lab[pj])
+            new = lab.scatter_reduce(0, pi, m, "amin", include_self=True)
+            parts.append(new.scatter_reduce(0, pj, m, "amin",
+                                            include_self=True))
+        new = min_to_first(parts, mesh)
+        new = new[new]
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            return labels.to(torch.int32).cpu().numpy()

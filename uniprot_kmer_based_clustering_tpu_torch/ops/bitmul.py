@@ -185,7 +185,11 @@ def counts_window_pair(words_a, words_b, weights=None, *, word_chunk: int = 0):
             None if weights is None else weights[k0 * 32 : (k0 + wc) * 32],
         )
         part = int8_gemm(a, b)
+        # the chunk's operands go before the next chunk is unpacked, so
+        # no more than one chunk's pair of them is ever allocated
+        del a, b
         counts = part if counts is None else counts.add_(part)
+        del part
     return counts
 
 

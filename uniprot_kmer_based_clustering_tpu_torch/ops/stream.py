@@ -687,18 +687,21 @@ def sort_compact_append(gbi, gbj, gbc, cursor, keep, gi, gj, counts):
     )
 
 
-def _append_block(gbi, gbj, gbc, cursor, keep, counts, i0: int, j0: int):
+def _append_block(gbi, gbj, gbc, cursor, keep, counts, i0: int, j0: int,
+                  *, transposed: bool = False):
     """:func:`sort_compact_append` for a counts block at global offset
     (i0, j0): the row and column of a survivor follow from its flat
-    index, so no index matrices are built."""
+    index, so no index matrices are built. ``transposed`` writes each
+    pair as (column, row), for a block whose columns lie below its
+    rows."""
     order, kept = _survivors_first(keep)
     cols = keep.shape[1]
-    return _append_survivors(
-        gbi, gbj, gbc, cursor, kept,
-        (i0 + order // cols).to(torch.int32),
-        (j0 + order % cols).to(torch.int32),
-        counts.reshape(-1)[order],
-    )
+    gi = (i0 + order // cols).to(torch.int32)
+    gj = (j0 + order % cols).to(torch.int32)
+    if transposed:
+        gi, gj = gj, gi
+    return _append_survivors(gbi, gbj, gbc, cursor, kept, gi, gj,
+                             counts.reshape(-1)[order])
 
 
 def _step_compact_body(state, wa, wb, ca, cb, weights, i0: int, j0: int, *,

@@ -1,5 +1,6 @@
-"""End-to-end pipeline on one torch device: FASTA → index → bitsets →
-sweep → clusters (components, agglomerative or the tree).
+"""End-to-end pipeline on one torch device, or with its sweep on a mesh
+of devices: FASTA → index → bitsets → sweep → clusters (components,
+agglomerative or the tree).
 
 The counterpart of the JAX package's ``pipeline.run_pipeline`` with the
 same stage order, checkpoint keys and result fields. The host stages
@@ -44,6 +45,7 @@ from uniprot_kmer_based_clustering_tpu_torch.models.agglomerative import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.models.components import (
     connected_components,
+    connected_components_sharded,
 )
 from uniprot_kmer_based_clustering_tpu_torch.models.tree import (
     cluster_tree_labels,
@@ -128,11 +130,20 @@ def run_pipeline(
     fasta_path: str,
     config: Optional[PipelineConfig] = None,
     checkpoint_dir: Optional[str] = None,
-    device="cuda",
+    device=None,
     echo_timings: bool = False,
     stop_after: Optional[str] = None,
+    mesh=None,
 ) -> PipelineResult:
-    """Run the pipeline on one torch ``device`` ("cuda" or "cpu").
+    """Run the pipeline on one torch ``device`` ("cuda", the default, or
+    "cpu"), or with its sweep on a ``mesh`` (``parallel.make_mesh``).
+
+    On a mesh, the sweep and extraction run the flat row ring
+    (:func:`_sharded_similarity`) and components the sharded label
+    propagation; the other stages run on the mesh's first device, which
+    ``device`` may name but not contradict. The checkpoint artifacts do
+    not depend on the device layout, so a single-device checkpoint
+    resumes on any mesh and back, in either package.
 
     With ``checkpoint_dir``, the index and pairs artifacts persist and a
     rerun resumes from them; a one-pass ``engine="stream"`` run also
@@ -153,7 +164,16 @@ def run_pipeline(
     if stop_after not in (None, "pack"):
         raise ValueError(f"unknown stop_after {stop_after!r}")
     config = config or PipelineConfig()
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device("cuda" if device is None else device)
+    else:
+        _check_mesh_config(mesh, config)
+        if device is not None and resolve_device(device) != mesh.devices[0]:
+            raise ValueError(
+                f"device {device!r} is not the mesh's first device "
+                f"{mesh.devices[0]}"
+            )
+        device = mesh.devices[0]
     store = CheckpointStore(checkpoint_dir)
     timers = StageTimers(echo=echo_timings)
 
@@ -258,13 +278,18 @@ def run_pipeline(
         checkpoints = (config.engine == "stream"
                        and store.path(progress_key) is not None)
         with stage("sweep"):
-            pairwise = pairwise_similarity(
-                bitset, table.amr_class_ids, config,
-                weights=weights, index=index,
-                checkpoint_store=store if checkpoints else None,
-                checkpoint_key=progress_key if checkpoints else None,
-                device=device,
-            )
+            if mesh is not None:
+                pairwise = _sharded_similarity(
+                    bitset, table, config, mesh, weights=weights
+                )
+            else:
+                pairwise = pairwise_similarity(
+                    bitset, table.amr_class_ids, config,
+                    weights=weights, index=index,
+                    checkpoint_store=store if checkpoints else None,
+                    checkpoint_key=progress_key if checkpoints else None,
+                    device=device,
+                )
         store.save(
             key_pairs,
             pairs=pairwise.pairs,
@@ -287,7 +312,12 @@ def run_pipeline(
     dendrogram = None
     if config.cluster == "components":
         with stage("cluster"):
-            labels = connected_components(table.n, pairwise.pairs)
+            if mesh is not None:
+                labels = connected_components_sharded(
+                    mesh, pairwise.pairs, table.n
+                )
+            else:
+                labels = connected_components(table.n, pairwise.pairs)
     elif config.cluster == "agglomerative":
         with stage("cluster"):
             # host-looped rounds, as the JAX pipeline runs them; each
@@ -363,3 +393,89 @@ def _device_index(table: ProteinTable, config: PipelineConfig, device):
         n_bits=n_repeated,
     )
     return index, bitset
+
+
+def _check_mesh_config(mesh, config: PipelineConfig) -> None:
+    """Refuse, before any work, what the mesh path does not carry: the 2-D
+    ring and the k-axis layout, and ``engine="stream"``, whose flat-mesh
+    route is the JAX package's out-of-core composition
+    (``stream_mesh.py``, K2 on its step), not ported; with the host block
+    source the JAX pipeline refuses it too."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        UNPORTED,
+        require_flat,
+    )
+
+    require_flat(mesh)
+    if config.engine != "stream":
+        return
+    if config.stream_source != "csr":
+        raise ValueError(
+            "engine='stream' on a mesh requires stream_source='csr' "
+            "(per-device host-words streaming would re-upload the dense "
+            "matrix D times)"
+        )
+    raise NotImplementedError(
+        f"engine='stream' on a mesh (the out-of-core stream_mesh.py) is "
+        f"{UNPORTED}"
+    )
+
+
+def _sharded_similarity(bitset, table, config, mesh,
+                        weights=None) -> PairwiseResult:
+    """The flat row ring on ``mesh`` (the JAX pipeline's flat branch):
+    N_pad padded to devices × 128-row tiles with class −1 rows, the
+    packed matrix staged once, then one fused pass or the sweep and a
+    mesh-parallel extraction sized by the sweep's exact tile hits."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        pad_for_mesh,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (
+        sharded_extract_pairs,
+        sharded_pairwise_fused,
+        sharded_pairwise_similarity,
+        stage_mesh_inputs,
+    )
+
+    block_tile = 128
+    n_pad = pad_for_mesh(bitset.n_pad, mesh.size, block_tile)
+    classes = np.full(n_pad, -1, dtype=np.int32)
+    classes[: bitset.n] = np.asarray(table.amr_class_ids, np.int32)
+    words = bitset.words
+    if n_pad != bitset.n_pad:
+        words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
+        words[: bitset.n_pad] = bitset.words
+    words, classes = stage_mesh_inputs(mesh, words, classes)
+
+    threshold = (
+        config.effective_weighted_threshold(weights)
+        if weights is not None
+        else config.threshold
+    )
+    if config.extract == "fused":
+        row_stats, _, _, pairs = sharded_pairwise_fused(
+            mesh, words, classes, bitset.n, threshold,
+            block_tile=block_tile, weights=weights,
+            cross_amr_only=config.cross_amr_only,
+            k=config.extract_k or None,
+        )
+        return PairwiseResult.from_row_stats(
+            row_stats, pairs, cross_amr_only=config.cross_amr_only
+        )
+    row_stats, tile_hits, _ = sharded_pairwise_similarity(
+        mesh, words, classes, bitset.n, threshold, block_tile,
+        weights=weights,
+    )
+    per_tile = tile_hits[:, 0].astype(np.int64)
+    if not config.cross_amr_only:
+        per_tile = per_tile + tile_hits[:, 1]
+    total = int(per_tile.sum())
+    pairs = sharded_extract_pairs(
+        mesh, words, classes, bitset.n, threshold,
+        block_tile=block_tile, weights=weights,
+        cross_amr_only=config.cross_amr_only,
+        cap=max(1 << 18, total), expected_total=total,
+    )
+    return PairwiseResult.from_row_stats(
+        row_stats, pairs, cross_amr_only=config.cross_amr_only
+    )
