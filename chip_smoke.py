@@ -123,6 +123,35 @@ csrc`` with nvcc (one process per source, in parallel), then:
       "requested N devices, only M available" and write nothing; with
       more than one card visible, the 10,619 ring also runs on two
       distinct cards.
+10. layouts phase — the 2-D (hosts × chips) ring and the k-axis layout
+   (``parallel/``), again on meshes whose shards share this one card
+   (``make_mesh_2d(H, C, devices=[dev] * H·C)``, ``make_mesh(devices=
+   [dev] * D, axis="k")``):
+   a. ``run_pipeline`` at 30,000 proteins on 2 × 2 and on a D = 4 k
+      mesh, two-pass and fused, counters reset before each: K1 once a
+      2-D sub-step (``parallel.count_substeps_2d``) or k-axis strip
+      (``parallel.count_kaxis_strips``) and no other kernel; pairs and
+      parity counters equal to the oracle, labels to the union-find's,
+      stage seconds, peak device memory under each layout's gate;
+   b. the warm sweep, extraction and fused pass of each layout on staged
+      inputs (counters reset before, read after, every call) beside
+      phase 9's flat ring and the scan; the packless
+      ``stage_mesh_inputs_csr`` of each equal to the packed staging, its
+      sweep and extraction equal to the oracle;
+   c. K1 on a 2-D wrapped block pair (a 3 × 2 mesh, fake offsets) and on
+      a k-axis strip (real offsets) equal to its plain version and to
+      the plain statistics at the real indices; kernel-only time beside
+      its bound;
+   d. 10,619 proteins on 2-D 1 × 2, 2 × 1, 2 × 3, 3 × 2, 2 × 4 (every
+      branch of the 2-D schedule) and k-axis D = 1, 2, 3, 8: totals
+      equal to ``sweep_mxu``'s (k axis: its rows too), extraction and
+      the fused pass equal to the oracle, K1 = the schedule's count;
+   e. ``cli run --shard-axis kmers`` (one card: a one-device k mesh) and
+      ``--mesh-shape 1x1`` at 10,619 against the oracle with K1 counted;
+      ``--mesh-shape 2x2`` and ``--devices 2 --shard-axis kmers`` (past
+      the visible cards) must exit nonzero with JAX's message and write
+      nothing; with more than one card visible, both layouts also run
+      the 10,619 corpus on two distinct cards.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -2220,13 +2249,15 @@ def _ring_counts(words, sub, wc):
         words[sub.gj0 : sub.gj0 + sub.cols], word_chunk=wc)
 
 
-def _k1_ring_block(dev, label, words, classes, n, sub, wc):
-    """K1 at the ring's fake offsets on one sub-step's counts, against its
-    plain version at the same offsets and against the plain masked
-    statistics at the real global indices (gi < n, gj < n, and gi < gj
-    on a diagonal strip); then its kernel-only time (L2 cold), its
-    back-to-back call, the plain version and the needed-bytes bound of
-    what it is given (every count of the block at those offsets)."""
+def _k1_ring_block(dev, label, words, classes, n, sub, wc, real=False):
+    """K1 at the ring's fake offsets (``real``: at the block's own global
+    offsets and ``n``, as a k-axis strip runs it) on one sub-step's
+    counts, against its plain version at the same offsets and against
+    the plain masked statistics at the real global indices (gi < n,
+    gj < n, and gi < gj on a diagonal strip); then its kernel-only time
+    (L2 cold), its back-to-back call, the plain version and the
+    needed-bytes bound of what it is given (every count of the block at
+    those offsets)."""
     import torch
 
     from uniprot_kmer_based_clustering_tpu_torch.ops import stats
@@ -2235,9 +2266,11 @@ def _k1_ring_block(dev, label, words, classes, n, sub, wc):
     counts = _ring_counts(words, sub, wc)
     ca = classes[sub.gi0 : sub.gi0 + sub.rows]
     cb = classes[sub.gj0 : sub.gj0 + sub.cols]
-    i_off, j_off = sharded.fake_offsets(sub)
-    kw = dict(i_off=i_off, j_off=j_off, n=sharded.FAKE_N,
-              threshold=THRESHOLD, tile=128)
+    i_off, j_off = ((sub.gi0, sub.gj0) if real
+                    else sharded.fake_offsets(sub))
+    n_k1 = n if real else sharded.FAKE_N
+    kw = dict(i_off=i_off, j_off=j_off, n=n_k1, threshold=THRESHOLD,
+              tile=128)
     nbi, nbj = sub.rows // 128, sub.cols // 128
 
     def fresh():
@@ -2271,12 +2304,12 @@ def _k1_ring_block(dev, label, words, classes, n, sub, wc):
         stats.stats_from_counts_into_reference(counts, ca, cb, out_rs,
                                                out_bh, **kw)
 
-    bound = epilogue_bound_ms(sub.rows, sub.cols, i_off, j_off,
-                              sharded.FAKE_N, sub.rows * 8 + nbi * nbj * 2)
+    bound = epilogue_bound_ms(sub.rows, sub.cols, i_off, j_off, n_k1,
+                              sub.rows * 8 + nbi * nbj * 2)
     t = dict(err=err, ms=kernel_only_ms(launch), call_ms=cuda_ms(launch),
              plain_ms=cuda_ms(plain, reps=5, warmup=1), bound_ms=bound)
-    print(f"K1 on the ring's {label} (rows {sub.gi0}.., columns {sub.gj0}.., "
-          f"[{sub.rows}, {sub.cols}], offsets ({i_off}, {j_off}), n 2^30): "
+    print(f"K1 on the {label} (rows {sub.gi0}.., columns {sub.gj0}.., "
+          f"[{sub.rows}, {sub.cols}], offsets ({i_off}, {j_off}), n {n_k1}): "
           f"max_abs_err {err} against its plain version and against the "
           f"plain statistics at the real indices (tolerance {TOL}), "
           f"{int(bh.sum())} tile hits; kernel-only {t['ms']:.4f} ms (L2 "
@@ -2284,7 +2317,7 @@ def _k1_ring_block(dev, label, words, classes, n, sub, wc):
           f"{bound / t['ms']:.3f}; back-to-back call {t['call_ms']:.4f} ms; "
           f"plain torch {t['plain_ms']:.4f} ms", flush=True)
     if err > TOL:
-        raise AssertionError(f"K1 on the ring's {label} disagrees")
+        raise AssertionError(f"K1 on the {label} disagrees")
     return t
 
 
@@ -2528,10 +2561,10 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
     classes30 = classes_to_torch(table30.amr_class_ids, n_pad30, dev)
     wrapped = sharded.ring_substeps(1, MESH_D, MESH_D - 1, block30, 128)[0]
     strip = sharded.ring_substeps(0, MESH_D, 1, block30, 128)[0]
-    k1 = _k1_ring_block(dev, "wrapped block pair", words30, classes30, n30,
-                        wrapped, wc30)
-    k1_strip = _k1_ring_block(dev, "diagonal strip", words30, classes30,
-                              n30, strip, wc30)
+    k1 = _k1_ring_block(dev, "ring's wrapped block pair", words30,
+                        classes30, n30, wrapped, wc30)
+    k1_strip = _k1_ring_block(dev, "ring's diagonal strip", words30,
+                              classes30, n30, strip, wc30)
     del words30, classes30
 
     # b. 10,619 proteins at D = 1, 2, 3, 8
@@ -2625,6 +2658,347 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
           f"other kernel; {phase_s:.3f} s", flush=True)
     return dict(launches=ring_launches, k1=k1, k1_strip=k1_strip, runs=runs,
                 sweep_s=sweep_s, ext_s=ext_s, fused_s=fused_s,
+                phase_s=phase_s, labels30=labels30)
+
+MESH_2D = (2, 2)  # the 30k 2-D ring: two hosts of two chips, all on one card
+KAXIS_D = 4  # column shards of the 30k k-axis pass, all on one card
+SHAPES_2D_10 = ((1, 2), (2, 1), (2, 3), (3, 2), (2, 4))  # every 2-D branch
+KAXIS_DS_10 = (1, 2, 3, 8)  # W_pad 7,680 divides over each
+
+
+def _layout_sweep(layout):
+    from uniprot_kmer_based_clustering_tpu_torch import parallel
+
+    return (parallel.sharded_pairwise_similarity_2d if layout == "2d"
+            else parallel.sharded_pairwise_similarity_kaxis)
+
+
+def _totals(rs, th):
+    """Sum lanes summed, max lanes maxed, tile hits summed."""
+    return (rs[:, [0, 1, 2, 4, 5, 6]].sum(0), rs[:, [3, 7]].max(0),
+            th.sum(0))
+
+
+def layouts_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
+                  scan_s, ring, smi):
+    """The 2-D ring and the k-axis layout (docstring, phase 10) on meshes
+    whose shards share the one card."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_kaxis_strips,
+        count_substeps_2d,
+        kaxis_strips,
+        make_mesh,
+        make_mesh_2d,
+        pad_for_mesh,
+        sharded,
+        sharded_extract_pairs,
+        sharded_pairwise_fused,
+        stage_mesh_inputs,
+        stage_mesh_inputs_csr,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"layouts phase on {smi}: every mesh's shards share this one "
+          f"card, so a pass's time is the sum over its shards (no scaling "
+          f"figure)", flush=True)
+    table30, index30, bitset30 = state30
+    n30 = table30.n
+    want30 = run30["want"]
+    hc, cc = MESH_2D
+    d2 = hc * cc
+    n_pad30 = pad_for_mesh(bitset30.n_pad, d2, 128)
+    if n_pad30 != pad_for_mesh(bitset30.n_pad, KAXIS_D, 128):
+        raise AssertionError("the two 30k meshes pad differently")
+    block30 = n_pad30 // d2
+    corpus = bitset30.n_pad * bitset30.w_pad * 4
+    strips30 = kaxis_strips(KAXIS_D, n_pad30)
+    s_rows = strips30[0].rows
+    # peak gates, from the prediction: the 2-D ring holds the stationary
+    # shards, the moving copy and the chip-axis copy, plus phase 9's
+    # sub-step working set; the k-axis pass the column shards, the D
+    # partial strips and their sum, one unpacked operand chunk, a strip's
+    # masks (4 bytes a lane) and one compaction window (76 bytes a lane)
+    window = sharded.append_window(block30)
+    kwindow = sharded.append_window(n_pad30)
+    limits = {
+        "2d": 3 * corpus + sharded.RING_UNPACK_BYTES
+        + 2 * 4 * block30 * block30 + 64 * window + d2 * 12 * window,
+        "kaxis": corpus + sharded.KAXIS_STRIP_BYTES
+        + sharded.RING_UNPACK_BYTES + 4 * s_rows * n_pad30 + 76 * kwindow,
+    }
+    meshes = {"2d": make_mesh_2d(hc, cc, devices=[dev] * d2),
+              "kaxis": make_mesh(devices=[dev] * KAXIS_D, axis="k")}
+    steps = {"2d": count_substeps_2d(hc, cc, n_pad30),
+             "kaxis": count_kaxis_strips(KAXIS_D, n_pad30)}
+    print(f"{N_SCALE}: N_pad {n_pad30}; 2-D {hc}x{cc}: block {block30}, "
+          f"{steps['2d']} sub-steps a pass; k axis D={KAXIS_D}: "
+          f"{bitset30.w_pad // KAXIS_D} words a shard, {steps['kaxis']} "
+          f"strips of {s_rows} rows; peak limits {limits}", flush=True)
+    labels30 = ring["labels30"]
+    runs = {}
+    for layout, mesh in meshes.items():
+        want_launches = {"K1": steps[layout], "K2": 0, "K3": 0, "K4": 0}
+        for name, cfg in (("two-pass", PipelineConfig()),
+                          ("fused", PipelineConfig(extract="fused"))):
+            fns = reset_counters()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = run_pipeline(run30["fasta"], cfg, mesh=mesh)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in fns.items()}
+            peak = torch.cuda.max_memory_allocated(dev)
+            got = {k: res.parity_report()[k] for k in want30}
+            print(f"run_pipeline(mesh={layout} {mesh.shape}) {name}: "
+                  f"{wall:.3f} s; kernel launches {launches}; parity "
+                  f"{got}, pairs {len(res.pairwise.pairs)}; peak device "
+                  f"memory {peak} bytes (limit {limits[layout]}); stage "
+                  f"seconds {json.dumps(res.timings)}", flush=True)
+            if launches != want_launches:
+                raise AssertionError(f"{layout} {name}: launches "
+                                     f"{launches}, expected {want_launches}")
+            if got != want30 or not np.array_equal(res.pairwise.pairs,
+                                                   pairs30):
+                raise AssertionError(f"{layout} {name}: differs from the "
+                                     f"oracle")
+            if not np.array_equal(res.cluster_labels, labels30):
+                raise AssertionError(f"{layout} {name}: labels differ from "
+                                     f"the union-find's")
+            if peak > limits[layout]:
+                raise AssertionError(f"{layout} {name}: peak {peak} bytes "
+                                     f"over {limits[layout]}")
+            runs[f"{layout} {name}"] = dict(wall=wall, peak=peak,
+                                            timings=res.timings)
+            del res
+
+    # warm library passes on staged inputs, the counters set to 0 before,
+    # and read after, every call; then the packless staging
+    cls30 = np.full(n_pad30, -1, np.int32)
+    cls30[:n30] = table30.amr_class_ids
+    total = len(pairs30)
+    counted = {}
+    warm = {}
+
+    def count(name, fn):
+        def run():
+            fns = reset_counters()
+            out = fn()
+            counted.setdefault(name, []).append(
+                {k: f.launches for k, f in fns.items()})
+            return out
+        return run
+
+    for layout, mesh in meshes.items():
+        sweep = _layout_sweep(layout)
+        t0 = time.perf_counter()
+        ws, cs = stage_mesh_inputs(mesh, bitset30.words, cls30)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        sweep_s, (rs, th, _) = best_seconds(count(
+            f"{layout} sweep", lambda: sweep(mesh, ws, cs, n30, THRESHOLD)),
+            reps=2, warmup=0)
+        peak_sweep = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ext_s, pairs = best_seconds(count(
+            f"{layout} extraction", lambda: sharded_extract_pairs(
+                mesh, ws, cs, n30, THRESHOLD, cap=max(1 << 18, total),
+                expected_total=total)), reps=2, warmup=0)
+        peak_ext = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_s, fused = best_seconds(count(
+            f"{layout} fused", lambda: sharded_pairwise_fused(
+                mesh, ws, cs, n30, THRESHOLD, cap=1 << 21)),
+            reps=2, warmup=0)
+        peak_fused = torch.cuda.max_memory_allocated(dev)
+        pair_count = n30 * (n30 - 1) // 2
+        print(f"{N_SCALE} {layout} {mesh.shape} warm (best of 2): staging "
+              f"{stage_s:.6f} s; sweep {sweep_s:.6f} s = "
+              f"{pair_count / sweep_s:.6e} pairs/s (flat ring D=4 "
+              f"{ring['sweep_s']:.6f} s, in-core scan {scan_s:.6f} s), peak "
+              f"{peak_sweep} bytes; extraction {ext_s:.6f} s (flat "
+              f"{ring['ext_s']:.6f}), peak {peak_ext} bytes; fused pass "
+              f"(cap 2^21) {fused_s:.6f} s (flat {ring['fused_s']:.6f}), "
+              f"peak {peak_fused} bytes", flush=True)
+        if max(peak_sweep, peak_ext, peak_fused) > limits[layout]:
+            raise AssertionError(f"a warm 30k {layout} pass went over its "
+                                 f"peak memory limit")
+        if not (np.array_equal(pairs, pairs30)
+                and np.array_equal(fused[3], pairs30)
+                and np.array_equal(fused[0], rs)
+                and np.array_equal(fused[1], th)
+                and int(th[:, 0].sum()) == total):
+            raise AssertionError(f"warm 30k {layout} passes differ from the "
+                                 f"oracle")
+        del fused, pairs
+        t0 = time.perf_counter()
+        wc_, cc_ = stage_mesh_inputs_csr(
+            mesh, index30.incidence_protein, index30.incidence_rank,
+            n_pad30, bitset30.w_pad, table30.amr_class_ids)
+        torch.cuda.synchronize()
+        stage_csr_s = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for a, b in zip(wc_ + cc_, ws + cs))
+        del ws, cs
+        t0 = time.perf_counter()
+        rs_c, th_c, _ = count(f"{layout} packless sweep", lambda: sweep(
+            mesh, wc_, cc_, n30, THRESHOLD))()
+        pairs_c = count(f"{layout} packless extraction",
+                        lambda: sharded_extract_pairs(
+                            mesh, wc_, cc_, n30, THRESHOLD,
+                            cap=max(1 << 18, total),
+                            expected_total=total))()
+        packless_s = time.perf_counter() - t0
+        print(f"{layout} packless staging (stage_mesh_inputs_csr) "
+              f"{stage_csr_s:.6f} s, shards = the packed staging's {same}; "
+              f"its sweep + extraction {packless_s:.6f} s", flush=True)
+        if not (same and np.array_equal(rs_c, rs)
+                and np.array_equal(th_c, th)
+                and np.array_equal(pairs_c, pairs30)):
+            raise AssertionError(f"the {layout} packless staging differs")
+        del wc_, cc_
+        warm[layout] = dict(stage_s=stage_s, sweep_s=sweep_s, ext_s=ext_s,
+                            fused_s=fused_s, peak=max(peak_sweep, peak_ext,
+                                                      peak_fused),
+                            stage_csr_s=stage_csr_s, packless_s=packless_s)
+    launches = {}
+    for name, logs in counted.items():
+        layout = name.split()[0]
+        want_k1 = 0 if name.endswith("extraction") else steps[layout]
+        for got in logs:
+            if got != {"K1": want_k1, "K2": 0, "K3": 0, "K4": 0}:
+                raise AssertionError(f"warm {name}: launches {got}, "
+                                     f"expected K1 = {want_k1} and no other "
+                                     f"kernel")
+        launches[name] = logs[-1]["K1"]
+    print(f"K1 launches of each warm 30k call (counters reset before each): "
+          f"{launches}", flush=True)
+
+    # K1 on a 2-D wrapped block pair (host 2's last chip against host 0
+    # on a 3 x 2 mesh of the 30k corpus) and on a k-axis strip
+    words30 = bitset_to_torch(bitset30, dev)
+    classes30 = classes_to_torch(table30.amr_class_ids, n_pad30, dev)
+    block32 = n_pad30 // 6
+    wrapped = sharded.ring_substeps_2d(1, 1, 3, 2, 2, 1, block32, 128)[0]
+    if not wrapped.gj0 < wrapped.gi0:
+        raise AssertionError("the 3 x 2 sub-step is not wrapped")
+    k1_2d = _k1_ring_block(
+        dev, "2-D ring's wrapped block pair (3 x 2)", words30, classes30,
+        n30, wrapped, sharded.ring_word_chunk(block32, bitset30.w_pad))
+    strip = strips30[1]
+    k1_k = _k1_ring_block(
+        dev, "k-axis strip 1", words30, classes30, n30, strip,
+        sharded._word_chunk(strip.rows + strip.cols, bitset30.w_pad,
+                            sharded.RING_UNPACK_BYTES), real=True)
+    del words30, classes30
+
+    # 10,619 proteins on every branch of both layouts
+    table10, index10, bitset10 = state10
+    n10 = table10.n
+    words10 = bitset_to_torch(bitset10, dev)
+    classes10 = classes_to_torch(table10.amr_class_ids, bitset10.n_pad, dev)
+    rs_mxu, th_mxu, _ = bitmul.sweep_mxu(words10, classes10, n10, THRESHOLD)
+    del words10, classes10
+    mxu = _totals(rs_mxu, th_mxu)
+    cases = ([("2d", sh) for sh in SHAPES_2D_10]
+             + [("kaxis", k) for k in KAXIS_DS_10])
+    for layout, shape in cases:
+        if layout == "2d":
+            dd = shape[0] * shape[1]
+            mesh = make_mesh_2d(*shape, devices=[dev] * dd)
+        else:
+            dd = shape
+            mesh = make_mesh(devices=[dev] * dd, axis="k")
+        n_pad = pad_for_mesh(bitset10.n_pad, dd, 128)
+        words = np.zeros((n_pad, bitset10.w_pad), np.uint32)
+        words[: bitset10.n_pad] = bitset10.words
+        cls = np.full(n_pad, -1, np.int32)
+        cls[:n10] = table10.amr_class_ids
+        ws, cs = stage_mesh_inputs(mesh, words, cls)
+        fns = reset_counters()
+        t0 = time.perf_counter()
+        rs, th, _ = _layout_sweep(layout)(mesh, ws, cs, n10, THRESHOLD)
+        t_sweep = time.perf_counter() - t0
+        got_launches = {k: fn.launches for k, fn in fns.items()}
+        t0 = time.perf_counter()
+        pairs = sharded_extract_pairs(mesh, ws, cs, n10, THRESHOLD)
+        t_ext = time.perf_counter() - t0
+        fused = sharded_pairwise_fused(mesh, ws, cs, n10, THRESHOLD)
+        want_k1 = (count_substeps_2d(*shape, n_pad) if layout == "2d"
+                   else count_kaxis_strips(dd, n_pad))
+        checks = {
+            "launches": got_launches == {"K1": want_k1, "K2": 0, "K3": 0,
+                                         "K4": 0},
+            "totals = sweep_mxu": all(
+                np.array_equal(a, b) for a, b in zip(_totals(rs, th), mxu)),
+            "rows = sweep_mxu": layout == "2d" or np.array_equal(
+                rs[: bitset10.n_pad], rs_mxu),
+            "extract = oracle": np.array_equal(pairs, pairs10),
+            "fused = oracle": np.array_equal(fused[3], pairs10)
+            and np.array_equal(fused[0], rs) and np.array_equal(fused[1], th),
+        }
+        print(f"{N_PROTEINS} {layout} {mesh.shape} (N_pad {n_pad}): sweep "
+              f"{t_sweep:.4f} s, extraction {t_ext:.4f} s; launches "
+              f"{got_launches}; checks {checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"10,619 {layout} {shape}: {checks}")
+        del ws, cs, fused
+
+    # the CLI on the card: a one-card k mesh and a 1 x 1 2-D mesh against
+    # the oracle; meshes past the visible cards exit nonzero
+    n_pad10 = bitset10.n_pad
+    cli_launches = {}
+    for flags, k1 in ((["--shard-axis", "kmers"],
+                       count_kaxis_strips(1, n_pad10)),
+                      (["--mesh-shape", "1x1"],
+                       count_substeps_2d(1, 1, n_pad10))):
+        cli_launches[" ".join(flags)] = cli_run(
+            dev, run30["fasta10"], run30["out"], flags, run30["want10"],
+            pairs10, {"K1": k1, "K2": 0, "K3": 0, "K4": 0})["K1"]
+    cards = torch.cuda.device_count()
+    shape_flag = "2x2" if cards < 4 else f"2x{cards // 2 + 1}"
+    need = 4 if cards < 4 else 2 * (cards // 2 + 1)
+    for flags, n_need in ((["--mesh-shape", shape_flag], need),
+                          (["--devices", str(cards + 1), "--shard-axis",
+                            "kmers"], cards + 1)):
+        out = os.path.join(tmp, "layout_refused")
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.cli", "run", run30["fasta10"],
+             "--device", "cuda", *flags, "--out", out],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+        )
+        msg = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+        want_msg = f"requested {n_need} devices, only {cards} available"
+        print(f"cli run --device cuda {' '.join(flags)}: exit "
+              f"{proc.returncode}, stderr {msg!r}, output written: "
+              f"{os.path.exists(out)}", flush=True)
+        if proc.returncode == 0 or want_msg not in msg or os.path.exists(out):
+            raise AssertionError(f"{flags} beyond the visible cards did not "
+                                 f"fail loudly")
+    if cards > 1:
+        cls = np.full(bitset10.n_pad, -1, np.int32)
+        cls[:n10] = table10.amr_class_ids
+        for mesh in (make_mesh_2d(1, 2), make_mesh(2, axis="k")):
+            pairs = sharded_extract_pairs(mesh, bitset10.words, cls, n10,
+                                          THRESHOLD)
+            print(f"{N_PROTEINS} on 2 distinct cards {mesh.shape}: pairs = "
+                  f"oracle {np.array_equal(pairs, pairs10)}", flush=True)
+            if not np.array_equal(pairs, pairs10):
+                raise AssertionError("a layout on distinct cards differs")
+    phase_s = time.perf_counter() - t_phase
+    print(f"layouts phase: K1 {steps['2d']} launches a 30k 2-D pass, "
+          f"{steps['kaxis']} a 30k k-axis pass, no other kernel; "
+          f"{phase_s:.3f} s", flush=True)
+    return dict(steps=steps, launches=launches, runs=runs, warm=warm,
+                k1_2d=k1_2d, k1_k=k1_k, cli_launches=cli_launches,
                 phase_s=phase_s)
 
 
@@ -2679,6 +3053,8 @@ def main() -> int:
                    run30["ns10"], state30, pairs30)
         mesh = mesh_phase(dev, tmp, state10, pairs10, run30, state30,
                           pairs30, scan["sweep_s"], smi)
+        lay = layouts_phase(dev, tmp, state10, pairs10, run30, state30,
+                            pairs30, scan["sweep_s"], mesh, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -2695,7 +3071,8 @@ def main() -> int:
             "replaces": replaces + "stats_pallas.py:275",
             "launches": launches["K1"],
             "max_abs_err": max(err, t["err"], mesh["k1"]["err"],
-                               mesh["k1_strip"]["err"]),
+                               mesh["k1_strip"]["err"], lay["k1_2d"]["err"],
+                               lay["k1_k"]["err"]),
             "ms": t["ms"],
             "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"],
@@ -2713,6 +3090,13 @@ def main() -> int:
             "ring_call_ms": mesh["k1"]["call_ms"],
             "ring_plain_ms": mesh["k1"]["plain_ms"],
             "ring_bound_ms": mesh["k1"]["bound_ms"],
+            "layout_launches": lay["launches"],
+            "ring2d_ms": lay["k1_2d"]["ms"],
+            "ring2d_plain_ms": lay["k1_2d"]["plain_ms"],
+            "ring2d_bound_ms": lay["k1_2d"]["bound_ms"],
+            "kaxis_ms": lay["k1_k"]["ms"],
+            "kaxis_plain_ms": lay["k1_k"]["plain_ms"],
+            "kaxis_bound_ms": lay["k1_k"]["bound_ms"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -2732,6 +3116,7 @@ def main() -> int:
             "device_index_launches": i_launches["K2"],
             "post_library_launches": POST_LAUNCHES["K2"],
             "ring_launches": 0,
+            "layout_launches": 0,
         },
         {
             "name": "sweep_tri_mxu",
@@ -2750,6 +3135,7 @@ def main() -> int:
             "device_index_launches": i_launches["K3"],
             "post_library_launches": POST_LAUNCHES["K3"],
             "ring_launches": 0,
+            "layout_launches": 0,
         },
         {
             "name": "popcount_sweep",
@@ -2768,6 +3154,7 @@ def main() -> int:
             "device_index_launches": i_launches["K4"],
             "post_library_launches": POST_LAUNCHES["K4"],
             "ring_launches": 0,
+            "layout_launches": 0,
         },
     ]
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",

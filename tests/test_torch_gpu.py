@@ -1089,3 +1089,116 @@ def test_make_mesh_refuses_more_cards_than_visible(cuda):
                                          f"only {n} available"):
         make_mesh(n + 1)
     assert make_mesh(n).size == n
+
+
+def _layout_meshes(layout, shape, cuda):
+    """(the layout on shards of the one card, the same layout on CPU
+    shards)."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+    )
+
+    if layout == "2d":
+        d = shape[0] * shape[1]
+        return (make_mesh_2d(*shape, devices=[cuda] * d),
+                make_mesh_2d(*shape, device="cpu"))
+    return (make_mesh(devices=[cuda] * shape, axis="k"),
+            make_mesh(shape, axis="k", device="cpu"))
+
+
+@pytest.mark.parametrize("layout,shape", [
+    ("2d", (2, 2)), ("2d", (2, 3)), ("kaxis", 2), ("kaxis", 4),
+], ids=str)
+def test_layouts_on_a_shared_card_match_cpu(cuda, layout, shape):
+    """The 2-D ring and the k-axis layout on shards of one card (sweep,
+    extraction, fused) equal the same layout on CPU shards; K1 launches
+    once a sub-step (2-D) or a strip (k axis) of each pass and no other
+    kernel runs."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount, tri_mxu
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_kaxis_strips,
+        count_substeps_2d,
+        sharded_extract_pairs,
+        sharded_pairwise_fused,
+        sharded_pairwise_similarity_2d,
+        sharded_pairwise_similarity_kaxis,
+    )
+
+    bs, classes, n = _ring_problem(768 if shape == (2, 3) else 1024)
+    card, host = _layout_meshes(layout, shape, cuda)
+    sweep = (sharded_pairwise_similarity_2d if layout == "2d"
+             else sharded_pairwise_similarity_kaxis)
+    fns = (stats.stats_from_counts_into, stats.stats_from_counts_traced_into,
+           tri_mxu.tri_mxu_sweep, popcount.popcount_sweep)
+    for fn in fns:
+        fn.launches = 0
+    got = sweep(card, bs.words, classes, n, 4)
+    pairs = sharded_extract_pairs(card, bs.words, classes, n, 4)
+    fused = sharded_pairwise_fused(card, bs.words, classes, n, 4)
+    steps = (count_substeps_2d(*shape, bs.n_pad) if layout == "2d"
+             else count_kaxis_strips(shape, bs.n_pad))
+    assert [fn.launches for fn in fns] == [2 * steps, 0, 0, 0]
+    want = sweep(host, bs.words, classes, n, 4)
+    want_pairs = sharded_extract_pairs(host, bs.words, classes, n, 4)
+    for a, b in zip(got[:2] + fused[:2], want[:2] * 2):
+        assert np.array_equal(a, b)
+    assert np.array_equal(pairs, want_pairs)
+    assert np.array_equal(fused[3], want_pairs)
+    assert len(want_pairs) > 1000
+
+
+def test_k1_on_a_kaxis_strip_matches_reference(cuda):
+    """K1 at a k-axis strip's real offsets (rows 256.. against columns
+    256.., n = 500) on the card equals its plain version."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    bs, classes, n = _ring_problem(1024)
+    sub = sharded.kaxis_strips(4, 1024, 128, 5 * 1024 * 4 * 256)[1]
+    assert (sub.r0, sub.rows, sub.cols) == (256, 256, 768)
+    words = torch.from_numpy(bs.words.view(np.int32)).to(cuda)
+    cls = torch.from_numpy(classes).to(cuda)
+    counts = bitmul.counts_window_pair(words[sub.r0 : sub.r0 + sub.rows],
+                                       words[sub.c0 :])
+    kw = dict(i_off=sub.r0, j_off=sub.r0, n=n, threshold=4, tile=128)
+    ca, cb = cls[sub.r0 : sub.r0 + sub.rows], cls[sub.c0 :]
+    before = stats.stats_from_counts_into.launches
+    rs, th, _ = stats.stats_from_counts(counts, ca, cb, **kw)
+    rs_ref, th_ref, _ = stats.stats_from_counts_reference(counts, ca, cb, **kw)
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_into.launches == before + 1
+    assert torch.equal(rs, rs_ref) and torch.equal(th, th_ref)
+    assert int(rs[:, 0].sum()) > 0
+
+
+def test_make_mesh_2d_refuses_more_cards_than_visible(cuda):
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import make_mesh_2d
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {2 * n + 2} devices, "
+                                         f"only {n} available"):
+        make_mesh_2d(2, n + 1)
+    assert make_mesh_2d(1, n).size == n
+
+
+@pytest.mark.parametrize("flags", [["--mesh-shape", "1x1"],
+                                   ["--shard-axis", "kmers", "--devices",
+                                    "1"]], ids=["1x1", "kmers"])
+def test_cli_layouts_on_the_card_match_cpu(cuda, synth_fasta, tmp_path,
+                                           flags):
+    """`cli run --mesh-shape 1x1` and `--shard-axis kmers --devices 1` on
+    the card write the CPU run's pairs and clusters."""
+    import os
+
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        assert main(["run", synth_fasta, "--device", dev, "--out",
+                     outs[dev], *flags]) == 0
+    for name in ("pairs.tsv", "clusters.tsv"):
+        with open(os.path.join(outs["cuda"], name), "rb") as f:
+            got = f.read()
+        with open(os.path.join(outs["cpu"], name), "rb") as f:
+            assert got == f.read(), name

@@ -241,14 +241,13 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--distributed"], ["--shard-axis", "kmers"],
+    ["--distributed"],
     ["--devices", "2", "--engine", "stream", "--stream-source", "csr"],
-    ["--mesh-shape", "2x4"], ["--devices", "2", "--shard-axis", "kmers"],
-    ["--mesh-shape", "1x2", "--dump-kmers"],
 ])
 def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
-    """The mesh flags beyond the flat ring (item 14) are refused, before
-    any output."""
+    """The mesh paths still to port (item 14: the multi-process path, the
+    out-of-core stream engine on the flat ring) are refused, before any
+    output."""
     from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
 
     with pytest.raises(SystemExit, match="not yet ported.*item 14"):
@@ -288,3 +287,80 @@ def test_cluster_fasta_api(toy_fasta):
     _same(want, agg)
     assert np.array_equal(agg.dendrogram, want.dendrogram)
     assert len(agg.dendrogram) > 0 and got.dendrogram is None
+
+
+@pytest.mark.parametrize("flags,n_devices", [
+    (["--mesh-shape", "2x4"], (8, 8)),
+    (["--mesh-shape", "1x2", "--dump-kmers"], (2, 2)),
+    (["--shard-axis", "kmers"], (8, 1)),
+    (["--devices", "2", "--shard-axis", "kmers"], (2, 2)),
+], ids=["2x4", "1x2-dump-kmers", "kmers", "kmers-2"])
+def test_cli_mesh_layouts_match_jax_cli(toy_fasta, tmp_path, capsys, flags,
+                                        n_devices):
+    """The 2-D ring (--mesh-shape HxC) and the k-axis layout
+    (--shard-axis kmers) on CPU shards against the JAX CLI's --cpu runs on
+    its virtual devices: pairs.tsv, clusters.tsv (and pair_kmers.tsv)
+    byte for byte; stats.json's parity, clusters and stage names.
+    --shard-axis kmers with no count spans every device: the JAX
+    package's 8 virtual ones, the port's one CPU shard."""
+    from uniprot_kmer_based_clustering_tpu.cli import main as jmain
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jmain(["run", toy_fasta, "--cpu", "--out", jout, *flags]) == 0
+    assert tmain(["run", toy_fasta, "--device", "cpu", "--out", tout,
+                  *flags]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == json.loads(lines[-2])
+    js, jp, jc = _cli_outputs(jout)
+    ts, tp, tc = _cli_outputs(tout)
+    assert tp == jp and tc == jc
+    assert ts["parity"] == js["parity"] and ts["clusters"] == js["clusters"]
+    assert (js["n_devices"], ts["n_devices"]) == n_devices
+    assert set(ts["timings_s"]) == set(js["timings_s"])
+    assert ts["parity"]["pairs_over_threshold"] > 0
+    if "--dump-kmers" in flags:
+        with open(os.path.join(jout, "pair_kmers.tsv"), "rb") as f:
+            want = f.read()
+        with open(os.path.join(tout, "pair_kmers.tsv"), "rb") as f:
+            assert f.read() == want and want
+
+
+def test_cli_mesh_shape_and_kmers_are_exclusive(toy_fasta, tmp_path):
+    """--mesh-shape with --shard-axis kmers exits with the JAX CLI's
+    message, before any output, in both packages."""
+    from uniprot_kmer_based_clustering_tpu.cli import main as jmain
+    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
+
+    flags = ["--mesh-shape", "2x2", "--shard-axis", "kmers"]
+    for main, dev in ((jmain, ["--cpu"]), (tmain, ["--device", "cpu"])):
+        out = tmp_path / main.__module__.split(".")[0]
+        with pytest.raises(SystemExit, match="mutually exclusive sharding "
+                                             "layouts"):
+            main(["run", toy_fasta, *dev, "--out", str(out), *flags])
+        assert not out.exists()
+
+
+@pytest.mark.parametrize("layout", ["2d", "kaxis"])
+def test_layout_checkpoints_cross_packages(toy_fasta, tmp_path, layout):
+    """A 2-D or k-axis mesh run resumes from a JAX single-device
+    checkpoint directory, and a JAX single-device run from the mesh run's
+    own: the resumed run skips the index and the sweep."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+    )
+
+    cfg = PipelineConfig(**TOY)
+    mesh = (make_mesh_2d(2, 2, device="cpu") if layout == "2d"
+            else make_mesh(4, axis="k", device="cpu"))
+    j_dir, t_dir = str(tmp_path / "from_jax"), str(tmp_path / "from_torch")
+    j1 = jrun(toy_fasta, cfg, checkpoint_dir=j_dir)
+    t2 = trun(toy_fasta, cfg, checkpoint_dir=j_dir, mesh=mesh)
+    assert "sweep" not in t2.timings and "index" not in t2.timings
+    _same(j1, t2)
+    t1 = trun(toy_fasta, cfg, checkpoint_dir=t_dir, mesh=mesh)
+    assert "sweep" in t1.timings
+    j2 = jrun(toy_fasta, cfg, checkpoint_dir=t_dir)
+    assert "sweep" not in j2.timings and "index" not in j2.timings
+    _same(t1, j2)

@@ -312,33 +312,6 @@ def test_make_mesh_devices_and_refusals():
     assert tmesh.pad_for_mesh(10619, 8, 128) == 11264
 
 
-@pytest.mark.parametrize("entry", ["sweep", "extract", "fused", "csr",
-                                   "pipeline"])
-@pytest.mark.parametrize("axis", ["k", ("h", "c")])
-def test_unported_layouts_raise_naming_item_14(entry, axis, toy_fasta):
-    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
-    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
-        run_pipeline,
-    )
-
-    mesh = tmesh.Mesh(["cpu"] * 2, axis)
-    bs, classes, n = _problem(1024)
-    call = {
-        "sweep": lambda: tsh.sharded_pairwise_similarity(
-            mesh, bs.words, classes, n, THR),
-        "extract": lambda: tsh.sharded_extract_pairs(
-            mesh, bs.words, classes, n, THR),
-        "fused": lambda: tsh.sharded_pairwise_fused(
-            mesh, bs.words, classes, n, THR),
-        "csr": lambda: tsh.stage_mesh_inputs_csr(
-            mesh, [0], [0], 256, 4, [0]),
-        "pipeline": lambda: run_pipeline(toy_fasta, PipelineConfig(),
-                                         mesh=mesh),
-    }[entry]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        call()
-
-
 def test_query_server_mesh_stays_refused(toy_fasta):
     from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
     from uniprot_kmer_based_clustering_tpu_torch.pipeline import (

@@ -8,7 +8,8 @@
       [--engine {auto,mxu,popcount,xla,native,stream}]
       [--extract {auto,two_pass,fused,onepass}] [--extract-k N]
       [--stream-source {host,csr}] [--index-engine {host,device}]
-      [--devices N] [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
+      [--devices N] [--mesh-shape HxC] [--shard-axis {rows,kmers}]
+      [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
       [--dump-kmers] [--dump-proteins] [--dump-debug]
       [--checkpoint-dir DIR] [--out DIR] [--profile DIR] [--cpu]
       [--verbose]
@@ -22,12 +23,14 @@
 run``: pairs.tsv, clusters.tsv, stats.json, dendrogram.tsv
 (agglomerative), blastp_output.tsv (--align), pair_kmers.tsv and
 proteins.tsv (--dump-kmers, --dump-proteins) and graph_debug.txt
-(--dump-debug, the reference's stdout Debug dump). ``--devices N``
-runs the sweep, extraction and components on the flat row ring over the
-first N cards (or N CPU shards with --device cpu); the other mesh flags
-of that CLI (--shard-axis kmers, --distributed, --mesh-shape) and
---engine stream with --devices > 1 are accepted and refused with the
-ROADMAP item that will bring them.
+(--dump-debug, the reference's stdout Debug dump). The sweep, extraction
+and components run on a mesh as in the JAX CLI: ``--devices N`` the flat
+row ring over the first N cards (or N CPU shards with --device cpu),
+``--mesh-shape HxC`` the 2-D (hosts × chips) ring, ``--shard-axis
+kmers`` the k-axis layout over --devices N (all visible cards, or one
+CPU shard, by default). --distributed and --engine stream on the flat
+ring are accepted and refused with the ROADMAP item that will bring
+them.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
@@ -46,12 +49,12 @@ def _refuse_unported(args) -> None:
         UNPORTED,
     )
 
+    flat = (args.devices > 1 and args.shard_axis == "rows"
+            and not args.mesh_shape)
     refused = [
-        (args.shard_axis != "rows", "--shard-axis kmers"),
-        (args.mesh_shape is not None, "--mesh-shape"),
         (args.distributed, "--distributed"),
-        (args.devices > 1 and args.engine == "stream",
-         "--engine stream with --devices > 1"),
+        (flat and args.engine == "stream",
+         "--engine stream with --devices > 1 (the flat ring)"),
     ]
     for hit, what in refused:
         if hit:
@@ -61,18 +64,35 @@ def _refuse_unported(args) -> None:
 
 
 def _make_mesh(args, device):
-    """The flat ring's mesh for ``--devices N`` (N > 1) on ``device``'s
-    type, else None. Too few cards exit with JAX's message."""
-    if args.devices <= 1:
-        return None
+    """The mesh of the JAX CLI's flags on ``device``'s type, else None:
+    ``--mesh-shape HxC`` the 2-D ring's; ``--shard-axis kmers`` a k-axis
+    mesh over ``--devices N`` (every visible card when no count is given;
+    one CPU shard on the CPU); ``--devices N`` (N > 1) the flat ring's.
+    Too few cards exit with JAX's message."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         make_mesh,
+        make_mesh_2d,
     )
 
     try:
-        return make_mesh(args.devices, device=device.type)
+        if args.mesh_shape:
+            if args.shard_axis == "kmers":
+                raise SystemExit(
+                    "--mesh-shape (2-D ring) and --shard-axis kmers are "
+                    "mutually exclusive sharding layouts"
+                )
+            hc, cc = (int(x) for x in args.mesh_shape.lower().split("x"))
+            return make_mesh_2d(hc, cc, device=device.type)
+        if args.shard_axis == "kmers":
+            return make_mesh(args.devices if args.devices >= 1 else None,
+                             axis="k", device=device.type)
+        if args.devices > 1:
+            return make_mesh(args.devices, device=device.type)
     except ValueError as e:
-        raise SystemExit(f"--devices {args.devices}: {e}") from e
+        flag = (f"--mesh-shape {args.mesh_shape}" if args.mesh_shape
+                else f"--devices {args.devices}")
+        raise SystemExit(f"{flag}: {e}") from e
+    return None
 
 
 @contextlib.contextmanager
@@ -399,8 +419,11 @@ def main(argv=None) -> int:
                    help="N > 1: the sweep on the flat row ring over N "
                         "devices of --device's type (N CPU shards on the "
                         "CPU); more cards than are visible is an error")
-    r.add_argument("--shard-axis", default="rows", choices=("rows", "kmers"))
-    r.add_argument("--mesh-shape", default=None, metavar="HxC")
+    r.add_argument("--shard-axis", default="rows", choices=("rows", "kmers"),
+                   help="kmers: shard the bitset's k-mer columns over "
+                        "--devices N (all visible cards by default)")
+    r.add_argument("--mesh-shape", default=None, metavar="HxC",
+                   help="the 2-D (hosts x chips) ring over H*C devices")
     r.add_argument("--distributed", action="store_true")
     r.add_argument("--checkpoint-dir", default=None)
     r.add_argument("--out", default="ukc_out")

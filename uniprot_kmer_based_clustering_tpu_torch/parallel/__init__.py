@@ -1,20 +1,31 @@
-"""Multi-device sweeps: the flat row ring over a mesh of torch devices
-(the JAX package's ``parallel/`` for its default ``--devices N`` layout).
-The 2-D ring, the k-axis layout, ``stream_mesh.py`` and the multi-process
-``--distributed`` path are not ported yet (ROADMAP queue 1, item 14)."""
+"""Multi-device sweeps over a mesh of torch devices (the JAX package's
+``parallel/``): the flat row ring (``--devices N``), the 2-D (hosts ×
+chips) ring (``--mesh-shape HxC``) and the k-axis layout
+(``--shard-axis kmers``). The JAX package's memoised ``make_ring_*`` and
+``make_kaxis_*`` closures have no counterpart: nothing here is compiled
+ahead. ``stream_mesh.py`` and the multi-process ``--distributed`` path
+are not ported yet (ROADMAP queue 1, item 14)."""
 
 from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     make_mesh,
+    make_mesh_2d,
+    mesh_layout,
     pad_for_mesh,
 )
 from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (  # noqa: F401
+    count_kaxis_strips,
     count_substeps,
+    count_substeps_2d,
     doc_freq_psum,
+    kaxis_strips,
     ring_schedule,
+    ring_schedule_2d,
     sharded_extract_pairs,
     sharded_pairwise_fused,
     sharded_pairwise_similarity,
+    sharded_pairwise_similarity_2d,
+    sharded_pairwise_similarity_kaxis,
     stage_mesh_inputs,
     stage_mesh_inputs_csr,
 )

@@ -1,14 +1,18 @@
-"""Device meshes and the collectives the row ring needs.
+"""Device meshes and the collectives the mesh layouts need.
 
 Counterpart of the JAX package's ``parallel/mesh.py``. The JAX mesh is
 one process driving N devices through ``shard_map``; the port keeps that
 shape. A :class:`Mesh` is an ordered list of torch devices under one
-axis name, each shard of a row-sharded matrix is a tensor on its own
-device, and the collectives are copies:
+axis name (the flat row ring, or ``"k"``: the k-axis layout) or two
+(hosts × chips, host-major: the 2-D ring); :func:`mesh_layout` names
+the layout, as the JAX package's dispatch reads it from the axis names.
+Each shard of a sharded matrix is a tensor on its own device, and the
+collectives are copies:
 
-- :func:`ring_shift` (JAX ``ppermute`` one step round the ring): shard i
-  receives shard i+1 as a FRESH buffer on device i, also when both lie
-  on one device, so no in-place op on a moving block can touch a
+- :func:`ring_shift` (JAX ``ppermute`` one step round a ring, over the
+  whole mesh or along one axis of a 2-D mesh): shard i receives its
+  ring successor as a FRESH buffer on device i, also when both lie on
+  one device, so no in-place op on a moving block can touch a
   stationary one;
 - :func:`sum_to_first` (``psum``), :func:`gather_to_first`
   (``all_gather`` / the row-sharded output), :func:`min_to_first`
@@ -35,65 +39,100 @@ import torch
 
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 
-#: The message tail of every mesh layout, flag and entry the port does
-#: not carry yet.
+#: The message tail of every mesh path, flag and entry the port does not
+#: carry yet.
 UNPORTED = "the mesh engines (ROADMAP queue 1, item 14)"
 
 
 class Mesh:
-    """An ordered list of torch devices under ``axis`` (a name, or a tuple
-    of names for a layout the port refuses: only the flat row ring is
-    ported)."""
+    """An ordered list of torch devices under ``axis`` (a name, or a
+    tuple of two names, host-major, whose sizes ``shape`` gives)."""
 
-    def __init__(self, devices: Sequence, axis="p"):
+    def __init__(self, devices: Sequence, axis="p",
+                 shape: Optional[Sequence[int]] = None):
         self.devices = tuple(resolve_device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         self.axis_names = (axis,) if isinstance(axis, str) else tuple(axis)
+        sizes = tuple(shape) if shape is not None else (len(self.devices),)
+        if (len(self.axis_names) not in (1, 2)
+                or len(sizes) != len(self.axis_names)
+                or int(np.prod(sizes)) != len(self.devices)):
+            raise ValueError(
+                f"mesh axes {self.axis_names} of sizes {sizes} do not "
+                f"hold {len(self.devices)} devices"
+            )
+        #: axis name -> size, as JAX's ``mesh.shape``
+        self.shape = dict(zip(self.axis_names, sizes))
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, {self.axis_names})"
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"{self.shape})")
+
+
+def mesh_layout(mesh: Mesh) -> str:
+    """The sharding layout of ``mesh``, read from its axis names as the
+    JAX package's wrappers read it: two axes → ``"2d"`` (the hierarchical
+    ring), the one axis ``"k"`` → ``"kaxis"`` (bitset columns sharded),
+    else ``"flat"`` (the row ring)."""
+    if len(mesh.axis_names) == 2:
+        return "2d"
+    return "kaxis" if mesh.axis_names == ("k",) else "flat"
+
+
+def _mesh_devices(n: Optional[int], device, devices: Optional[Sequence]):
+    """The devices of a new mesh: ``devices`` as listed, else ``n`` (all
+    visible cards when None) of ``device``'s type; CPU shards repeat the
+    CPU (1 by default). Too few cards raise JAX's ``ValueError``."""
+    if devices is not None:
+        if n is not None and n != len(devices):
+            raise ValueError(
+                f"n_devices={n} but {len(devices)} devices listed"
+            )
+        return list(devices)
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * (n or 1)
+    avail = torch.cuda.device_count()
+    n = avail if n is None else n
+    if n > avail:
+        raise ValueError(f"requested {n} devices, only {avail} available")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "p", *,
               device="cuda", devices: Optional[Sequence] = None) -> Mesh:
     """1-D mesh over the first ``n_devices`` devices of ``device``'s type
-    (all of them by default).
+    (all of them by default); ``axis="k"`` makes it a k-axis mesh.
 
     On CUDA, asking for more cards than are visible raises JAX's
     ``ValueError`` ("requested N devices, only M available"): the mesh
     never falls back to fewer cards or to the CPU. ``device="cpu"`` gives
     ``n_devices`` CPU shards (1 by default). ``devices`` is an explicit
     list, which may repeat a device (several shards on one card)."""
-    if devices is not None:
-        if n_devices is not None and n_devices != len(devices):
-            raise ValueError(
-                f"n_devices={n_devices} but {len(devices)} devices listed"
-            )
-        return Mesh(devices, axis)
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        return Mesh([dev] * (n_devices or 1), axis)
-    avail = torch.cuda.device_count()
-    n = avail if n_devices is None else n_devices
-    if n > avail:
-        raise ValueError(f"requested {n} devices, only {avail} available")
-    return Mesh([torch.device("cuda", i) for i in range(n)], axis)
+    return Mesh(_mesh_devices(n_devices, device, devices), axis)
 
 
-def require_flat(mesh: Mesh) -> None:
-    """Refuse the layouts that are not ported: two mesh axes (the 2-D
-    ring) and the contraction axis ``"k"``."""
-    axes = mesh.axis_names
-    if len(axes) != 1 or axes == ("k",):
-        raise NotImplementedError(
-            f"mesh axes {axes}: only the flat row ring is "
-            f"ported; the 2-D ring and the k-axis layout are {UNPORTED}"
-        )
+def make_mesh_2d(n_hosts: int, n_chips: int, host_axis: str = "h",
+                 chip_axis: str = "c", *, device="cuda",
+                 devices: Optional[Sequence] = None) -> Mesh:
+    """(hosts × chips) mesh for the 2-D ring: shard ``h * n_chips + c``
+    is chip c of host h (host-major, as JAX orders ``jax.devices()``).
+
+    The same device rules as :func:`make_mesh` over ``n_hosts * n_chips``
+    devices: too few cards raise "requested N devices, only M available",
+    ``device="cpu"`` gives CPU shards and ``devices`` may repeat a card.
+    JAX's multi-process check (``n_chips`` equal to each process's device
+    count, so the host axis is the real host boundary) belongs to the
+    multi-process ``--distributed`` path, which is not ported; one
+    process drives every device here."""
+    need = n_hosts * n_chips
+    return Mesh(_mesh_devices(need, device, devices),
+                (host_axis, chip_axis), (n_hosts, n_chips))
 
 
 def pad_for_mesh(n: int, n_devices: int, multiple: int) -> int:
@@ -129,15 +168,37 @@ def shard_rows(mesh: Mesh, arr) -> list:
             for part, dev in zip(t.chunk(mesh.size), mesh.devices)]
 
 
-def ring_shift(blocks: list, mesh: Mesh) -> list:
-    """One step of the ring, in place on the list: ``blocks[i]`` becomes a
-    fresh copy of ``blocks[(i + 1) % D]`` on device i (JAX's ppermute with
-    perm ``[((i + 1) % D, i)]``). Each old block is dropped as soon as
-    its copy exists, so at most one extra block lives at a time."""
-    first = blocks[0]
-    d = len(blocks)
-    for i in range(d):
-        blocks[i] = _fresh_copy(blocks[i + 1] if i + 1 < d else first,
+def ring_sources(mesh: Mesh, axis: Optional[str] = None) -> list:
+    """``src[i]``: the shard whose block shard i receives in one step of
+    the ring along ``axis`` (JAX's ppermute with perm ``[((i + 1) % size,
+    i)]`` on that axis), or round all shards in mesh order when ``axis``
+    is None. Along ``"c"`` shard (h, c) receives (h, (c + 1) % C); along
+    ``"h"`` it receives ((h + 1) % H, c)."""
+    d = mesh.size
+    if axis is None:
+        return [(i + 1) % d for i in range(d)]
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}: {mesh.axis_names}")
+    # the stride of ``axis`` in the host-major order, and its size
+    stride = 1
+    for name in reversed(mesh.axis_names):
+        if name == axis:
+            break
+        stride *= mesh.shape[name]
+    size = mesh.shape[axis]
+    return [i + stride * ((i // stride + 1) % size - i // stride % size)
+            for i in range(d)]
+
+
+def ring_shift(blocks: list, mesh: Mesh, axis: Optional[str] = None) -> list:
+    """One step of the ring (:func:`ring_sources`), in place on the list:
+    ``blocks[i]`` becomes a fresh copy of ``blocks[src[i]]`` on device i.
+    Each old block is dropped as soon as its copy exists, except the
+    first of each ring, kept until the ring's wrap-around reads it."""
+    src = ring_sources(mesh, axis)
+    saved = {s: blocks[s] for i, s in enumerate(src) if s < i}
+    for i, s in enumerate(src):
+        blocks[i] = _fresh_copy(saved.pop(s) if s < i else blocks[s],
                                 mesh.devices[i])
     return blocks
 

@@ -136,10 +136,12 @@ def run_pipeline(
     mesh=None,
 ) -> PipelineResult:
     """Run the pipeline on one torch ``device`` ("cuda", the default, or
-    "cpu"), or with its sweep on a ``mesh`` (``parallel.make_mesh``).
+    "cpu"), or with its sweep on a ``mesh`` (``parallel.make_mesh``,
+    ``make_mesh_2d``, or ``make_mesh(axis="k")``).
 
-    On a mesh, the sweep and extraction run the flat row ring
-    (:func:`_sharded_similarity`) and components the sharded label
+    On a mesh, the sweep and extraction run the mesh's layout — the flat
+    row ring, the 2-D ring or the k-axis layout
+    (:func:`_sharded_similarity`) — and components the sharded label
     propagation; the other stages run on the mesh's first device, which
     ``device`` may name but not contradict. The checkpoint artifacts do
     not depend on the device layout, so a single-device checkpoint
@@ -280,7 +282,8 @@ def run_pipeline(
         with stage("sweep"):
             if mesh is not None:
                 pairwise = _sharded_similarity(
-                    bitset, table, config, mesh, weights=weights
+                    bitset, table, config, mesh, weights=weights,
+                    index=index,
                 )
             else:
                 pairwise = pairwise_similarity(
@@ -396,17 +399,17 @@ def _device_index(table: ProteinTable, config: PipelineConfig, device):
 
 
 def _check_mesh_config(mesh, config: PipelineConfig) -> None:
-    """Refuse, before any work, what the mesh path does not carry: the 2-D
-    ring and the k-axis layout, and ``engine="stream"``, whose flat-mesh
-    route is the JAX package's out-of-core composition
-    (``stream_mesh.py``, K2 on its step), not ported; with the host block
-    source the JAX pipeline refuses it too."""
+    """Refuse, before any work, what the mesh path does not carry:
+    ``engine="stream"`` on the flat mesh, whose route is the JAX package's
+    out-of-core composition (``stream_mesh.py``, K2 on its step), not
+    ported. With the host block source the JAX pipeline refuses the
+    stream engine on every mesh; with the CSR source the 2-D ring and
+    the k-axis layout take the packless in-core staging, as JAX's do."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         UNPORTED,
-        require_flat,
+        mesh_layout,
     )
 
-    require_flat(mesh)
     if config.engine != "stream":
         return
     if config.stream_source != "csr":
@@ -415,37 +418,60 @@ def _check_mesh_config(mesh, config: PipelineConfig) -> None:
             "(per-device host-words streaming would re-upload the dense "
             "matrix D times)"
         )
-    raise NotImplementedError(
-        f"engine='stream' on a mesh (the out-of-core stream_mesh.py) is "
-        f"{UNPORTED}"
-    )
+    if mesh_layout(mesh) == "flat":
+        raise NotImplementedError(
+            f"engine='stream' on a flat mesh (the out-of-core "
+            f"stream_mesh.py) is {UNPORTED}"
+        )
 
 
-def _sharded_similarity(bitset, table, config, mesh,
-                        weights=None) -> PairwiseResult:
-    """The flat row ring on ``mesh`` (the JAX pipeline's flat branch):
-    N_pad padded to devices × 128-row tiles with class −1 rows, the
-    packed matrix staged once, then one fused pass or the sweep and a
+def _sharded_similarity(bitset, table, config, mesh, weights=None,
+                        index=None) -> PairwiseResult:
+    """The mesh's layout (the JAX pipeline's mesh branch): N_pad padded
+    to devices × 128-row tiles with class −1 rows; the matrix staged once
+    — built on the devices from the index's incidence lists under
+    ``stream_source="csr"`` (packless), else copied from the packed host
+    matrix — then one fused pass, or the layout's sweep and a
     mesh-parallel extraction sized by the sweep's exact tile hits."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+        mesh_layout,
         pad_for_mesh,
     )
     from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (
         sharded_extract_pairs,
         sharded_pairwise_fused,
         sharded_pairwise_similarity,
+        sharded_pairwise_similarity_2d,
+        sharded_pairwise_similarity_kaxis,
         stage_mesh_inputs,
+        stage_mesh_inputs_csr,
     )
 
+    sweep = {
+        "flat": sharded_pairwise_similarity,
+        "2d": sharded_pairwise_similarity_2d,
+        "kaxis": sharded_pairwise_similarity_kaxis,
+    }[mesh_layout(mesh)]
     block_tile = 128
     n_pad = pad_for_mesh(bitset.n_pad, mesh.size, block_tile)
     classes = np.full(n_pad, -1, dtype=np.int32)
     classes[: bitset.n] = np.asarray(table.amr_class_ids, np.int32)
-    words = bitset.words
-    if n_pad != bitset.n_pad:
-        words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
-        words[: bitset.n_pad] = bitset.words
-    words, classes = stage_mesh_inputs(mesh, words, classes)
+    if config.stream_source == "csr":
+        if index is None or not index.has_incidences:
+            raise ValueError(
+                "stream_source='csr' needs the host-built index "
+                "incidence lists"
+            )
+        words, classes = stage_mesh_inputs_csr(
+            mesh, index.incidence_protein, index.incidence_rank, n_pad,
+            bitset.w_pad, classes,
+        )
+    else:
+        words = bitset.words
+        if n_pad != bitset.n_pad:
+            words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
+            words[: bitset.n_pad] = bitset.words
+        words, classes = stage_mesh_inputs(mesh, words, classes)
 
     threshold = (
         config.effective_weighted_threshold(weights)
@@ -462,7 +488,7 @@ def _sharded_similarity(bitset, table, config, mesh,
         return PairwiseResult.from_row_stats(
             row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
-    row_stats, tile_hits, _ = sharded_pairwise_similarity(
+    row_stats, tile_hits, _ = sweep(
         mesh, words, classes, bitset.n, threshold, block_tile,
         weights=weights,
     )
