@@ -104,7 +104,6 @@ csrc`` with nvcc (one process per source, in parallel), then:
       and parity counters equal to the oracle, component labels equal to
       the host union-find's, stage seconds, peak device memory under
       two corpus copies plus one sub-step's working set;
-      ``engine="stream"`` on the mesh must be refused naming item 14;
    b. the warm ring sweep (beside the in-core scan), extraction and
       fused pass on staged shards, with their peaks and the counters
       reset before and read after every call (K1 once a sub-step of the
@@ -152,6 +151,44 @@ csrc`` with nvcc (one process per source, in parallel), then:
       the visible cards) must exit nonzero with JAX's message and write
       nothing; with more than one card visible, both layouts also run
       the 10,619 corpus on two distinct cards.
+11. stream-mesh phase — the out-of-core sweep on a flat mesh
+   (``parallel.stream_mesh.sweep_extract_stream_mesh``) and row-sharded
+   serving (``QueryServer(mesh=...)``), every mesh's shards on this one
+   card (``make_mesh(devices=[dev] * D)``), the kernel counters set to 0
+   before and read after every call:
+   a. 30,000 proteins from the CSR source on D = 4 shards, (i) under the
+      default 13 GiB a shard at bs 2,048 (one group of 16 blocks, a
+      cooperative stack of 4 a shard; a first call and a warm one) and
+      (ii) under ``STREAM_SMALL_BUDGET`` a shard (bs 1,024, groups of one
+      block, the stack at its floor of D blocks): pairs and parity
+      counters equal to the oracle, row_stats, tile hits and pairs equal
+      to the single-device ``sweep_extract_stream`` at the same bs, K2
+      once a step summed over the shards (the trace's ``steps``) and no
+      other kernel, the partition's balance, stage / dispatch / drain /
+      fetch seconds beside the single-device pass, phase 4's one pass
+      and the in-core scan; peak device memory under D × (the budget a
+      shard + a shard's staging) + (D − g) stream blocks where g < D
+      (staging: the per-block incidence split, rows and ranks int32 and
+      a valid byte a lane, and the classes); a kill after 2 groups under
+      (ii) resumed exactly on the mesh, and a single-device kill resumed
+      on the mesh with (bs, g) aligned through ``max_group``; a cap of
+      2^16 pairs a shard forcing the capacity-miss redo, equal to the
+      oracle;
+   b. ``run_pipeline(engine="stream", stream_source="csr",
+      extract="onepass", mesh=D4)`` at 30,000: pairs, parity counters
+      and labels equal to the oracle and the union-find, K2 once a step;
+   c. 10,619 proteins at D = 1, 2, 3 and 8 equal to the oracle;
+   d. ``cli run --devices <cards + 1> --engine stream --stream-source
+      csr --extract onepass`` must exit nonzero with JAX's "requested N
+      devices, only M available" and write nothing; with more than one
+      card visible it runs ``--devices 2`` on two distinct cards against
+      the oracle;
+   e. ``QueryServer(mesh=D4)`` on the 10,619 corpus: answers equal to the
+      single-device server's at batches 1, 64 and 256, the self-queries'
+      cross-class i<j pairs equal to the oracle, queries/s of both at
+      each batch, peak memory over the build and one batch under one
+      corpus + four unpacked 4,096-column chunks a shard, and none of
+      K1–K4 launched.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -926,6 +963,7 @@ def stream_phase(dev, tmp, state, want_pairs, run30, scan_s):
     # one pass, from both block sources
     source = stream.CSRBlockSource(index.incidence_protein,
                                    index.incidence_rank, n_pad, bitset.w_pad)
+    onepass_s = {}
     for label, kw in (("host words", dict()),
                       ("CSR source", dict(block_source=source))):
         def onepass():
@@ -937,6 +975,7 @@ def stream_phase(dev, tmp, state, want_pairs, run30, scan_s):
         (out, got), peak = peak_of(lambda: counted(onepass))
         one_s = time.perf_counter() - t0
         tr = stream.last_onepass_trace
+        onepass_s[label] = one_s
         if got != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}:
             raise AssertionError(f"one-pass kernel launches {got}")
         check(f"one pass, {label}", stats_err(*out[:3]), out[3])
@@ -1033,7 +1072,7 @@ def stream_phase(dev, tmp, state, want_pairs, run30, scan_s):
                              "stream-step block")
     print(f"stream phase: K2 launches {launches}; "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
-    return dict(launches=launches["host"], err=err)
+    return dict(launches=launches["host"], err=err, onepass_s=onepass_s)
 
 
 def k3_phase(dev, state10, state30, sm_mhz):
@@ -2443,16 +2482,6 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
         print(f"(the fused run's default cap 1,048,576 is below the "
               f"{len(pairs30)} pairs, so, as in the JAX package, it "
               f"extracted again after its pass)", flush=True)
-    try:
-        run_pipeline(run30["fasta"], PipelineConfig(
-            engine="stream", stream_source="csr"), mesh=mesh4)
-    except NotImplementedError as e:
-        print(f"run_pipeline(mesh=D{MESH_D}, engine='stream', "
-              f"stream_source='csr') refused: {e}", flush=True)
-        if "item 14" not in str(e):
-            raise
-    else:
-        raise AssertionError("the stream engine on a mesh was not refused")
 
     # warm library passes on staged shards; the kernel counters are set
     # to 0 before, and read after, every call
@@ -3002,6 +3031,370 @@ def layouts_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
                 phase_s=phase_s)
 
 
+STREAM_MESH_D = 4  # shards of the 30k out-of-core mesh pass, all on one card
+STREAM_MESH_BS = 2048  # (i)'s stream block: one group, four blocks a shard
+STREAM_MESH_DS_10 = (1, 2, 3, 8)
+
+
+def _stream_mesh_run(dev, label, mesh, src, classes, n, want, want_pairs,
+                     **kw):
+    """One ``sweep_extract_stream_mesh`` call with the kernel counters set
+    to 0 just before and read just after (K2 once a step, summed over the
+    shards, and nothing else) and the peak device memory over it; its
+    pairs and parity counters must equal the oracle's. Returns (out,
+    seconds, trace, peak)."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import stream_mesh
+    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+        PairwiseResult,
+        pairs_as_array,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fns = reset_counters()
+    t0 = time.perf_counter()
+    out = stream_mesh.sweep_extract_stream_mesh(
+        mesh, classes, n, THRESHOLD, block_source=src, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    tr = dict(stream_mesh.last_mesh_trace)
+    pairs = pairs_as_array(out[3]).astype(np.int64)
+    got = {k: v for k, v in PairwiseResult.from_row_stats(
+        out[0], out[3]).parity_counters().items() if k in want}
+    print(f"stream mesh {label}: {secs:.6f} s; launches {launches}; bs "
+          f"{tr['bs']}, nbk {tr['nbk']}, g {tr['g']}, gpd {tr['gpd']}, "
+          f"{-(-tr['nbk'] // tr['g'])} groups, {tr['steps']} steps, uploads "
+          f"{tr['uploads']}, word_chunk {tr['word_chunk']}, vcap "
+          f"{tr['vcap']}, overflow {tr['overflow']}, balance "
+          f"{tr['balance']:.4f}; stage {tr['stage_s']:.6f} s, dispatch "
+          f"{tr['dispatch_s']:.6f} s, drain {tr['drain_s']:.6f} s, fetch "
+          f"{tr['fetch_s']:.6f} s, checkpoints {tr.get('ckpt_s', 0.0):.6f} "
+          f"s, grouped redo {tr.get('redo_s', 0.0):.6f} s; peak device "
+          f"memory {peak} bytes; parity "
+          f"{got}, {len(pairs)} pairs", flush=True)
+    if launches != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}:
+        raise AssertionError(f"stream mesh {label}: launches {launches}, "
+                             f"expected K2 = {tr['steps']} steps only")
+    if got != want or not np.array_equal(pairs, want_pairs):
+        raise AssertionError(f"stream mesh {label}: differs from the oracle")
+    return out, secs, tr, peak
+
+
+def stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
+                      scan_s, onepass_s, labels30, smi):
+    """The out-of-core sweep on a flat mesh and row-sharded serving
+    (docstring, phase 11), every mesh's shards on the one card."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+        split_incidence_blocks,
+        sweep_extract_stream,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        stream_mesh,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import query as q
+    from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
+        CheckpointStore,
+    )
+
+    t_phase = time.perf_counter()
+    print(f"stream-mesh phase on {smi}: every mesh's shards share this one "
+          f"card, so their launches queue on one stream and a pass's time "
+          f"is the sum over its shards (no scaling figure)", flush=True)
+    d = STREAM_MESH_D
+    table30, index30, bitset30 = state30
+    n30 = table30.n
+    want30 = run30["want"]
+    cls30 = np.asarray(table30.amr_class_ids, np.int32)
+    mesh4 = make_mesh(devices=[dev] * d)
+
+    def src30():
+        # a fresh source: its staging estimate enters the blocking
+        return CSRBlockSource(index30.incidence_protein,
+                              index30.incidence_rank, bitset30.n_pad,
+                              bitset30.w_pad)
+
+    def gate(tr, budget):
+        """D × (budget + a shard's staging) + (D − g) blocks when g < D."""
+        rows, ranks, valid = split_incidence_blocks(
+            index30.incidence_protein, index30.incidence_rank, tr["bs"],
+            tr["nbk"])
+        staging = (rows.nbytes + ranks.nbytes + valid.nbytes
+                   + tr["nbk"] * tr["bs"] * 4)
+        block_bytes = tr["bs"] * bitset30.w_pad * 4
+        return (d * (budget + staging)
+                + max(0, d - tr["g"]) * block_bytes), staging
+
+    stream_launches = {}
+    mesh_s = {}
+    # a. (i) the default 13 GiB a shard at bs 2,048: one group, gpd 4
+    budget = 13 << 30
+    kw = dict(bs=STREAM_MESH_BS, hbm_budget_bytes=budget)
+    out, cold_s, tr, peak = _stream_mesh_run(
+        dev, f"D={d} 13 GiB bs {STREAM_MESH_BS} (first call)", mesh4,
+        src30(), cls30, n30, want30, pairs30, **kw)
+    out, warm_s, tr, peak = _stream_mesh_run(
+        dev, f"D={d} 13 GiB bs {STREAM_MESH_BS} (warm)", mesh4, src30(),
+        cls30, n30, want30, pairs30, **kw)
+    limit, staging = gate(tr, budget)
+    if tr["g"] <= d or tr["gpd"] < 2 or -(-tr["nbk"] // tr["g"]) != 1:
+        raise AssertionError("(i) is not one group with a cooperative stack")
+    fns = reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = sweep_extract_stream(None, cls30, n30, THRESHOLD, device=dev,
+                               block_source=src30(), **kw)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_k2 = fns["K2"].launches
+    same = all(np.array_equal(a, b) for a, b in zip(
+        out[:2] + out[3:], one[:2] + one[3:]))
+    print(f"{N_SCALE} D={d} 13 GiB a shard, bs {STREAM_MESH_BS}: warm "
+          f"{warm_s:.6f} s (first call {cold_s:.6f} s) beside the "
+          f"single-device one pass at that bs {one_s:.6f} s (K2 {one_k2}), "
+          f"phase 4's one pass from the CSR source "
+          f"{onepass_s.get('CSR source', 0.0):.6f} s (bs 4096) and the "
+          f"in-core scan {scan_s:.6f} s; stage {tr['stage_s']:.6f} s; "
+          f"row_stats, tile hits and pairs = the single-device engine's "
+          f"{same}; peak {peak} bytes (gate {limit} = {d} x ({budget} + "
+          f"staging {staging}))", flush=True)
+    if not same or peak > limit:
+        raise AssertionError("(i) differs from the single-device engine or "
+                             "went over its peak gate")
+    stream_launches["13GiB"] = tr["steps"]
+    mesh_s["13GiB"] = warm_s
+    del out, one
+
+    # (ii) STREAM_SMALL_BUDGET a shard: several groups, g < D
+    budget = STREAM_SMALL_BUDGET
+    out, small_s, tr, peak = _stream_mesh_run(
+        dev, f"D={d} {budget} bytes a shard", mesh4, src30(), cls30, n30,
+        want30, pairs30, hbm_budget_bytes=budget)
+    limit, staging = gate(tr, budget)
+    bs_small, g_small = tr["bs"], tr["g"]
+    if g_small >= d or tr["nbk"] // g_small < 2:
+        raise AssertionError("(ii) is not several groups with g < D")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = sweep_extract_stream(None, cls30, n30, THRESHOLD, device=dev,
+                               bs=bs_small, hbm_budget_bytes=budget,
+                               block_source=src30())
+    torch.cuda.synchronize()
+    one_small_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(
+        out[:2] + out[3:], one[:2] + one[3:]))
+    print(f"{N_SCALE} D={d} {budget} bytes a shard: {small_s:.6f} s beside "
+          f"the single-device one pass at bs {bs_small} {one_small_s:.6f} "
+          f"s; = its results {same}; peak {peak} bytes (gate {limit} = {d} "
+          f"x ({budget} + staging {staging}) + {d - g_small} blocks)",
+          flush=True)
+    if not same or peak > limit:
+        raise AssertionError("(ii) differs from the single-device engine or "
+                             "went over its peak gate")
+    stream_launches["2GiB"] = tr["steps"]
+    mesh_s["2GiB"] = small_s
+    ref_small = out
+    del one
+
+    # kill after 2 groups under (ii), resume on the mesh; then a
+    # single-device kill resumed on the mesh, (bs, g) aligned by max_group
+    store = CheckpointStore(os.path.join(tmp, "stream_mesh_ckpt"))
+    resumes = {}
+    for writer in ("mesh", "single device"):
+        # the writer's own blocking arguments (an explicit bs changes the
+        # budget's slack, and so the snapshot's geometry)
+        key = writer.replace(" ", "-")
+        kw = dict(hbm_budget_bytes=budget, checkpoint_store=store,
+                  checkpoint_key=key)
+        if writer != "mesh":
+            kw.update(bs=bs_small, max_group=g_small)
+        t0 = time.perf_counter()
+        try:
+            if writer == "mesh":
+                stream_mesh.sweep_extract_stream_mesh(
+                    mesh4, cls30, n30, THRESHOLD, block_source=src30(),
+                    fail_after_groups=2, **kw)
+            else:
+                sweep_extract_stream(None, cls30, n30, THRESHOLD, device=dev,
+                                     block_source=src30(),
+                                     fail_after_groups=2, **kw)
+        except RuntimeError as e:
+            if "fault injection" not in str(e):
+                raise
+        else:
+            raise AssertionError("the fault injection did not fire")
+        killed_s = time.perf_counter() - t0
+        snap = store.load(key)
+        if snap is None or len(snap["groups_done"]) != 2:
+            raise AssertionError(f"{writer}: no two-group snapshot")
+        out, res_s, tr, _ = _stream_mesh_run(
+            dev, f"resume of a {writer} snapshot", mesh4, src30(), cls30,
+            n30, want30, pairs30, **kw)
+        same = all(np.array_equal(a, b) for a, b in zip(
+            out[:2] + out[3:], ref_small[:2] + ref_small[3:]))
+        print(f"kill of the {writer} after 2 groups {killed_s:.6f} s, mesh "
+              f"resume {res_s:.6f} s: {tr.get('groups_skipped')} groups "
+              f"skipped, = the uninterrupted run {same}, snapshot removed "
+              f"{store.load(key) is None}", flush=True)
+        if (tr.get("groups_skipped") != 2 or not same
+                or store.load(key) is not None):
+            raise AssertionError(f"the resume of a {writer} snapshot")
+        resumes[writer] = res_s
+    del ref_small, out
+
+    # a capacity miss: 2^16 pairs a shard, the grouped redo
+    out, miss_s, tr, _ = _stream_mesh_run(
+        dev, f"D={d} cap 65536 a shard", mesh4, src30(), cls30, n30, want30,
+        pairs30, bs=STREAM_MESH_BS, cap=1 << 16)
+    if not tr["overflow"]:
+        raise AssertionError("the capacity miss did not redo")
+    del out
+
+    # b. the pipeline: cli run's route for --devices 4 --engine stream
+    # --stream-source csr --extract onepass
+    fns = reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = run_pipeline(run30["fasta"], PipelineConfig(
+        engine="stream", stream_source="csr", extract="onepass"),
+        mesh=mesh4)
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    tr = dict(stream_mesh.last_mesh_trace)
+    got = {k: res.parity_report()[k] for k in want30}
+    print(f"run_pipeline(mesh=D{d}, engine='stream', stream_source='csr', "
+          f"extract='onepass'): {wall:.3f} s; launches {launches}; bs "
+          f"{tr['bs']}, g {tr['g']}, gpd {tr['gpd']}, {tr['steps']} steps; "
+          f"parity {got}, {len(res.pairwise.pairs)} pairs, clusters "
+          f"{res.cluster_summary()}; peak {torch.cuda.max_memory_allocated(dev)} "
+          f"bytes; stage seconds {json.dumps(res.timings)}", flush=True)
+    if (launches != {"K1": 0, "K2": tr["steps"], "K3": 0, "K4": 0}
+            or got != want30
+            or not np.array_equal(res.pairwise.pairs, pairs30)
+            or not np.array_equal(res.cluster_labels, labels30)):
+        raise AssertionError("the stream mesh pipeline differs from the "
+                             "oracle or the union-find, or launched "
+                             "another kernel")
+    stream_launches["pipeline"] = tr["steps"]
+    del res
+
+    # c. 10,619 at D = 1, 2, 3, 8
+    table10, index10, bitset10 = state10
+    n10 = table10.n
+    want10 = run30["want10"]
+    for dd in STREAM_MESH_DS_10:
+        _stream_mesh_run(
+            dev, f"{N_PROTEINS} D={dd}", make_mesh(devices=[dev] * dd),
+            CSRBlockSource(index10.incidence_protein,
+                           index10.incidence_rank, bitset10.n_pad,
+                           bitset10.w_pad),
+            np.asarray(table10.amr_class_ids, np.int32), n10, want10,
+            pairs10)
+
+    # d. the CLI: past the visible cards it fails loudly, before output
+    cards = torch.cuda.device_count()
+    flags = ["--engine", "stream", "--stream-source", "csr", "--extract",
+             "onepass"]
+    out = os.path.join(tmp, "stream_mesh_refused")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.cli", "run", run30["fasta10"],
+         "--device", "cuda", "--devices", str(cards + 1), *flags,
+         "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    msg = proc.stderr.strip().splitlines()[-1] if proc.stderr else ""
+    want_msg = f"requested {cards + 1} devices, only {cards} available"
+    print(f"cli run --devices {cards + 1} {' '.join(flags)}: exit "
+          f"{proc.returncode}, stderr {msg!r}, output written: "
+          f"{os.path.exists(out)}", flush=True)
+    if proc.returncode == 0 or want_msg not in msg or os.path.exists(out):
+        raise AssertionError("--devices beyond the visible cards did not "
+                             "fail loudly")
+    if cards > 1:
+        cli_run(dev, run30["fasta10"], os.path.join(tmp, "stream_mesh_2"),
+                ["--devices", "2", *flags], want10, pairs10,
+                lambda: {"K1": 0, "K2": stream_mesh.last_mesh_trace["steps"],
+                         "K3": 0, "K4": 0})
+
+    # e. row-sharded serving of the 10,619 corpus on four shards
+    fns = reset_counters()
+    seqs = [table10.seq(i) for i in range(n10)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    msrv = q.QueryServer(index10, bitset10, mesh=mesh4)
+    msrv.query(seqs[:QUERY_BATCH], threshold=THRESHOLD)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    limit = bitset10.words.nbytes + 4 * bitset10.n_pad * 4096
+    srv = q.QueryServer(index10, bitset10, mode="device", device=dev)
+    rates = {}
+    answers = {}
+    for name, s in (("mesh", msrv), ("single", srv)):
+        for size, batch in ((1, seqs[:32]), (64, seqs[:512]),
+                            (QUERY_BATCH, seqs)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = []
+            for b in _query_batches(batch, size):
+                got += s.query(b, threshold=THRESHOLD)
+            torch.cuda.synchronize()
+            rates[(name, size)] = len(batch) / (time.perf_counter() - t0)
+            answers[(name, size)] = got
+    for size in (1, 64, QUERY_BATCH):
+        _same_answers(answers[("mesh", size)], answers[("single", size)],
+                      f"mesh server, batch {size}")
+    cls10 = table10.amr_class_ids
+    rows = []
+    for i, m in enumerate(answers[("mesh", QUERY_BATCH)]):
+        js, cs = m[:, 0], m[:, 1]
+        keep = (js > i) & (cls10[js] != cls10[i])
+        rows.append(np.stack([np.full(int(keep.sum()), i), js[keep],
+                              cs[keep]], axis=1))
+    got = np.concatenate(rows)
+    got = got[np.lexsort((got[:, 1], got[:, 0]))]
+    if not np.array_equal(got, pairs10):
+        raise AssertionError("the mesh server's self-queries differ from "
+                             "the scipy oracle")
+    launches = _zero_launches(fns, "mesh serving")
+    print(f"QueryServer(mesh=D{d}) on {N_PROTEINS}: built + one batch "
+          f"{build_s:.3f} s, peak {peak} bytes (gate {limit}: one corpus + "
+          f"four unpacked chunks a shard); answers = the single-device "
+          f"server's at batches 1, 64, {QUERY_BATCH}, and its {len(got)} "
+          f"cross-class i<j self-query pairs = the oracle; queries/s mesh "
+          f"/ single device: "
+          + ", ".join(f"batch {b} {rates[('mesh', b)]:.1f} / "
+                      f"{rates[('single', b)]:.1f}"
+                      for b in (1, 64, QUERY_BATCH))
+          + f"; launches {launches}", flush=True)
+    if peak > limit:
+        raise AssertionError("the mesh server went over its peak gate")
+    del msrv, srv
+
+    phase_s = time.perf_counter() - t_phase
+    print(f"stream-mesh phase: K2 {stream_launches} launches (one a step, "
+          f"summed over the shards), no other kernel; {phase_s:.3f} s",
+          flush=True)
+    return dict(launches=stream_launches, mesh_s=mesh_s, resumes=resumes,
+                miss_s=miss_s, qps=rates, phase_s=phase_s)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -3055,6 +3448,9 @@ def main() -> int:
                           pairs30, scan["sweep_s"], smi)
         lay = layouts_phase(dev, tmp, state10, pairs10, run30, state30,
                             pairs30, scan["sweep_s"], mesh, smi)
+        smesh = stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30,
+                                  pairs30, scan["sweep_s"], st["onepass_s"],
+                                  mesh["labels30"], smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3097,6 +3493,7 @@ def main() -> int:
             "kaxis_ms": lay["k1_k"]["ms"],
             "kaxis_plain_ms": lay["k1_k"]["plain_ms"],
             "kaxis_bound_ms": lay["k1_k"]["bound_ms"],
+            "stream_mesh_launches": 0,
         },
         {
             "name": "stats_from_counts_traced",
@@ -3117,6 +3514,7 @@ def main() -> int:
             "post_library_launches": POST_LAUNCHES["K2"],
             "ring_launches": 0,
             "layout_launches": 0,
+            "stream_mesh_launches": smesh["launches"],
         },
         {
             "name": "sweep_tri_mxu",
@@ -3136,6 +3534,7 @@ def main() -> int:
             "post_library_launches": POST_LAUNCHES["K3"],
             "ring_launches": 0,
             "layout_launches": 0,
+            "stream_mesh_launches": 0,
         },
         {
             "name": "popcount_sweep",
@@ -3155,6 +3554,7 @@ def main() -> int:
             "post_library_launches": POST_LAUNCHES["K4"],
             "ring_launches": 0,
             "layout_launches": 0,
+            "stream_mesh_launches": 0,
         },
     ]
     print(f"chip_smoke.py total {time.perf_counter() - t_start:.3f} s",

@@ -1202,3 +1202,138 @@ def test_cli_layouts_on_the_card_match_cpu(cuda, synth_fasta, tmp_path,
             got = f.read()
         with open(os.path.join(outs["cpu"], name), "rb") as f:
             assert got == f.read(), name
+
+
+def _kernel_counters():
+    from uniprot_kmer_based_clustering_tpu_torch.ops import popcount, tri_mxu
+
+    fns = (stats.stats_from_counts_into, stats.stats_from_counts_traced_into,
+           tri_mxu.tri_mxu_sweep, popcount.popcount_sweep)
+    for fn in fns:
+        fn.launches = 0
+    return fns
+
+
+@pytest.mark.parametrize("d,kw", [(1, dict(bs=512)),
+                                  (4, dict(bs=512)),
+                                  (4, dict(bs=256, max_group=2, cap=64))])
+def test_stream_mesh_on_a_shared_card_matches_single_device(
+        cuda, synth_fasta, d, kw):
+    """The out-of-core sweep on D shards of one card equals the
+    single-device one-pass engine on the card at the same bs (and the
+    same mesh on CPU shards); K2 launches once a step, summed over the
+    shards, and no other kernel runs. The last case is multi-group with
+    a per-shard capacity that overflows (the grouped redo)."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+        sweep_extract_stream,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        stream_mesh,
+        sweep_extract_stream_mesh,
+    )
+
+    res = run_pipeline(synth_fasta, PipelineConfig(), device="cpu",
+                       stop_after="pack")
+    idx, bitset, cls = res.index, res.bitset, res.table.amr_class_ids
+
+    def src():
+        return CSRBlockSource(idx.incidence_protein, idx.incidence_rank,
+                              bitset.n_pad, bitset.w_pad)
+
+    common = dict(block=128, **kw)
+    fns = _kernel_counters()
+    got = sweep_extract_stream_mesh(make_mesh(devices=[cuda] * d), cls,
+                                    res.table.n, 10, block_source=src(),
+                                    **common)
+    trace = dict(stream_mesh.last_mesh_trace)
+    assert [fn.launches for fn in fns] == [0, trace["steps"], 0, 0]
+    assert trace["steps"] == trace["nbk"] * (trace["nbk"] + 1) // 2
+    assert trace["overflow"] == ("cap" in kw)
+    single = {k: v for k, v in common.items() if k != "cap"}
+    one = sweep_extract_stream(None, cls, res.table.n, 10, device=cuda,
+                               block_source=src(), **single)
+    host = sweep_extract_stream_mesh(make_mesh(d, device="cpu"), cls,
+                                     res.table.n, 10, block_source=src(),
+                                     **common)
+    for want in (one, host):
+        for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+            assert np.array_equal(a, b)
+    assert len(got[3]) > 1000
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_query_mesh_on_a_shared_card_matches_single_device(cuda, served,
+                                                           weighted):
+    """QueryServer(mesh=...) on four shards of one card answers as the
+    single-device server on the card (batches 1, 9 and the whole batch)
+    and launches none of K1–K4."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import make_mesh
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, weights, seqs = served
+    w = weights if weighted else None
+    fns = _kernel_counters()
+    mesh = QueryServer(res.index, res.bitset, weights=w,
+                       mesh=make_mesh(devices=[cuda] * 4))
+    one = QueryServer(res.index, res.bitset, weights=w, mode="device",
+                      device=cuda)
+    for batch in (seqs[:1], seqs[:9], seqs):
+        _same_matches(mesh.query(batch, threshold=10),
+                      one.query(batch, threshold=10))
+    assert [fn.launches for fn in fns] == [0, 0, 0, 0]
+    assert len(mesh._shard_blocks) == 4
+    assert all(b.is_cuda for b in mesh._shard_blocks)
+
+
+def test_stream_mesh_loop_does_not_synchronise(cuda, monkeypatch):
+    """The out-of-core mesh loop on four shards of the card — three
+    groups, one moving block a round, an in-flight window of one —
+    runs under torch.cuda.set_sync_debug_mode("error") from the end of
+    the staging to the first merge: the stacks, the steps and the window
+    make no host synchronisation. The result then equals the CPU mesh's."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        stream_mesh,
+    )
+
+    _, cls, inc_p, inc_r, _ = _stream_problem()
+    kw = dict(bs=512, block=512, max_group=1, scan_chunk=1, inflight=1)
+
+    def run(mesh):
+        return stream_mesh.sweep_extract_stream_mesh(
+            mesh, cls, 1500, 35,
+            block_source=CSRBlockSource(inc_p, inc_r, 1536, 64), **kw)
+
+    want = run(make_mesh(4, device="cpu"))
+    stage, merge = stream_mesh._stage, stream_mesh.lane_merge_to_first
+
+    def checked_stage(*a):
+        shards = stage(*a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        return shards
+
+    def unchecked_merge(*a):
+        torch.cuda.set_sync_debug_mode(0)
+        return merge(*a)
+
+    monkeypatch.setattr(stream_mesh, "_stage", checked_stage)
+    monkeypatch.setattr(stream_mesh, "lane_merge_to_first", unchecked_merge)
+    fns = _kernel_counters()
+    try:
+        got = run(make_mesh(devices=[cuda] * 4))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    tr = stream_mesh.last_mesh_trace
+    assert (tr["steps"], tr["g"], tr["launches"]) == (6, 1, 6)
+    assert [fn.launches for fn in fns] == [0, 6, 0, 0]
+    for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
+        assert np.array_equal(a, b)
+    assert len(want[3]) > 1000

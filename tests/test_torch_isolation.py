@@ -250,15 +250,18 @@ def test_pack_bitsets_and_blosum_weights_are_the_jax_packages(row_multiple):
     assert got.dtype == np.int8 and np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("writer", ["jax", "torch"])
+@pytest.mark.parametrize("writer", ["jax", "torch", "torch-uncompressed"])
 def test_checkpoint_files_cross_packages(tmp_path, writer):
     rng = np.random.default_rng(2)
     arrays = dict(pairs=rng.integers(0, 99, (7, 3)).astype(np.int32),
                   stats=rng.integers(-5, 5, 8).astype(np.int64))
     stores = {"jax": jckpt.CheckpointStore(str(tmp_path)),
               "torch": tckpt.CheckpointStore(str(tmp_path))}
-    stores[writer].save("k1", **arrays)
-    reader = stores["torch" if writer == "jax" else "jax"]
+    if writer == "torch-uncompressed":
+        stores["torch"].save("k1", compressed=False, **arrays)
+    else:
+        stores[writer].save("k1", **arrays)
+    reader = stores["jax" if writer.startswith("torch") else "torch"]
     got = reader.load("k1")
     assert set(got) == set(arrays)
     for name, a in arrays.items():

@@ -94,6 +94,31 @@ def test_k4_cpu_route_matches_pallas_interpret(case):
     assert np.array_equal(ti_j, ti_t) and np.array_equal(tj_j, tj_t)
 
 
+@pytest.mark.parametrize("tile", [None, 32])
+def test_sweep_pallas_entry_matches_pallas_interpret(case, tile):
+    """The port's ``sweep_pallas`` (JAX's arguments and return, K4 behind
+    it) on host words copied to the CPU, and on a CPU tensor, against the
+    Pallas kernel in interpret mode at its default tile (128 rows: one
+    tile here) and at 32."""
+    words, classes, n = case
+    kw = {} if tile is None else dict(tile=tile)
+    if tile is None:  # N_pad 128
+        words = np.concatenate([words, np.zeros((32, 8), np.uint32)])
+        classes = np.concatenate([classes, np.full(32, -1, np.int32)])
+    want = jpc.sweep_pallas(jnp.asarray(words), jnp.asarray(classes), n, 20,
+                            word_block=256, interpret=True, **kw)
+    for got in (tpc.sweep_pallas(words, torch.from_numpy(classes), n, 20,
+                                 word_block=256, device="cpu", **kw),
+                tpc.sweep_pallas(_t(words), torch.from_numpy(classes), n,
+                                 20, **kw)):
+        rs, th, (ti, tj, t) = got
+        assert rs.dtype == torch.int32 and th.shape == (len(ti), 4)
+        assert np.array_equal(np.asarray(want[0]), rs.numpy())
+        assert np.array_equal(np.asarray(want[1]), th.numpy())
+        assert np.array_equal(want[2][0], ti) and t == want[2][2]
+    assert int(th[:, 0].sum()) > 0
+
+
 def test_sweep_dispatch_matches_jax(case):
     """sweep() on CPU tensors is sweep_xla at the given tile, as the JAX
     dispatcher is off the TPU."""

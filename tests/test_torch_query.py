@@ -31,6 +31,7 @@ from uniprot_kmer_based_clustering_tpu_torch.kmers import append as tappend
 from uniprot_kmer_based_clustering_tpu_torch.kmers import encode as tencode
 from uniprot_kmer_based_clustering_tpu_torch.kmers import index as tindex
 from uniprot_kmer_based_clustering_tpu_torch.kmers import bitset as tbitset
+from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import make_mesh
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline as trun
 from uniprot_kmer_based_clustering_tpu_torch.similarity import query as tq
 
@@ -312,8 +313,8 @@ def test_refusals(toy):
         toy.torch_server(mode="gpu")
     with pytest.raises(ValueError, match="unknown stream_source"):
         toy.torch_server(mode="stream", stream_source="disk")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        toy.torch_server(mesh=object())
+    with pytest.raises(ValueError, match="single-device"):
+        toy.torch_server(mode="stream", mesh=make_mesh(2, device=CPU))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             tq.QueryServer(toy.index, toy.bitset)

@@ -312,21 +312,6 @@ def test_make_mesh_devices_and_refusals():
     assert tmesh.pad_for_mesh(10619, 8, 128) == 11264
 
 
-def test_query_server_mesh_stays_refused(toy_fasta):
-    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
-    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
-        run_pipeline,
-    )
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.query import (
-        QueryServer,
-    )
-
-    res = run_pipeline(toy_fasta, PipelineConfig(), device="cpu",
-                       stop_after="pack")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        QueryServer(res.index, res.bitset, mesh=_cpu_mesh(2), device="cpu")
-
-
 @pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_ring_schedule_covers_each_pair_once(d):
     """Every pair i<j of N_pad rows lies in exactly one sub-step (in
@@ -426,47 +411,14 @@ def _synth_fasta(path, n):
     return str(path)
 
 
-def _packless_mesh_run(fasta, kw, mesh):
-    """The packless route through the library: the index's incidence
-    lists staged on the mesh by ``stage_mesh_inputs_csr`` (the dense
-    matrix is never built on the host), the ring sweep and its
-    extraction, components on the mesh. Returns (PairwiseResult,
-    labels)."""
-    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
-    from uniprot_kmer_based_clustering_tpu_torch.models.components import (
-        connected_components_sharded,
-    )
-    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
-        run_pipeline,
-    )
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        PairwiseResult,
-    )
-
-    res = run_pipeline(fasta, PipelineConfig(**kw), device="cpu",
-                       stop_after="pack")
-    n_pad = tmesh.pad_for_mesh(res.bitset.n_pad, mesh.size, 128)
-    words, classes = tsh.stage_mesh_inputs_csr(
-        mesh, res.index.incidence_protein, res.index.incidence_rank, n_pad,
-        res.bitset.w_pad, res.table.amr_class_ids,
-    )
-    n, thr = res.table.n, kw["threshold"]
-    rs, th, _ = tsh.sharded_pairwise_similarity(mesh, words, classes, n, thr)
-    pairs = tsh.sharded_extract_pairs(mesh, words, classes, n, thr,
-                                      expected_total=int(th[:, 0].sum()))
-    return (PairwiseResult.from_row_stats(rs, pairs),
-            connected_components_sharded(mesh, pairs, n))
-
-
 @pytest.mark.parametrize("corpus,d", [("toy", 4), ("synth", 3)])
 @pytest.mark.parametrize("mode", ["two_pass", "fused", "csr"])
 def test_run_pipeline_on_a_mesh_matches_jax(corpus, d, mode, toy_fasta,
                                             tmp_path):
     """run_pipeline(mesh=...) against the JAX pipeline on its mesh: pairs,
-    parity counters and component labels. csr is the packless run: the
-    JAX flat mesh takes its out-of-core stream composition there, which
-    the port refuses (item 14), so the port's side is the CSR staging
-    through the library (:func:`_packless_mesh_run`)."""
+    parity counters and component labels. csr is the packless run: on the
+    flat mesh both packages take the out-of-core stream composition
+    (``parallel/stream_mesh.py``)."""
     from uniprot_kmer_based_clustering_tpu.config import (
         PipelineConfig as JConfig,
     )
@@ -486,39 +438,28 @@ def test_run_pipeline_on_a_mesh_matches_jax(corpus, d, mode, toy_fasta,
                                         {"two_pass": {},
                                          "fused": dict(extract="fused")}[mode])),
                 mesh=jpar.make_mesh(d))
-    if mode == "csr":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            run_pipeline(fasta, PipelineConfig(**kw, **stream),
-                         mesh=_cpu_mesh(d))
-        pairwise, labels = _packless_mesh_run(fasta, kw, _cpu_mesh(d))
-        assert (pairwise.parity_counters()
-                == want.pairwise.parity_counters())
-    else:
-        got = run_pipeline(fasta, PipelineConfig(**kw, **(
-            dict(extract="fused") if mode == "fused" else {})),
-            mesh=_cpu_mesh(d))
-        assert got.parity_report() == want.parity_report()
-        pairwise, labels = got.pairwise, got.cluster_labels
+    got = run_pipeline(fasta, PipelineConfig(**kw, **(
+        stream if mode == "csr" else
+        dict(extract="fused") if mode == "fused" else {})),
+        mesh=_cpu_mesh(d))
+    assert got.parity_report() == want.parity_report()
+    pairwise, labels = got.pairwise, got.cluster_labels
     assert np.array_equal(pairwise.pairs, want.pairwise.pairs)
     assert np.array_equal(labels, want.cluster_labels)
     assert len(pairwise.pairs) > 0
 
 
-@pytest.mark.parametrize("source,exc", [("csr", NotImplementedError),
-                                        ("host", ValueError)])
+@pytest.mark.parametrize("source,exc", [("host", ValueError)])
 def test_run_pipeline_refuses_the_stream_engine_on_a_mesh(source, exc,
                                                           toy_fasta):
-    """engine="stream" on a flat mesh is the JAX package's out-of-core
-    composition (not ported, item 14); with the host block source the
-    JAX pipeline refuses it too. Both raise before any work."""
+    """With the host block source the JAX pipeline refuses the stream
+    engine on every mesh; so does the port, before any work."""
     from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
     from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
         run_pipeline,
     )
 
-    cfg = dict(engine="stream")
-    if source == "csr":
-        cfg["stream_source"] = "csr"
-    with pytest.raises(exc, match="item 14" if source == "csr"
-                       else "requires stream_source='csr'"):
-        run_pipeline(toy_fasta, PipelineConfig(**cfg), mesh=_cpu_mesh(2))
+    with pytest.raises(exc, match="requires stream_source='csr'"):
+        run_pipeline(toy_fasta, PipelineConfig(engine="stream",
+                                               stream_source=source),
+                     mesh=_cpu_mesh(2))

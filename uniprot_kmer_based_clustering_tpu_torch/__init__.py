@@ -23,9 +23,11 @@ Layout:
               the fused triangle sweep (tri_mxu), the popcount engines
               (popcount), each kernel beside its plain PyTorch version, and
               the out-of-core stream engine (stream)
-  parallel/   the flat row ring over a mesh of devices (--devices N):
-              the sweep, extraction, fused pass and CSR staging, with
-              the collectives as device copies
+  parallel/   the mesh engines: the flat row ring (--devices N), the
+              2-D ring (--mesh-shape HxC), the k-axis layout
+              (--shard-axis kmers) and the out-of-core sweep on a flat
+              mesh (stream_mesh.py), with the collectives as device
+              copies
   similarity/ sweep + exact pair extraction (two-pass, fused, one-pass);
               query serving (QueryServer); the shared k-mers of pairs
   models/     connected components (host union-find, device label

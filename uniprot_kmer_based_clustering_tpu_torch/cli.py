@@ -28,9 +28,9 @@ and components run on a mesh as in the JAX CLI: ``--devices N`` the flat
 row ring over the first N cards (or N CPU shards with --device cpu),
 ``--mesh-shape HxC`` the 2-D (hosts × chips) ring, ``--shard-axis
 kmers`` the k-axis layout over --devices N (all visible cards, or one
-CPU shard, by default). --distributed and --engine stream on the flat
-ring are accepted and refused with the ROADMAP item that will bring
-them.
+CPU shard, by default); ``--devices N --engine stream --stream-source
+csr`` runs the out-of-core sweep on the flat mesh. --distributed is
+accepted and refused with the ROADMAP item that will bring it.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
@@ -49,18 +49,10 @@ def _refuse_unported(args) -> None:
         UNPORTED,
     )
 
-    flat = (args.devices > 1 and args.shard_axis == "rows"
-            and not args.mesh_shape)
-    refused = [
-        (args.distributed, "--distributed"),
-        (flat and args.engine == "stream",
-         "--engine stream with --devices > 1 (the flat ring)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise SystemExit(
-                f"not yet ported to the torch package: {what}: {UNPORTED}"
-            )
+    if args.distributed:
+        raise SystemExit(
+            f"not yet ported to the torch package: --distributed: {UNPORTED}"
+        )
 
 
 def _make_mesh(args, device):

@@ -9,4 +9,5 @@ from uniprot_kmer_based_clustering_tpu_torch.models.agglomerative import (  # no
 from uniprot_kmer_based_clustering_tpu_torch.models.components import (  # noqa: F401
     connected_components,
     connected_components_device,
+    connected_components_sharded,
 )

@@ -10,8 +10,9 @@ matrix is never stored.
   the hand-written kernel ``csrc/popcount_sweep.cu`` (K4, the counterpart
   of the Pallas ``sweep_pallas``); on a CPU tensor it runs
   :func:`sweep_reference`, the same sweep tile by tile in plain torch.
-- :func:`sweep_xla` and :func:`sweep` keep the JAX package's signatures:
-  the plain sweep returning numpy arrays, and the engines' dispatcher.
+- :func:`sweep_pallas`, :func:`sweep_xla` and :func:`sweep` keep the JAX
+  package's signatures: K4 behind the Pallas entry's arguments, the plain
+  sweep returning numpy arrays, and the engines' dispatcher.
 
 torch has no popcount op: :func:`popcount32_` counts bits in place with
 the SWAR shifts and masks on int32 (``>>`` is missing for uint32 on the
@@ -34,6 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 from uniprot_kmer_based_clustering_tpu_torch.ops import _build
 from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (
     merge_row_stats_at,
@@ -191,6 +193,23 @@ def popcount_sweep(words, classes, n: int, threshold: int, tile: int,
 
 
 popcount_sweep.launches = 0
+
+
+def sweep_pallas(words, classes, n: int, threshold: int, tile: int = 128,
+                 word_block: int = 512, device="cuda"):
+    """The JAX ``sweep_pallas`` entry — its arguments (``word_block`` is
+    unused there too) and its return, (row_stats int32 [N_pad, 8],
+    tile_hits int32 [nT, 4], (ti, tj, tile)) — on K4 through
+    :func:`popcount_sweep`. ``words`` is an int32 tensor, whose device the
+    sweep runs on, or uint32 numpy [N_pad, W], copied to ``device`` first
+    ("cuda" raises without a GPU). There is no ``interpret`` flag: a CPU
+    tensor takes the plain sweep."""
+    del word_block
+    if not torch.is_tensor(words):
+        words = torch.from_numpy(
+            np.ascontiguousarray(words).view(np.int32)
+        ).to(resolve_device(device))
+    return popcount_sweep(words, classes, n, threshold, tile)
 
 
 def to_host(row_stats, tile_hits, tiles):

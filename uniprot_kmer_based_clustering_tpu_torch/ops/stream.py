@@ -307,11 +307,13 @@ class _BlockFeed:
 
 class _Window:
     """The in-flight bound: the host runs at most ``limit`` steps ahead of
-    the device. Each pushed step records a CUDA event; draining waits for
-    the newest retired step's event (one device runs steps in launch
-    order, so it retires every earlier one) and hands back the retired
-    payloads. No copy, no stream synchronisation. On the CPU steps have
-    run when they return."""
+    the device. Each pushed step records a CUDA event on its device's
+    current stream (``device``: the step's device, default the current
+    one); draining waits for the newest retired step's event of each
+    device (a device runs its steps in launch order, so that retires
+    every earlier one) and hands back the retired payloads. No copy, no
+    stream synchronisation. On the CPU steps have run when they
+    return."""
 
     def __init__(self, device, trace: dict):
         self.cuda = device.type == "cuda"
@@ -319,12 +321,12 @@ class _Window:
         self.pending = []
         trace.setdefault("drain_s", 0.0)
 
-    def push(self, payload=None):
+    def push(self, payload=None, device=None):
         done = None
         if self.cuda:
             done = torch.cuda.Event()
-            done.record()
-        self.pending.append((done, payload))
+            done.record(torch.cuda.current_stream(device))
+        self.pending.append((done, payload, device))
 
     def drain(self, limit: int):
         t0 = time.perf_counter()
@@ -332,10 +334,13 @@ class _Window:
         if len(self.pending) > limit:
             retired = self.pending[: len(self.pending) - limit]
             del self.pending[: len(self.pending) - limit]
-            if retired[-1][0] is not None:
-                retired[-1][0].synchronize()
+            waited = set()
+            for done, _, device in reversed(retired):
+                if done is not None and device not in waited:
+                    waited.add(device)
+                    done.synchronize()
         self.trace["drain_s"] += time.perf_counter() - t0
-        return [payload for _, payload in retired if payload is not None]
+        return [payload for _, payload, _ in retired if payload is not None]
 
 
 def _to_host(*tensors):
@@ -951,6 +956,7 @@ def sweep_extract_stream(
         done_groups.add(s0)
         checkpoint_store.save(
             checkpoint_key,
+            compressed=False,
             geometry=ckpt_geo,
             groups_done=np.array(sorted(done_groups), np.int64),
             row_stats=rs_c,

@@ -1,10 +1,12 @@
 """Multi-device sweeps over a mesh of torch devices (the JAX package's
 ``parallel/``): the flat row ring (``--devices N``), the 2-D (hosts ×
-chips) ring (``--mesh-shape HxC``) and the k-axis layout
-(``--shard-axis kmers``). The JAX package's memoised ``make_ring_*`` and
-``make_kaxis_*`` closures have no counterpart: nothing here is compiled
-ahead. ``stream_mesh.py`` and the multi-process ``--distributed`` path
-are not ported yet (ROADMAP queue 1, item 14)."""
+chips) ring (``--mesh-shape HxC``), the k-axis layout
+(``--shard-axis kmers``) and the out-of-core sweep on a flat mesh
+(``stream_mesh.py``: ``--devices N --engine stream --stream-source
+csr``). The JAX package's memoised ``make_ring_*`` and ``make_kaxis_*``
+closures have no counterpart: nothing here is compiled ahead. The
+multi-process ``--distributed`` path is not ported yet (ROADMAP queue 1,
+item 14c)."""
 
 from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -28,4 +30,7 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (  # noqa: 
     sharded_pairwise_similarity_kaxis,
     stage_mesh_inputs,
     stage_mesh_inputs_csr,
+)
+from uniprot_kmer_based_clustering_tpu_torch.parallel.stream_mesh import (  # noqa: F401
+    sweep_extract_stream_mesh,
 )

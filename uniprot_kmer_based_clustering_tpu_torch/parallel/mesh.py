@@ -1,4 +1,4 @@
-"""Device meshes and the collectives the mesh layouts need.
+"""Device meshes and the collectives the mesh engines need.
 
 Counterpart of the JAX package's ``parallel/mesh.py``. The JAX mesh is
 one process driving N devices through ``shard_map``; the port keeps that
@@ -16,12 +16,17 @@ collectives are copies:
   stationary one;
 - :func:`sum_to_first` (``psum``), :func:`gather_to_first`
   (``all_gather`` / the row-sharded output), :func:`min_to_first`
-  (``pmin``) and :func:`broadcast_from_first` (a replicated operand):
-  copies onto, or from, the first shard's device.
+  (``pmin``), :func:`lane_merge_to_first` (the row statistics' lane
+  rule: lanes 3 and 7 by max, the others by sum) and
+  :func:`broadcast_from_first` (a replicated operand): copies onto, or
+  from, the first shard's device;
+- :func:`all_gather` (``all_gather`` with a replicated result): every
+  shard receives the shards' tensors concatenated in shard order, as a
+  fresh tensor on its own device.
 
-Every schedule of ``parallel/sharded.py`` and the sharded components move
-data only through these functions, so a multi-process transport swaps
-them and not the schedules.
+Every schedule of ``parallel/sharded.py`` and ``parallel/stream_mesh.py``
+and the sharded components move data only through these functions, so a
+multi-process transport swaps them and not the schedules.
 
 A mesh may repeat a device: ``make_mesh(devices=["cuda:0"] * 4)`` runs
 a four-shard ring on one card (each shard's launches queue on the same
@@ -38,10 +43,10 @@ import numpy as np
 import torch
 
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+from uniprot_kmer_based_clustering_tpu_torch.ops.stats import merge_row_stats_at
 
-#: The message tail of every mesh path, flag and entry the port does not
-#: carry yet.
-UNPORTED = "the mesh engines (ROADMAP queue 1, item 14)"
+#: The message tail of the one mesh path the port does not carry yet.
+UNPORTED = "the multi-process --distributed path (ROADMAP queue 1, item 14c)"
 
 
 class Mesh:
@@ -229,6 +234,25 @@ def min_to_first(parts: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
     for p in parts[1:]:
         torch.minimum(out, p.to(dst), out=out)
     return out
+
+
+def lane_merge_to_first(parts: Sequence[torch.Tensor],
+                        mesh: Mesh) -> torch.Tensor:
+    """The shards' ``[R, 8]`` row statistics merged by the lane rule on
+    the first shard's device (a fresh tensor): lanes 3 and 7 (the maxima)
+    by elementwise max, the others by sum."""
+    dst = mesh.devices[0]
+    out = _fresh_copy(parts[0], dst)
+    for p in parts[1:]:
+        merge_row_stats_at(out, p.to(dst), 0)
+    return out
+
+
+def all_gather(parts: Sequence[torch.Tensor], mesh: Mesh) -> list:
+    """The shards' tensors concatenated along dim 0 in shard order, on
+    every shard's device: entry i is a fresh tensor on device i (also
+    where shards share a device), so no shard aliases another's copy."""
+    return [torch.cat([p.to(dev) for p in parts]) for dev in mesh.devices]
 
 
 def broadcast_from_first(t: torch.Tensor, mesh: Mesh) -> list:

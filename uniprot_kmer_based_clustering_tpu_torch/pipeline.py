@@ -130,22 +130,25 @@ def run_pipeline(
     fasta_path: str,
     config: Optional[PipelineConfig] = None,
     checkpoint_dir: Optional[str] = None,
-    device=None,
+    mesh=None,
     echo_timings: bool = False,
     stop_after: Optional[str] = None,
-    mesh=None,
+    device=None,
 ) -> PipelineResult:
     """Run the pipeline on one torch ``device`` ("cuda", the default, or
     "cpu"), or with its sweep on a ``mesh`` (``parallel.make_mesh``,
-    ``make_mesh_2d``, or ``make_mesh(axis="k")``).
+    ``make_mesh_2d``, or ``make_mesh(axis="k")``). The positional
+    arguments are the JAX ``run_pipeline``'s; ``device`` comes last.
 
     On a mesh, the sweep and extraction run the mesh's layout — the flat
-    row ring, the 2-D ring or the k-axis layout
-    (:func:`_sharded_similarity`) — and components the sharded label
-    propagation; the other stages run on the mesh's first device, which
-    ``device`` may name but not contradict. The checkpoint artifacts do
-    not depend on the device layout, so a single-device checkpoint
-    resumes on any mesh and back, in either package.
+    row ring, the 2-D ring or the k-axis layout, or with
+    ``engine="stream"`` on a flat mesh the out-of-core
+    ``parallel.stream_mesh`` (:func:`_sharded_similarity`) — and
+    components the sharded label propagation; the other stages run on the
+    mesh's first device, which ``device`` may name but not contradict.
+    The checkpoint artifacts do not depend on the device layout, so a
+    single-device checkpoint resumes on any mesh and back, in either
+    package.
 
     With ``checkpoint_dir``, the index and pairs artifacts persist and a
     rerun resumes from them; a one-pass ``engine="stream"`` run also
@@ -399,35 +402,26 @@ def _device_index(table: ProteinTable, config: PipelineConfig, device):
 
 
 def _check_mesh_config(mesh, config: PipelineConfig) -> None:
-    """Refuse, before any work, what the mesh path does not carry:
-    ``engine="stream"`` on the flat mesh, whose route is the JAX package's
-    out-of-core composition (``stream_mesh.py``, K2 on its step), not
-    ported. With the host block source the JAX pipeline refuses the
-    stream engine on every mesh; with the CSR source the 2-D ring and
-    the k-axis layout take the packless in-core staging, as JAX's do."""
-    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
-        UNPORTED,
-        mesh_layout,
-    )
-
-    if config.engine != "stream":
-        return
-    if config.stream_source != "csr":
+    """Refuse, before any work, what the mesh path does not carry: with
+    the host block source the JAX pipeline refuses the stream engine on
+    every mesh. With the CSR source the flat mesh runs the out-of-core
+    ``parallel.stream_mesh``, and the 2-D ring and the k-axis layout take
+    the packless in-core staging, as JAX's do."""
+    if config.engine == "stream" and config.stream_source != "csr":
         raise ValueError(
             "engine='stream' on a mesh requires stream_source='csr' "
             "(per-device host-words streaming would re-upload the dense "
             "matrix D times)"
         )
-    if mesh_layout(mesh) == "flat":
-        raise NotImplementedError(
-            f"engine='stream' on a flat mesh (the out-of-core "
-            f"stream_mesh.py) is {UNPORTED}"
-        )
 
 
 def _sharded_similarity(bitset, table, config, mesh, weights=None,
                         index=None) -> PairwiseResult:
-    """The mesh's layout (the JAX pipeline's mesh branch): N_pad padded
+    """The mesh's layout (the JAX pipeline's mesh branch). On a flat
+    mesh ``engine="stream"`` is the out-of-core one-pass
+    ``parallel.stream_mesh.sweep_extract_stream_mesh`` (``bs`` from
+    ``config.strip``, the tile from ``config.tile``, the pair capacity
+    from ``config.extract_k``). Otherwise N_pad is padded
     to devices × 128-row tiles with class −1 rows; the matrix staged once
     — built on the devices from the index's incidence lists under
     ``stream_source="csr"`` (packless), else copied from the packed host
@@ -447,6 +441,39 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
         stage_mesh_inputs_csr,
     )
 
+    if config.stream_source == "csr" and (
+            index is None or not index.has_incidences):
+        raise ValueError(
+            "stream_source='csr' needs the host-built index incidence "
+            "lists"
+        )
+    threshold = (
+        config.effective_weighted_threshold(weights)
+        if weights is not None
+        else config.threshold
+    )
+    if config.engine == "stream" and mesh_layout(mesh) == "flat":
+        # out of core: every shard sweeps its own block pairs from the
+        # replicated incidence lists, so the dense matrix exists nowhere
+        from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+            CSRBlockSource,
+        )
+        from uniprot_kmer_based_clustering_tpu_torch.parallel.stream_mesh import (
+            sweep_extract_stream_mesh,
+        )
+
+        src = CSRBlockSource(index.incidence_protein, index.incidence_rank,
+                             bitset.n_pad, bitset.w_pad)
+        row_stats, _, _, pairs = sweep_extract_stream_mesh(
+            mesh, np.asarray(table.amr_class_ids, np.int32), bitset.n,
+            threshold, block_source=src, bs=config.strip, block=config.tile,
+            weights=weights, cross_amr_only=config.cross_amr_only,
+            cap=config.extract_k or None,
+        )
+        return PairwiseResult.from_row_stats(
+            row_stats, pairs, cross_amr_only=config.cross_amr_only
+        )
+
     sweep = {
         "flat": sharded_pairwise_similarity,
         "2d": sharded_pairwise_similarity_2d,
@@ -457,11 +484,6 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
     classes = np.full(n_pad, -1, dtype=np.int32)
     classes[: bitset.n] = np.asarray(table.amr_class_ids, np.int32)
     if config.stream_source == "csr":
-        if index is None or not index.has_incidences:
-            raise ValueError(
-                "stream_source='csr' needs the host-built index "
-                "incidence lists"
-            )
         words, classes = stage_mesh_inputs_csr(
             mesh, index.incidence_protein, index.incidence_rank, n_pad,
             bitset.w_pad, classes,
@@ -473,11 +495,6 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
             words[: bitset.n_pad] = bitset.words
         words, classes = stage_mesh_inputs(mesh, words, classes)
 
-    threshold = (
-        config.effective_weighted_threshold(weights)
-        if weights is not None
-        else config.threshold
-    )
     if config.extract == "fused":
         row_stats, _, _, pairs = sharded_pairwise_fused(
             mesh, words, classes, bitset.n, threshold,

@@ -20,7 +20,9 @@ threshold/top-k epilogue on the device whose lanes one fetch brings back;
 a query with more hits than the candidate capacity is re-answered exactly
 through the full counts. On the CPU the server instead walks a rank-CSR
 of the corpus incidence lists (the Gustavson structure of the native
-sweep), with bit-identical results.
+sweep), with bit-identical results. On a mesh (``mesh=``) the corpus rows
+are sharded over every shard, each shard answers its rows from its own
+chunks, and the count slices are gathered to the first shard.
 
 ``torch._int_mm`` on CUDA needs more than 16 rows in its first operand and
 multiples of 8 in the contraction and in its second operand's rows. The
@@ -47,6 +49,10 @@ from uniprot_kmer_based_clustering_tpu_torch.kmers.index import KmerIndex
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     int8_gemm,
     unpack_words_to_int8,
+)
+from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+    broadcast_from_first,
+    gather_to_first,
 )
 
 _BLOCK_WORDS = 128  # 4096 bit columns unpacked per contraction step
@@ -109,6 +115,16 @@ def _chunk_product(corpus_words, query_bits, weights):
             corpus_words, (0, 0, 0, _MIN_MM_ROWS - r))
     a = unpack_words_to_int8(corpus_words, weights)
     return int8_gemm(a, query_bits)[:r]
+
+
+def _upload_chunks(words: np.ndarray, device):
+    """Packed rows int32 [R, W] as ``[W/128, R, 128]`` chunks on
+    ``device``, copied up one chunk at a time."""
+    blocks = torch.empty((words.shape[1] // _BLOCK_WORDS, words.shape[0],
+                          _BLOCK_WORDS), dtype=torch.int32, device=device)
+    for b, chunk in enumerate(_word_chunks(words)):
+        blocks[b].copy_(torch.from_numpy(chunk))
+    return blocks
 
 
 def blocked_counts(qwords, corpus_chunks, weights=None):
@@ -192,7 +208,17 @@ class QueryServer:
 
     ``weights`` (int8 [w_pad*32], utils.blosum.rank_weights_int8)
     switches scores to BLOSUM-weighted mode, as in the weighted sweep.
-    ``mesh`` (corpus rows sharded over several devices) is not ported.
+
+    ``mesh`` (``parallel.make_mesh``/``make_mesh_2d``: rows are sharded
+    over every axis, so a 2 × 4 mesh splits 8 ways) makes a device server
+    whose N_pad corpus rows divide evenly over the shards: each shard
+    keeps its rows as 128-word chunks on its device, every batch's query
+    rows go to each shard, and the shards' ``[rows_k, Q]`` count slices
+    are gathered to the first shard, where the full counts are read (no
+    top-k epilogue, as in the JAX package). The latency route is off on a
+    mesh unless ``host_route_max`` is a number; ``mode="host"`` and
+    ``mode="stream"`` raise. ``device`` may name the mesh's first device
+    but not contradict it.
     """
 
     def __init__(
@@ -206,16 +232,20 @@ class QueryServer:
         stream_bs: Optional[int] = None,
         stream_source: str = "auto",
         host_route_max: object = "auto",
-        device="cuda",
+        device=None,
     ):
         if mode not in ("auto", "host", "device", "stream"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "QueryServer(mesh=...) is not yet ported: the mesh engines "
-                "(ROADMAP queue 1, item 14); serve on one device"
-            )
-        self.device = resolve_device(device)
+        self._mesh = mesh
+        if mesh is None:
+            self.device = resolve_device("cuda" if device is None else device)
+        else:
+            if device is not None and resolve_device(device) != mesh.devices[0]:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's first device "
+                    f"{mesh.devices[0]}"
+                )
+            self.device = mesh.devices[0]
         self.index = index
         self.bitset = bitset
         self.weighted = weights is not None
@@ -226,16 +256,18 @@ class QueryServer:
                 np.ascontiguousarray(weights, dtype=np.int8)
             ).to(self.device)
         # LATENCY routing: a batch of ≤ host_route_max queries answers
-        # through the host rank-CSR walk even on device/stream servers
-        # (the CSR is built on first use). "auto" enables the route
-        # (break-even batch 4, the JAX package's) for mode="auto" servers
-        # only — an EXPLICIT mode="device"/"stream" server keeps its
-        # kernel on every batch; a number forces the route on any
-        # non-host server, 0 disables it.
+        # through the host rank-CSR walk even on device/stream/mesh
+        # servers (the CSR is built on first use). "auto" enables the
+        # route (break-even batch 4, the JAX package's) for mode="auto"
+        # servers without a mesh only — an EXPLICIT mode="device"/"stream"
+        # or mesh server keeps its kernel on every batch; a number forces
+        # the route on any non-host server, 0 disables it.
         self._host_route_max = 0
         if index.has_incidences and mode != "host":
             if host_route_max == "auto":
-                self._host_route_max = 4 if mode == "auto" else 0
+                self._host_route_max = (
+                    4 if (mode == "auto" and mesh is None) else 0
+                )
             else:
                 self._host_route_max = int(host_route_max)
         self._host_csr_built = False
@@ -250,6 +282,11 @@ class QueryServer:
         self._blocks = None
         self._stream_mode = mode == "stream"
         if self._stream_mode:
+            if mesh is not None:
+                raise ValueError(
+                    "mode='stream' is single-device (shard a mesh with "
+                    "mesh=... instead)"
+                )
             self._host_mode = False
             # rows per streamed block: ~1.5 GB of packed words by default
             # (word-chunked, so only the packed block plus one unpack chunk
@@ -280,6 +317,12 @@ class QueryServer:
             #: block feed since the server was built
             self.stream_trace = {}
             self._build_stream_source()
+            return
+        if mesh is not None:
+            if mode == "host":
+                raise ValueError("mode='host' is single-process")
+            self._host_mode = False
+            self._build_device_blocks()
             return
         if mode == "auto":
             self._host_mode = (
@@ -321,20 +364,32 @@ class QueryServer:
         chunks, each contiguous. The chunks are copied up one by one from
         strided views of the host matrix, so the device never holds more
         than the one corpus copy (the JAX package pre-blocks on the host
-        above 3 GiB for the same peak)."""
+        above 3 GiB for the same peak). On a mesh each shard holds the
+        chunks ``[W/128, N_pad/D, 128]`` of its own rows on its device,
+        and the weights."""
         bitset = self.bitset
         if bitset.w_pad % _BLOCK_WORDS:
             raise ValueError(
                 f"W_pad {bitset.w_pad} must be a multiple of {_BLOCK_WORDS}"
             )
-        self._blocks = None  # release the old corpus before the new one
+        # release the old corpus before the new one
+        self._blocks = self._shard_blocks = None
         words = np.asarray(bitset.words).view(np.int32)
-        nb = bitset.w_pad // _BLOCK_WORDS
-        blocks = torch.empty((nb, bitset.n_pad, _BLOCK_WORDS),
-                             dtype=torch.int32, device=self.device)
-        for b, chunk in enumerate(_word_chunks(words)):
-            blocks[b].copy_(torch.from_numpy(chunk))
-        self._blocks = blocks
+        if self._mesh is None:
+            self._blocks = _upload_chunks(words, self.device)
+            return
+        d = self._mesh.size
+        if bitset.n_pad % d:
+            raise ValueError(
+                f"N_pad={bitset.n_pad} must divide over {d} devices"
+            )
+        rows = bitset.n_pad // d
+        self._shard_blocks = [
+            _upload_chunks(words[k * rows : (k + 1) * rows], dev)
+            for k, dev in enumerate(self._mesh.devices)
+        ]
+        self._shard_wts = ([None] * d if self._wts is None
+                           else broadcast_from_first(self._wts, self._mesh))
 
     def _build_stream_source(self):
         """(Re)build the block feed from the CURRENT index/bitset — one
@@ -502,19 +557,37 @@ class QueryServer:
         ragged tail zero-padded)."""
         return self._feed.put(row0 // self._stream_bs)
 
+    def _query_rows(self, qwords: np.ndarray, rows: int):
+        """Query rows int32 [rows, W] on the host, zero-padded, in pinned
+        memory when the server is on CUDA (its copies do not block)."""
+        qp = torch.zeros((rows, self.bitset.w_pad), dtype=torch.int32,
+                         pin_memory=self.device.type == "cuda")
+        qp[: qwords.shape[0]] = torch.from_numpy(qwords.view(np.int32))
+        return qp
+
     def _upload_queries(self, qwords: np.ndarray, rows: int):
         """Query rows int32 [rows, W] on the device, zero-padded, through
         pinned memory and a non-blocking copy (no host synchronisation)."""
-        pinned = self.device.type == "cuda"
-        qp = torch.zeros((rows, self.bitset.w_pad), dtype=torch.int32,
-                         pin_memory=pinned)
-        qp[: qwords.shape[0]] = torch.from_numpy(qwords.view(np.int32))
-        return qp.to(self.device, non_blocking=pinned)
+        return self._query_rows(qwords, rows).to(
+            self.device, non_blocking=self.device.type == "cuda")
 
     def _resident_counts(self, qp):
         """int32 [N_pad, Q] counts of the query rows against the resident
         corpus."""
         return blocked_counts(qp, self._blocks, self._wts)
+
+    def _mesh_counts(self, qwords: np.ndarray, nq: int):
+        """int32 [N_pad, Q] counts on the mesh's first device: the query
+        rows go to every shard, each shard counts them against its own
+        rows, and the slices are gathered in shard (row) order."""
+        qp = self._query_rows(qwords, _bucket(nq))
+        parts = [
+            blocked_counts(qp.to(dev, non_blocking=qp.is_pinned()), blocks,
+                           wts)
+            for dev, blocks, wts in zip(self._mesh.devices,
+                                        self._shard_blocks, self._shard_wts)
+        ]
+        return gather_to_first(parts, self._mesh)
 
     def query_async(self, seqs: Sequence[str], threshold: int = 10):
         """Dispatch a batch without any synchronising fetch.
@@ -550,6 +623,11 @@ class QueryServer:
             return {"nq": nq, "threshold": threshold,
                     "host_seqs": list(seqs)}
         qwords = pack_query_bitsets(self.index, seqs, self.bitset.w_pad)
+        if self._mesh is not None:
+            # the full counts: a top-k over the row-sharded counts would
+            # need them on one device anyway
+            return {"nq": nq, "threshold": threshold,
+                    "counts_dev": self._mesh_counts(qwords, nq)}
         qp = self._upload_queries(qwords, _bucket(nq))
         if self._stream_mode:
             return self._stream_async(qwords, qp, nq, threshold)
@@ -640,8 +718,10 @@ class QueryServer:
                 out.append(m[:top] if top is not None else m)
             return out
         if "counts_dev" in handle:
+            # transposed on the device: each query's scan below then reads
+            # one contiguous host row, not a column strided by Q
             counts = handle["counts_dev"][: self.bitset.n, :nq].t()
-            counts = counts.cpu().numpy()
+            counts = counts.contiguous().cpu().numpy()
         else:
             if not self._host_mode and not self._host_csr_built:
                 self._build_host_csr()

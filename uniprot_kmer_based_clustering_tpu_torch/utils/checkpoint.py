@@ -2,7 +2,7 @@
 
 The reference keeps all intermediate state in RAM and restarts from
 scratch on any failure (SURVEY.md §5: no checkpoint/resume). Here every
-stage's arrays are persisted as compressed .npz keyed by a config hash, so
+stage's arrays are persisted as .npz keyed by a config hash, so
 a killed run resumes from the last completed stage and downstream stages
 (clustering, alignment) can be re-run without recomputing the sweep.
 
@@ -37,10 +37,14 @@ class CheckpointStore:
         with np.load(p, allow_pickle=False) as z:
             return {k: z[k] for k in z.files}
 
-    def save(self, key: str, **arrays) -> None:
+    def save(self, key: str, *, compressed: bool = True, **arrays) -> None:
+        """Persist ``arrays`` under ``key``. ``compressed=False`` writes a
+        plain .npz, which either package loads alike: the stream engines'
+        group snapshots, saved at every group boundary, take it, since
+        compressing a 1 MB row-statistics snapshot costs ~0.1 s."""
         p = self.path(key)
         if not p:
             return
         tmp = p[: -len(".npz")] + f".tmp.{os.getpid()}.npz"
-        np.savez_compressed(tmp, **arrays)
+        (np.savez_compressed if compressed else np.savez)(tmp, **arrays)
         os.replace(tmp, p)
