@@ -189,6 +189,36 @@ csrc`` with nvcc (one process per source, in parallel), then:
       each batch, peak memory over the build and one batch under one
       corpus + four unpacked 4,096-column chunks a shard, and none of
       K1–K4 launched.
+12. distributed phase — the multi-process mesh (``cli run
+   --distributed``, ``parallel.init_distributed``): worker processes of
+   this script (``--dist-worker``), started with the torchrun environment
+   and killed after ``DIST_TIMEOUT``, each printing one ``DIST`` JSON
+   line (pairs and labels digests, parity counters, its launches,
+   seconds and transport bytes); the launch counters and the transport
+   counters are set to 0 in every rank just before its main path and
+   read just after:
+   a. NCCL, one rank: ``cli run --distributed`` at 30,000 proteins;
+      pairs.tsv and clusters.tsv byte-equal to phase 2's single-device
+      run; one NCCL ``all_reduce``;
+   b. gloo, 4 ranks sharing the card: ``cli run --distributed --device
+      cuda:0`` at 30,000 (flat ring, D = 4): K1 summed over the ranks =
+      ``count_substeps`` (38), rank 0's files = (a)'s, ranks 1–3 write
+      nothing;
+   c. gloo, 2 ranks × 2 local shards: ``run_pipeline`` at 30,000 on
+      ``make_mesh_2d(2, 2, devices=[card] * 2)``, the host axis across
+      the ranks: K1 summed = ``count_substeps_2d`` (38);
+   d. gloo, 4 ranks: ``--engine stream --stream-source csr --extract
+      onepass`` at 30,000: K2 summed = phase 11's pipeline steps (36);
+      then the library's kill after 2 of 4 groups and a resume from rank
+      0's snapshot, read by every rank;
+   e. gloo, 4 ranks: ``--shard-axis kmers`` at 10,619: K1 summed =
+      ``count_kaxis_strips``; files equal to the oracle and the
+      union-find; beside it one process's D = 4 k mesh;
+   every rank's pairs, parity counters and labels equal the oracle and
+   the union-find; per case the wall seconds, the slowest rank's sweep
+   stage, the transport's bytes and seconds, and the one-process mesh's
+   seconds beside them. The ranks share one card, so no time is a
+   scaling figure, and NCCL with more than one rank does not run here.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -536,7 +566,8 @@ def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
     launched exactly as ``expect`` says (a dict, or a function read after
     the run, for counts the run's own trace reports), and pairs.tsv and
     the parity counters must equal the oracle. Returns the launch
-    counts."""
+    counts; ``cli_run.last_s`` keeps the run's seconds (the CLI call
+    alone)."""
     import numpy as np
 
     from uniprot_kmer_based_clustering_tpu_torch import cli
@@ -544,7 +575,7 @@ def cli_run(dev, fasta, out, flags, want, want_pairs, expect):
     fns = reset_counters()
     t0 = time.perf_counter()
     rc = cli.main(["run", fasta, "--out", out, "--device", dev.type, *flags])
-    cli_s = time.perf_counter() - t0
+    cli_s = cli_run.last_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in fns.items()}
     if rc != 0:
         raise AssertionError(f"cli run {flags} returned {rc}")
@@ -618,14 +649,21 @@ def pipeline_phase(dev, tmp):
     if sched != "scan":
         raise AssertionError(f"{N_SCALE} proteins resolved to {sched}")
     want30, pairs30 = oracle(state30, f"{N_SCALE}")
+    cli30_s = {}
     for extract in ("two_pass", "fused"):
         got = cli_run(dev, fasta30, out, ["--extract", extract], want30,
                       pairs30, {"K1": 0, "K2": steps, "K3": 0, "K4": 0})
+        cli30_s[extract] = cli_run.last_s
         launches["K2"] = got["K2"]
+    # the single-device files that phase 12's distributed run must equal
+    single30 = os.path.join(tmp, "single30")
+    os.makedirs(single30)
+    for f in ("pairs.tsv", "clusters.tsv"):
+        shutil.copy(os.path.join(out, f), single30)
     return (state10, pairs10, state30, pairs30, launches,
             dict(fasta=fasta30, fasta10=fasta10, out=out, want=want30,
-                 want10=want10,
-                 ns10=ns10))
+                 want10=want10, ns10=ns10, single30=single30,
+                 cli30_s=cli30_s["two_pass"]))
 
 
 def popc_bound_ms(pairs: int, words: int, sm_mhz: float) -> float:
@@ -3274,6 +3312,7 @@ def stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in fns.items()}
     tr = dict(stream_mesh.last_mesh_trace)
+    mesh_s["pipeline"] = wall
     got = {k: res.parity_report()[k] for k in want30}
     print(f"run_pipeline(mesh=D{d}, engine='stream', stream_source='csr', "
           f"extract='onepass'): {wall:.3f} s; launches {launches}; bs "
@@ -3395,6 +3434,379 @@ def stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
                 miss_s=miss_s, qps=rates, phase_s=phase_s)
 
 
+# -- phase 12: the multi-process mesh (cli run --distributed) -----------------
+
+DIST_RANKS = 4  # gloo ranks sharing the one card in cases (b), (d), (e)
+DIST_TIMEOUT = 240  # seconds a case's workers may take before they are killed
+DIST_RESUME_GROUP = 2  # max_group of the kill-and-resume: 4 groups at 30k
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _digest(arr) -> str:
+    """sha256 of an integer array as contiguous int64."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(
+        np.ascontiguousarray(arr, dtype=np.int64).tobytes()).hexdigest()
+
+
+def _launch_ranks(spec: dict, world: int) -> list:
+    """Start ``world`` worker processes of this script (``--dist-worker``)
+    with the torchrun environment (MASTER_ADDR, MASTER_PORT, RANK,
+    WORLD_SIZE, LOCAL_RANK) and wait for them; each prints one ``DIST``
+    JSON line. A worker that exits nonzero, or that outlives
+    ``DIST_TIMEOUT``, fails the phase (all workers are killed first).
+    Returns (the lines by rank, the seconds from launch to the last
+    exit)."""
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), RANK=str(r),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(r))
+        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-worker",
+             json.dumps(spec)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, DIST_TIMEOUT - (time.perf_counter() - t0))
+            logs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        raise AssertionError(f"distributed case {spec['case']}: a worker "
+                             f"outlived {DIST_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    lines = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed case {spec['case']}: rank {r} "
+                                 f"exited {p.returncode}:\n{log[-6000:]}")
+        found = [json.loads(x[5:]) for x in log.splitlines()
+                 if x.startswith("DIST ")]
+        if len(found) != 1:
+            raise AssertionError(f"rank {r} printed {len(found)} result "
+                                 f"lines:\n{log[-6000:]}")
+        lines.append(found[0])
+    return lines, wall
+
+
+def _dist_worker(spec: dict) -> int:
+    """One rank of a phase-12 case (``spec["case"]``): joins the world
+    from the torchrun environment, runs the case's main path with the
+    launch counters and the transport counters set to 0 just before,
+    and prints one ``DIST`` JSON line: the pairs and labels digests, the
+    parity counters, its launches, seconds and transport bytes."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from uniprot_kmer_based_clustering_tpu_torch import (
+        PipelineConfig,
+        cli,
+        pipeline,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.ops import _build
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import mesh as pmesh
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh_2d,
+    )
+
+    case = spec["case"]
+    _build.load_kernels()
+    init_distributed(backend=spec["backend"])
+    rank, world = pmesh.world()
+    got = {}
+    real = pipeline.run_pipeline
+
+    def capture(*a, **kw):
+        got["res"] = real(*a, **kw)
+        return got["res"]
+
+    pipeline.run_pipeline = capture
+    fns = reset_counters()
+    pmesh.reset_transport_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if "cli" in spec:
+        out = os.path.join(spec["out"], f"rank{rank}")
+        rc = cli.main(["run", spec["fasta"], "--out", out, "--distributed",
+                       *spec["cli"]])
+        if rc != 0:
+            raise AssertionError(f"cli run returned {rc}")
+    else:
+        dev = spec["device"]
+        mesh = make_mesh_2d(*spec["mesh_2d"], devices=[dev] * spec["local"])
+        out = None
+        capture(spec["fasta"], PipelineConfig(), mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    transport = pmesh.reset_transport_stats()
+    res = got["res"]
+    line = dict(
+        case=case, rank=rank, world=world, seconds=seconds,
+        sweep_s=res.timings.get("sweep"), launches=launches,
+        transport_bytes=transport["bytes"],
+        transport_s=transport["seconds"], transport_calls=transport["calls"],
+        pairs=len(res.pairwise.pairs), pairs_digest=_digest(
+            res.pairwise.pairs),
+        labels_digest=_digest(res.cluster_labels),
+        parity=res.parity_report(),
+        wrote=bool(out) and os.path.exists(out),
+    )
+    if case == "a":
+        # the mesh of one rank moves nothing between ranks; one NCCL
+        # all_reduce shows the library runs on this card
+        t = torch.full((4,), rank + 1.0, device="cuda")
+        dist.all_reduce(t)
+        line["nccl_all_reduce"] = t.tolist()
+    if case == "d":
+        line["resume"] = _dist_resume(spec, res)
+    dist.barrier()
+    print("DIST " + json.dumps(line), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dist_resume(spec, res) -> dict:
+    """Case (d)'s kill and resume through the library: the out-of-core
+    mesh pass at the pipeline's blocking with ``max_group`` 2 (4 groups),
+    killed after 2 groups on every rank, then resumed from rank 0's
+    snapshot, which every rank reads."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        sweep_extract_stream_mesh,
+        stream_mesh,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
+        CheckpointStore,
+    )
+
+    mesh = make_mesh(device=spec["device"])
+    store = CheckpointStore(os.path.join(spec["out"], "ckpt"))
+    src = CSRBlockSource(res.index.incidence_protein,
+                         res.index.incidence_rank, res.bitset.n_pad,
+                         res.bitset.w_pad)
+    kw = dict(block_source=src, max_group=DIST_RESUME_GROUP,
+              checkpoint_store=store, checkpoint_key="resume")
+    classes = np.asarray(res.table.amr_class_ids, np.int32)
+    t0 = time.perf_counter()
+    try:
+        sweep_extract_stream_mesh(mesh, classes, res.table.n, THRESHOLD,
+                                  fail_after_groups=2, **kw)
+        raised = ""
+    except RuntimeError as e:
+        raised = str(e)
+    kill_s = time.perf_counter() - t0
+    snap = store.load("resume")
+    fns = reset_counters()
+    t0 = time.perf_counter()
+    out = sweep_extract_stream_mesh(mesh, classes, res.table.n, THRESHOLD,
+                                    **kw)
+    torch.cuda.synchronize()
+    tr = stream_mesh.last_mesh_trace
+    return dict(raised=raised, kill_s=kill_s,
+                snapshot_groups=(None if snap is None
+                                 else snap["groups_done"].tolist()),
+                seconds=time.perf_counter() - t0,
+                skipped=tr.get("groups_skipped"), g=tr["g"], bs=tr["bs"],
+                steps=tr["steps"], redo_s=tr.get("redo_s"),
+                k2=fns["K2"].launches, pairs_digest=_digest(out[3]))
+
+
+def distributed_phase(dev, tmp, state10, pairs10, ref, pairs30, labels30,
+                      single, smi):
+    """Phase 12 (module doc): ``cli run --distributed`` and
+    ``run_pipeline`` on a multi-process mesh, in worker processes of
+    this script. ``ref`` holds the corpora, the oracle's counters, the
+    30k N_pad, the single-device run's output directory and phase 11's
+    pipeline steps; ``single`` the one-process seconds of phases 2 and
+    9–11, printed beside."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.models.components import (
+        connected_components,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_kaxis_strips,
+        count_substeps,
+        count_substeps_2d,
+        make_mesh,
+        pad_for_mesh,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+
+    t_phase = time.perf_counter()
+    print(f"distributed phase on {smi}: NCCL with one rank, and gloo ranks "
+          f"that all share this one card (NCCL refuses two ranks on one "
+          f"card), so no time here is a scaling figure", flush=True)
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    table10 = state10[0]
+    n10 = table10.n
+    want10, want30 = ref["want10"], ref["want30"]
+    n_pad30 = pad_for_mesh(ref["n_pad30"], DIST_RANKS, 128)
+    cards = torch.cuda.device_count()  # case (a)'s one rank spans them
+    n_pad10 = pad_for_mesh(state10[2].n_pad, DIST_RANKS, 128)
+    labels10 = connected_components(n10, pairs10)
+    # one process's D = 4 k mesh at 10,619, beside case (e)
+    fns = reset_counters()
+    t0 = time.perf_counter()
+    res = run_pipeline(ref["fasta10"], PipelineConfig(),
+                       mesh=make_mesh(devices=[dev] * DIST_RANKS, axis="k"))
+    single["kaxis 10619"] = time.perf_counter() - t0
+    single["kaxis 10619 sweep"] = res.timings["sweep"]
+    if (not np.array_equal(res.pairwise.pairs, pairs10)
+            or fns["K1"].launches != count_kaxis_strips(DIST_RANKS,
+                                                        n_pad10)):
+        raise AssertionError("the one-process k mesh at 10,619 differs")
+    del res
+    want = {
+        "30k": (_digest(pairs30), _digest(labels30), want30),
+        "10k": (_digest(pairs10), _digest(labels10), want10),
+    }
+    dev_name = f"{dev.type}:{dev.index}"
+    cases = [
+        ("a", 1, dict(backend=None, fasta=ref["fasta30"], cli=[]), "30k",
+         {"K1": count_substeps(cards, pad_for_mesh(ref["n_pad30"], cards,
+                                                   128))},
+         "single device (phase 2)"),
+        ("b", DIST_RANKS, dict(backend="gloo", fasta=ref["fasta30"],
+                               cli=["--device", dev_name]), "30k",
+         {"K1": count_substeps(DIST_RANKS, n_pad30)}, "flat D=4 (phase 9)"),
+        ("c", 2, dict(backend="gloo", fasta=ref["fasta30"], device=dev_name,
+                      mesh_2d=[2, 2], local=2), "30k",
+         {"K1": count_substeps_2d(2, 2, n_pad30)}, "2-D 2x2 (phase 10)"),
+        ("d", DIST_RANKS, dict(backend="gloo", fasta=ref["fasta30"],
+                               device=dev_name,
+                               cli=["--device", dev_name, "--engine",
+                                    "stream", "--stream-source", "csr",
+                                    "--extract", "onepass"]), "30k",
+         {"K2": ref["stream_steps"]}, "out of core D=4 "
+         "(phase 11)"),
+        ("e", DIST_RANKS, dict(backend="gloo", fasta=ref["fasta10"],
+                               cli=["--device", dev_name, "--shard-axis",
+                                    "kmers"]), "10k",
+         {"K1": count_kaxis_strips(DIST_RANKS, n_pad10)},
+         "k axis D=4 at 10,619 (this phase, one process)"),
+    ]
+    beside = {"a": single["single 30k"], "b": single["flat"],
+              "c": single["2d"], "d": single["stream"],
+              "e": single["kaxis 10619"]}
+    launches = {}
+    summary = {}
+    for case, world, spec, corpus, expect, single_name in cases:
+        spec = dict(spec, case=case,
+                    out=os.path.join(tmp, f"dist_{case}"))
+        lines, wall = _launch_ranks(spec, world)
+        pd, ld, parity_want = want[corpus]
+        totals = {k: sum(x["launches"][k] for x in lines)
+                  for k in ("K1", "K2", "K3", "K4")}
+        for k in ("K1", "K2", "K3", "K4"):
+            if totals[k] != expect.get(k, 0):
+                raise AssertionError(
+                    f"case {case}: launches summed over the ranks {totals}, "
+                    f"expected {expect}")
+        for x in lines:
+            got = {k: x["parity"][k] for k in parity_want}
+            if (x["pairs_digest"] != pd or x["labels_digest"] != ld
+                    or got != parity_want):
+                raise AssertionError(
+                    f"case {case} rank {x['rank']}: pairs, labels or parity "
+                    f"{got} differ from the oracle and the union-find")
+        if "cli" in spec:
+            wrote = [x["wrote"] for x in lines]
+            if wrote != [True] + [False] * (world - 1):
+                raise AssertionError(f"case {case}: ranks wrote {wrote}")
+            rank0 = os.path.join(spec["out"], "rank0")
+            same_as = {"a": ref["single30"], "e": None}.get(
+                case, os.path.join(tmp, "dist_a", "rank0"))
+            for f in ("pairs.tsv", "clusters.tsv"):
+                with open(os.path.join(rank0, f), "rb") as fh:
+                    mine = fh.read()
+                if same_as is not None:
+                    with open(os.path.join(same_as, f), "rb") as fh:
+                        if fh.read() != mine:
+                            raise AssertionError(
+                                f"case {case}: rank 0's {f} differs from "
+                                f"{same_as}")
+            if case == "e":
+                if not np.array_equal(read_pairs_tsv(
+                        os.path.join(rank0, "pairs.tsv")), pairs10):
+                    raise AssertionError("case e: pairs.tsv != the oracle")
+                if not np.array_equal(_tsv_labels(
+                        os.path.join(rank0, "clusters.tsv")), labels10):
+                    raise AssertionError("case e: clusters.tsv != the "
+                                         "union-find")
+        if case == "a" and lines[0]["nccl_all_reduce"] != [1.0] * 4:
+            raise AssertionError("case a: the NCCL all_reduce is wrong")
+        if case == "d":
+            for x in lines:
+                rs = x["resume"]
+                if ("fault injection" not in rs["raised"]
+                        or rs["snapshot_groups"] is None
+                        or len(rs["snapshot_groups"]) != 2
+                        or rs["skipped"] != 2 or rs["pairs_digest"] != pd):
+                    raise AssertionError(f"case d rank {x['rank']}: the kill "
+                                         f"and resume failed: {rs}")
+            rs = [x["resume"] for x in lines]
+            print(f"  case d kill and resume (max_group "
+                  f"{DIST_RESUME_GROUP}: bs {rs[0]['bs']}, g {rs[0]['g']}): "
+                  f"every rank raised after 2 groups and read rank 0's "
+                  f"snapshot of groups {rs[0]['snapshot_groups']}; killed run "
+                  f"{max(r['kill_s'] for r in rs):.3f} s, resume "
+                  f"{max(r['seconds'] for r in rs):.3f} s (redo on rank 0 "
+                  f"{rs[0]['redo_s']}), K2 on the resume "
+                  f"{sum(r['k2'] for r in rs)} = steps "
+                  f"{sum(r['steps'] for r in rs)}, groups skipped "
+                  f"{rs[0]['skipped']}; pairs = the oracle on every rank",
+                  flush=True)
+        sweep = max(x["sweep_s"] for x in lines)
+        tb = sum(x["transport_bytes"] for x in lines)
+        ts = max(x["transport_s"] for x in lines)
+        print(f"case {case} ({world} rank(s), {spec['backend'] or 'nccl'}, "
+              f"{corpus}): wall {wall:.3f} s from launch to the last exit; "
+              f"ranks' own seconds {[round(x['seconds'], 3) for x in lines]}; "
+              f"slowest rank's sweep stage {sweep:.3f} s; transport "
+              f"{tb} bytes handed over by all ranks, {ts:.3f} s on the "
+              f"slowest rank ({sum(x['transport_calls'] for x in lines)} "
+              f"calls); launches summed over the ranks {totals} (per rank "
+              f"{[x['launches'] for x in lines]}); {lines[0]['pairs']} pairs, "
+              f"identical on every rank and equal to the oracle; one "
+              f"process's {single_name}: {beside[case]:.3f} s", flush=True)
+        launches[case] = totals
+        summary[case] = dict(wall=wall, sweep_s=sweep, transport_bytes=tb,
+                             transport_s=ts, single_s=beside[case])
+    phase_s = time.perf_counter() - t_phase
+    print(f"distributed phase: every rank's result identical and equal to "
+          f"the oracle; {phase_s:.3f} s", flush=True)
+    return dict(launches=launches, summary=summary, phase_s=phase_s)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -3405,6 +3817,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA GPU visible to torch", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return _dist_worker(json.loads(sys.argv[2]))
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3451,6 +3865,17 @@ def main() -> int:
         smesh = stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30,
                                   pairs30, scan["sweep_s"], st["onepass_s"],
                                   mesh["labels30"], smi)
+        dph = distributed_phase(
+            dev, tmp, state10, pairs10,
+            dict(fasta30=run30["fasta"], fasta10=run30["fasta10"],
+                 want30=run30["want"], want10=run30["want10"],
+                 n_pad30=state30[2].n_pad, single30=run30["single30"],
+                 stream_steps=smesh["launches"]["pipeline"]),
+            pairs30, mesh["labels30"],
+            {"single 30k": run30["cli30_s"],
+             "flat": mesh["runs"]["two-pass"]["wall"],
+             "2d": lay["runs"]["2d two-pass"]["wall"],
+             "stream": smesh["mesh_s"]["pipeline"]}, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3493,7 +3918,12 @@ def main() -> int:
             "kaxis_ms": lay["k1_k"]["ms"],
             "kaxis_plain_ms": lay["k1_k"]["plain_ms"],
             "kaxis_bound_ms": lay["k1_k"]["bound_ms"],
+            "ring_strip_ms": mesh["k1_strip"]["ms"],
+            "ring_strip_plain_ms": mesh["k1_strip"]["plain_ms"],
+            "ring_strip_bound_ms": mesh["k1_strip"]["bound_ms"],
             "stream_mesh_launches": 0,
+            "distributed_launches": {c: v["K1"] for c, v
+                                     in dph["launches"].items()},
         },
         {
             "name": "stats_from_counts_traced",
@@ -3515,6 +3945,8 @@ def main() -> int:
             "ring_launches": 0,
             "layout_launches": 0,
             "stream_mesh_launches": smesh["launches"],
+            "distributed_launches": {c: v["K2"] for c, v
+                                     in dph["launches"].items()},
         },
         {
             "name": "sweep_tri_mxu",

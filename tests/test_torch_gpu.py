@@ -10,6 +10,8 @@ installed:
 Tolerance: exact equality (integer statistics, pair lists, labels).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1337,3 +1339,179 @@ def test_stream_mesh_loop_does_not_synchronise(cuda, monkeypatch):
     for a, b in zip(got[:2] + got[3:], want[:2] + want[3:]):
         assert np.array_equal(a, b)
     assert len(want[3]) > 1000
+
+
+# -- the multi-process mesh over gloo on a shared card ------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dist_tests():
+    """tests/test_torch_distributed.py, loaded by its path: a ``tests``
+    package installed elsewhere may shadow this directory's name."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_distributed.py")
+    spec = importlib.util.spec_from_file_location("_torch_dist_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _gloo_card_scenarios(rank, world, shards, out_dir, fasta):
+    """The scenarios of a gloo world whose ranks share cuda:0, ``shards``
+    of it a rank: the collectives on CUDA tensors (staged through the
+    pinned host buffer), the flat ring and the out-of-core mesh, with the
+    kernels' launch counters."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import mesh as tmesh
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        sharded_extract_pairs,
+        sharded_pairwise_similarity,
+        stream_mesh,
+    )
+
+    dt = _dist_tests()
+    _collectives, _problem = dt._collectives, dt._problem
+    _stream_problem = dt._stream_problem
+    card = torch.device("cuda", 0)
+
+    def mesh():
+        return tmesh.make_mesh(devices=[card] * shards)
+
+    def collectives():
+        m = mesh()
+        out = {}
+        for name, v in _collectives(m, tmesh, card).items():
+            for i in m.local if isinstance(v, list) else ():
+                assert v[i].device == card
+                out[f"{name}/{i}"] = v[i].cpu().numpy()
+            if not isinstance(v, list):
+                # the ring's fresh-buffer flags are host booleans
+                assert v.device == card or name.endswith("_fresh")
+                out[name] = v.cpu().numpy()
+        out["pinned"] = bool(tmesh._staging["buf"].is_pinned())
+        out["transport_bytes"] = tmesh.reset_transport_stats()["bytes"]
+        return out
+
+    def ring():
+        bs, classes, n = _problem(1024)
+        fns = _kernel_counters()
+        for fn in fns:
+            fn.launches = 0
+        rs, th, _ = sharded_pairwise_similarity(mesh(), bs.words, classes,
+                                                n, 4)
+        pairs = sharded_extract_pairs(mesh(), bs.words, classes, n, 4)
+        return dict(row_stats=rs, tile_hits=th, pairs=pairs,
+                    launches=np.array([fn.launches for fn in fns]))
+
+    def stream():
+        rows, cols, n, n_pad, w_pad, classes = _stream_problem()
+        fns = _kernel_counters()
+        for fn in fns:
+            fn.launches = 0
+        rs, th, _, pairs = stream_mesh.sweep_extract_stream_mesh(
+            mesh(), classes, n, 4, block=32, bs=64,
+            block_source=CSRBlockSource(rows, cols, n_pad, w_pad))
+        return dict(row_stats=rs, tile_hits=th, pairs=pairs,
+                    steps=stream_mesh.last_mesh_trace["steps"],
+                    launches=np.array([fn.launches for fn in fns]))
+
+    return [("collectives", collectives), ("ring", ring),
+            ("stream", stream)]
+
+
+@pytest.fixture(scope="module")
+def gloo_card_world(tmp_path_factory):
+    """Two gloo ranks sharing cuda:0 with two shards each (D = 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return _dist_tests()._launch(tmp_path_factory.mktemp("gloo_card"), 2, 2,
+                                 "-", script=__file__)
+
+
+def _rank_values(world, key):
+    for r in world:
+        scen = key.split("/")[0]
+        assert f"{scen}/error" not in r, r[f"{scen}/error"]
+    return [r[key] for r in world]
+
+
+@pytest.mark.parametrize("name", ["ring_flat", "ring_h", "ring_c", "gather",
+                                  "sum", "min", "lane", "all_gather",
+                                  "broadcast"])
+def test_gloo_transport_on_cuda_tensors(gloo_card_world, name):
+    """Each collective on CUDA tensors of two gloo ranks sharing the card
+    (staged through a pinned host buffer, results fresh tensors on the
+    card) equals the one-process CPU mesh's."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import mesh as tmesh
+
+    want = _dist_tests()._collectives(tmesh.make_mesh(4, device="cpu"), tmesh)[name]
+    for r, ranks in enumerate(gloo_card_world):
+        assert "collectives/error" not in ranks, ranks["collectives/error"]
+        assert ranks["collectives/pinned"]
+        assert ranks["collectives/transport_bytes"] > 0
+        if isinstance(want, list):
+            for i in (2 * r, 2 * r + 1):
+                assert np.array_equal(ranks[f"collectives/{name}/{i}"],
+                                      want[i].numpy())
+        else:
+            assert np.array_equal(ranks[f"collectives/{name}"],
+                                  want.numpy())
+        if name.startswith("ring"):
+            assert ranks[f"collectives/{name}_fresh"]
+
+
+@pytest.mark.parametrize("scenario", ["ring", "stream"])
+def test_distributed_mesh_on_a_shared_card_matches_cpu(gloo_card_world,
+                                                       scenario):
+    """The flat ring (sweep, extraction) and the out-of-core one pass on
+    two gloo ranks × two shards of the card equal the one-process CPU
+    mesh on every rank; K1 (the ring's sub-steps) or K2 (the steps)
+    launches summed over the ranks equal the one-process counts, and no
+    other kernel runs."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
+        CSRBlockSource,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_substeps,
+        make_mesh,
+        sharded_extract_pairs,
+        sharded_pairwise_similarity,
+        stream_mesh,
+    )
+
+    dt = _dist_tests()
+    host = make_mesh(4, device="cpu")
+    if scenario == "ring":
+        bs, classes, n = dt._problem(1024)
+        rs, th, _ = sharded_pairwise_similarity(host, bs.words, classes, n,
+                                                4)
+        want = dict(row_stats=rs, tile_hits=th, pairs=sharded_extract_pairs(
+            host, bs.words, classes, n, 4))
+        launches = [count_substeps(4, 1024), 0, 0, 0]
+    else:
+        rows, cols, n, n_pad, w_pad, classes = dt._stream_problem()
+        rs, th, _, pairs = stream_mesh.sweep_extract_stream_mesh(
+            host, classes, n, 4, block=32, bs=64,
+            block_source=CSRBlockSource(rows, cols, n_pad, w_pad))
+        want = dict(row_stats=rs, tile_hits=th, pairs=pairs)
+        steps = stream_mesh.last_mesh_trace["steps"]
+        assert sum(_rank_values(gloo_card_world, "stream/steps")) == steps
+        launches = [0, steps, 0, 0]
+    for key, value in want.items():
+        for got in _rank_values(gloo_card_world, f"{scenario}/{key}"):
+            assert np.array_equal(got, value), key
+    assert len(want["pairs"]) > 100
+    total = sum(_rank_values(gloo_card_world, f"{scenario}/launches"))
+    assert total.tolist() == launches
+
+
+if __name__ == "__main__":
+    import sys
+
+    r, w, p, s, out, fasta = sys.argv[1:7]
+    _dist_tests()._worker(int(r), int(w), int(p), int(s), out, fasta,
+                          scenarios=_gloo_card_scenarios)

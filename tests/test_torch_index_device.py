@@ -285,7 +285,8 @@ def test_cli_run_device_index_matches_jax_cli(toy_fasta, tmp_path, capsys,
     from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
 
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
-    flags = ["--index-engine", "device", "--k", k, "--threshold", "2"]
+    flags = ["--index-engine", "device", "--engine", "mxu", "--k", k,
+             "--threshold", "2"]
     assert jmain(["run", toy_fasta, "--cpu", "--out", jout, *flags]) == 0
     assert tmain(["run", toy_fasta, "--device", "cpu", "--out", tout,
                   *flags]) == 0

@@ -327,14 +327,18 @@ def test_extract_pairs_in_windows_matches_whole(toy, monkeypatch):
 
 @pytest.mark.parametrize("knob,raises,match", [
     (dict(engine="stream", tile=16), None, None),
-    (dict(extract="onepass"), ValueError, "stream-engine mode"),
-    (dict(index_engine="device"), None, None),
+    (dict(engine="mxu", extract="onepass"), ValueError,
+     "stream-engine mode"),
+    (dict(engine="mxu", tile=16, strip=32, index_engine="device"), None,
+     None),
 ])
 def test_unported_knobs_raise(toy, knob, raises, match):
     """Knobs refused until they were ported now run and give the JAX
     result (the stream engine; a config naming the device index build,
     whose bitset the sweep takes like any other); the one-pass mode on any
-    other engine raises the JAX package's ValueError."""
+    other engine raises the JAX package's ValueError. Every case names
+    its engine: "auto" resolves on the CPU by whether the JAX package's
+    native library loaded, which the port cannot follow."""
     table, _, bitset, _ = toy
     cfg = PipelineConfig(**knob)
     if raises is None:

@@ -240,20 +240,6 @@ def test_cuda_without_gpu_raises(toy_fasta, tmp_path):
     assert not (tmp_path / "o").exists()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--distributed"],
-])
-def test_cli_refuses_unported_flags(toy_fasta, tmp_path, flags):
-    """The mesh path still to port (item 14c: the multi-process path) is
-    refused, before any output."""
-    from uniprot_kmer_based_clustering_tpu_torch.cli import main as tmain
-
-    with pytest.raises(SystemExit, match="not yet ported.*item 14"):
-        tmain(["run", toy_fasta, "--device", "cpu", "--out",
-               str(tmp_path / "o"), *flags])
-    assert not (tmp_path / "o").exists()
-
-
 def test_cli_accepts_cpu_and_profile(toy_fasta, tmp_path, capsys):
     """--cpu is --device cpu (no GPU is asked for, so none is missed), and
     --profile DIR runs the pipeline under torch.profiler and leaves a
@@ -365,9 +351,9 @@ def test_layout_checkpoints_cross_packages(toy_fasta, tmp_path, layout):
 
 
 # The root-importable names docs/API.md lists, by subpackage ("" is the
-# package root). Left out: init_distributed (the multi-process path, item
-# 14c) and the make_ring_* / make_kaxis_* closures, which the port does
-# not keep (ROADMAP, "Not to port": nothing is compiled ahead).
+# package root). Left out: the make_ring_* / make_kaxis_* closures, which
+# the port does not keep (ROADMAP, "Not to port": nothing is compiled
+# ahead).
 API_NAMES = {
     "": ["cluster_fasta", "PipelineConfig"],
     "io": ["read_fasta", "ProteinTable"],
@@ -381,7 +367,8 @@ API_NAMES = {
                    "pairs_as_array", "unpack_pairs"],
     "ops": ["sweep_pallas", "sweep_xla", "pairwise_counts_xla", "sweep",
             "ROW_STAT_NAMES", "upper_triangle_tiles"],
-    "parallel": ["make_mesh", "make_mesh_2d", "pad_for_mesh",
+    "parallel": ["init_distributed", "make_mesh", "make_mesh_2d",
+                 "pad_for_mesh",
                  "stage_mesh_inputs", "stage_mesh_inputs_csr",
                  "sweep_extract_stream_mesh", "sharded_pairwise_similarity",
                  "sharded_pairwise_similarity_2d",

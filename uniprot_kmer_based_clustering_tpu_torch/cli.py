@@ -1,7 +1,7 @@
 """Command-line interface of the PyTorch port.
 
   python -m uniprot_kmer_based_clustering_tpu_torch.cli run <fasta>
-      [--device {cuda,cpu}] [--k {5,7}] [--threshold N]
+      [--device {cuda,cuda:N,cpu}] [--k {5,7}] [--threshold N]
       [--weighted-threshold N] [--sampling {all,random10}] [--seed N]
       [--weighting {none,blosum62}]
       [--cluster {components,tree,agglomerative,none}] [--min-shared N]
@@ -9,8 +9,8 @@
       [--extract {auto,two_pass,fused,onepass}] [--extract-k N]
       [--stream-source {host,csr}] [--index-engine {host,device}]
       [--devices N] [--mesh-shape HxC] [--shard-axis {rows,kmers}]
-      [--all-pairs] [--align {none,diamond,sw,auto}] [--diamond]
-      [--dump-kmers] [--dump-proteins] [--dump-debug]
+      [--distributed] [--all-pairs] [--align {none,diamond,sw,auto}]
+      [--diamond] [--dump-kmers] [--dump-proteins] [--dump-debug]
       [--checkpoint-dir DIR] [--out DIR] [--profile DIR] [--cpu]
       [--verbose]
 
@@ -29,8 +29,20 @@ row ring over the first N cards (or N CPU shards with --device cpu),
 ``--mesh-shape HxC`` the 2-D (hosts × chips) ring, ``--shard-axis
 kmers`` the k-axis layout over --devices N (all visible cards, or one
 CPU shard, by default); ``--devices N --engine stream --stream-source
-csr`` runs the out-of-core sweep on the flat mesh. --distributed is
-accepted and refused with the ROADMAP item that will bring it.
+csr`` runs the out-of-core sweep on the flat mesh.
+
+``--distributed`` runs the same mesh over several processes, one rank a
+card, as the JAX CLI runs one process a host::
+
+  torchrun --nproc-per-node N -m uniprot_kmer_based_clustering_tpu_torch.cli \\
+      run FASTA --out DIR --distributed
+
+Each rank joins the world from the torchrun environment
+(``parallel.init_distributed``: NCCL, or gloo with ``--device cpu``) and
+the mesh spans every rank's card (``cuda:LOCAL_RANK``, or the card
+``--device cuda:N`` names), or ``--devices N`` shards of the world;
+``--mesh-shape HxC`` and ``--shard-axis kmers`` lay it out as in one
+process. Every rank runs the whole pipeline; only rank 0 writes files.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
 """
 
@@ -40,32 +52,36 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import sys
 
 
-def _refuse_unported(args) -> None:
-    """Raise SystemExit for a flag the port does not carry yet."""
-    from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
-        UNPORTED,
+def _device_name(name: str) -> str:
+    """argparse type of ``--device``: ``cuda``, ``cuda:N`` or ``cpu``."""
+    if name == "cpu" or re.fullmatch(r"cuda(:\d+)?", name):
+        return name
+    raise argparse.ArgumentTypeError(
+        f"invalid device {name!r} (cuda, cuda:N or cpu)"
     )
-
-    if args.distributed:
-        raise SystemExit(
-            f"not yet ported to the torch package: --distributed: {UNPORTED}"
-        )
 
 
 def _make_mesh(args, device):
     """The mesh of the JAX CLI's flags on ``device``'s type, else None:
     ``--mesh-shape HxC`` the 2-D ring's; ``--shard-axis kmers`` a k-axis
     mesh over ``--devices N`` (every visible card when no count is given;
-    one CPU shard on the CPU); ``--devices N`` (N > 1) the flat ring's.
-    Too few cards exit with JAX's message."""
+    one CPU shard on the CPU); ``--devices N`` (N > 1) or
+    ``--distributed`` the flat ring's. Under ``--distributed`` the mesh
+    spans the world (``parallel.make_mesh``): each rank's card, the one
+    ``--device`` names, or ``--devices N`` shards in all. Too few cards
+    exit with JAX's message."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         make_mesh,
         make_mesh_2d,
     )
 
+    # one process: the first cards of the type; several: each rank's own
+    # card unless --device names one
+    device = device.type if args.cpu or not args.distributed else args.device
     try:
         if args.mesh_shape:
             if args.shard_axis == "kmers":
@@ -74,12 +90,13 @@ def _make_mesh(args, device):
                     "mutually exclusive sharding layouts"
                 )
             hc, cc = (int(x) for x in args.mesh_shape.lower().split("x"))
-            return make_mesh_2d(hc, cc, device=device.type)
-        if args.shard_axis == "kmers":
+            return make_mesh_2d(hc, cc, device=device)
+        if args.shard_axis == "kmers" or args.distributed:
             return make_mesh(args.devices if args.devices >= 1 else None,
-                             axis="k", device=device.type)
+                             axis="k" if args.shard_axis == "kmers" else "p",
+                             device=device)
         if args.devices > 1:
-            return make_mesh(args.devices, device=device.type)
+            return make_mesh(args.devices, device=device)
     except ValueError as e:
         flag = (f"--mesh-shape {args.mesh_shape}" if args.mesh_shape
                 else f"--devices {args.devices}")
@@ -113,11 +130,19 @@ def cmd_run(args) -> int:
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
     from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
 
-    _refuse_unported(args)
     device = resolve_device("cpu" if args.cpu else args.device)
+    rank = 0
+    if args.distributed:
+        from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
+            init_distributed,
+            world,
+        )
+
+        init_distributed(backend="gloo" if device.type == "cpu" else None)
+        rank = world()[0]
     mesh = _make_mesh(args, device)
     if mesh is not None:
-        device = mesh.devices[0]
+        device = mesh.home
     config = PipelineConfig(
         k=args.k,
         threshold=args.threshold,
@@ -135,7 +160,7 @@ def cmd_run(args) -> int:
         stream_source=args.stream_source,
         run_diamond=args.diamond,
     )
-    with _profile(args.profile, device):
+    with _profile(args.profile if rank == 0 else None, device):
         result = run_pipeline(
             args.fasta,
             config,
@@ -144,6 +169,10 @@ def cmd_run(args) -> int:
             echo_timings=args.verbose,
             mesh=mesh,
         )
+    if rank != 0:
+        # every rank computed the replicated result; only rank 0 writes
+        # (ranks on a shared filesystem would race on the same files)
+        return 0
 
     os.makedirs(args.out, exist_ok=True)
     table = result.table
@@ -365,9 +394,11 @@ def main(argv=None) -> int:
 
     r = sub.add_parser("run", help="run the full pipeline")
     r.add_argument("fasta")
-    r.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="cuda raises when no GPU is visible; the CPU "
-                        "runs the kernels' plain versions")
+    r.add_argument("--device", default="cuda", type=_device_name,
+                   help="cuda, cuda:N or cpu; cuda raises when no GPU is "
+                        "visible; the CPU runs the kernels' plain "
+                        "versions. With --distributed, cuda:N pins every "
+                        "rank to card N (ranks sharing a card need gloo)")
     r.add_argument("--k", type=int, default=5, choices=(5, 7))
     r.add_argument("--threshold", type=int, default=10,
                    help="keep pairs sharing > threshold k-mers")
@@ -416,7 +447,10 @@ def main(argv=None) -> int:
                         "--devices N (all visible cards by default)")
     r.add_argument("--mesh-shape", default=None, metavar="HxC",
                    help="the 2-D (hosts x chips) ring over H*C devices")
-    r.add_argument("--distributed", action="store_true")
+    r.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed world (the torchrun "
+                        "environment; NCCL, gloo with --device cpu) and "
+                        "shard the sweep over every rank's card")
     r.add_argument("--checkpoint-dir", default=None)
     r.add_argument("--out", default="ukc_out")
     r.add_argument("--diamond", action="store_true",

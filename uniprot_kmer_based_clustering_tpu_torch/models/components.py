@@ -91,8 +91,10 @@ def connected_components_sharded(mesh, pairs, n: int):
     elementwise minimum on the first device (JAX's ``pmin``), then halves
     pointers; one scalar read a round tests the fixpoint. Min-reductions
     are order-free, so the labels equal the host union-find's for every
-    device count. The edges shard over every device of the mesh. Returns
-    int32 numpy [n]."""
+    device count. The edges shard over every device of the mesh; across
+    processes each rank scatters its own shards' edges, the minimum and
+    the labels' broadcast cross ranks, and every rank returns the same
+    labels. Returns int32 numpy [n]."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         broadcast_from_first,
         min_to_first,
@@ -105,10 +107,13 @@ def connected_components_sharded(mesh, pairs, n: int):
     padded = np.zeros((m_pad, 2), dtype=np.int64)
     padded[: edges.shape[0]] = edges
     shards = shard_rows(mesh, padded)
-    labels = torch.arange(n, dtype=torch.int64, device=mesh.devices[0])
+    labels = torch.arange(n, dtype=torch.int64, device=mesh.home)
     while True:
         parts = []
         for lab, e in zip(broadcast_from_first(labels, mesh), shards):
+            if e is None:
+                parts.append(None)
+                continue
             pi, pj = e[:, 0], e[:, 1]
             m = torch.minimum(lab[pi], lab[pj])
             new = lab.scatter_reduce(0, pi, m, "amin", include_self=True)

@@ -4,12 +4,15 @@ chips) ring (``--mesh-shape HxC``), the k-axis layout
 (``--shard-axis kmers``) and the out-of-core sweep on a flat mesh
 (``stream_mesh.py``: ``--devices N --engine stream --stream-source
 csr``). The JAX package's memoised ``make_ring_*`` and ``make_kaxis_*``
-closures have no counterpart: nothing here is compiled ahead. The
-multi-process ``--distributed`` path is not ported yet (ROADMAP queue 1,
-item 14c)."""
+closures have no counterpart: nothing here is compiled ahead. Every
+mesh also spans several processes (``--distributed``): after
+:func:`init_distributed` each rank runs the same program on its own
+shards, the collectives cross ranks through ``torch.distributed``, and
+every rank returns the same result."""
 
 from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
+    init_distributed,
     make_mesh,
     make_mesh_2d,
     mesh_layout,

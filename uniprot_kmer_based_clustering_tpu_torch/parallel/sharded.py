@@ -73,6 +73,19 @@ JAX) and tile hits are the same for any S. Extraction and the fused pass
 compact from the same summed counts on the first device (JAX's
 replicated compaction, done once).
 
+**Across processes** (a mesh over a ``torch.distributed`` world,
+``parallel.mesh``): each rank stages, multiplies and compacts only its
+own shards (``Mesh.local``), the shifts and reductions cross ranks, and
+the schedules do not change, so the K1 launches summed over the ranks
+equal :func:`count_substeps`, :func:`count_substeps_2d` or
+:func:`count_kaxis_strips`. A k-axis strip's summed counts reach every
+rank, but only the first shard's rank runs K1 and the compaction on
+them, as the first device does in one process. Every wrapper returns the
+replicated result on every rank (JAX ``_replicate_row_stats``): the row
+statistics, tile hits and pair prefixes are gathered to every rank, and
+each rank sorts the same pair list. A check that reads only local shards
+is agreed over the ranks, so that all raise together.
+
 The JAX package builds each pass as a memoised ``make_ring_*`` /
 ``make_kaxis_*`` closure so that ``jit`` does not retrace; the port has
 no compiled closures to keep, so those makers have no counterpart here.
@@ -108,6 +121,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
     Mesh,
+    agree,
     broadcast_from_first,
     gather_to_first,
     mesh_layout,
@@ -323,9 +337,10 @@ def _check_shards(mesh: Mesh, words_s, block_tile: int) -> int:
     """A ring's row shards: equal, and N_pad a multiple of D tiles.
     Returns N_pad."""
     d = mesh.size
-    block = words_s[0].shape[0]
+    mine = [words_s[i] for i in mesh.local]
+    block = mine[0].shape[0]
     n_pad = block * d
-    if any(w.shape != words_s[0].shape for w in words_s) or (
+    if any(w.shape != mine[0].shape for w in mine) or (
             n_pad % (d * block_tile)):
         raise ValueError(
             f"N_pad={n_pad} must be divisible by devices×block_tile="
@@ -341,16 +356,21 @@ def _check_kaxis_width(w_words: int, d: int) -> None:
         )
 
 
-def _check_zero_padding(words_s, n: int) -> None:
+def _check_zero_padding(mesh: Mesh, words_s, n: int) -> None:
     """Rows at and past ``n`` must be all-zero (module doc); one read of
-    the padding rows."""
-    block = words_s[0].shape[0]
-    for d, w in enumerate(words_s):
+    the padding rows of each local shard, agreed over the ranks."""
+    block = words_s[mesh.local[0]].shape[0]
+    bad = None
+    for d in mesh.local:
         lo = max(0, n - d * block)
-        if lo < block and bool(w[lo:].any()):
-            raise ValueError(
-                f"rows from n={n} on must be all-zero bitsets (shard {d})"
-            )
+        if lo < block and bool(words_s[d][lo:].any()):
+            bad = d
+            break
+    if agree(bad is not None, mesh):
+        raise ValueError(
+            f"rows from n={n} on must be all-zero bitsets"
+            + (f" (shard {bad})" if bad is not None else "")
+        )
 
 
 def _as_int32(arr):
@@ -366,19 +386,19 @@ def _as_int32(arr):
 
 def _shard_cols(mesh: Mesh, t: torch.Tensor) -> list:
     """Column shard d of a ``[R, C]`` tensor (C divisible by D) on device
-    d, each a contiguous copy."""
+    d, each a contiguous copy (this rank's shards; None at the others)."""
     cw = t.shape[1] // mesh.size
-    out = []
-    for d, dev in enumerate(mesh.devices):
+    out: list = [None] * mesh.size
+    for d in mesh.local:
         part = t[:, d * cw : (d + 1) * cw]
-        out.append(torch.empty(part.shape, dtype=part.dtype,
-                               device=dev).copy_(part))
+        out[d] = torch.empty(part.shape, dtype=part.dtype,
+                             device=mesh.devices[d]).copy_(part)
     return out
 
 
 def _replicate(mesh: Mesh, t: torch.Tensor) -> list:
     """``t`` on every device of the mesh (the first entry on the first)."""
-    return broadcast_from_first(t.to(mesh.devices[0]), mesh)
+    return broadcast_from_first(t.to(mesh.home), mesh)
 
 
 def stage_mesh_inputs(mesh: Mesh, words, classes):
@@ -450,15 +470,16 @@ def stage_mesh_inputs_csr(mesh: Mesh, incidence_protein, incidence_rank,
             p, r = p[order], r[order]
         rows, ranks, valid = split_incidence_blocks(p, r, n_pad // d, d)
         bs, w = n_pad // d, w_pad
-    words_s = []
-    for b, dev in enumerate(mesh.devices):
-        words_s.append(_materialize_block(
+    words_s: list = [None] * d
+    for b in mesh.local:
+        dev = mesh.devices[b]
+        words_s[b] = _materialize_block(
             torch.from_numpy(rows[b : b + 1]).to(dev),
             torch.from_numpy(ranks[b : b + 1]).to(dev),
             torch.from_numpy(valid[b : b + 1]).to(dev),
             torch.tensor(_BIT, dtype=torch.int32, device=dev), 0,
             bs=bs, w=w,
-        ))
+        )
     cls = np.full(n_pad, -1, np.int32)
     ids = np.asarray(classes, np.int32)[:n_pad]
     cls[: ids.shape[0]] = ids
@@ -491,7 +512,7 @@ def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
     words_s, classes_s = stage_mesh_inputs(mesh, words, classes)
     kaxis = mesh_layout(mesh) == "kaxis"
     if kaxis:
-        n_pad = words_s[0].shape[0]
+        n_pad = words_s[mesh.local[0]].shape[0]
         if n_pad % block_tile:
             raise ValueError(
                 f"N_pad={n_pad} must be divisible by block_tile="
@@ -499,18 +520,22 @@ def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
             )
     else:
         n_pad = _check_shards(mesh, words_s, block_tile)
-        _check_zero_padding(words_s, n)
+        _check_zero_padding(mesh, words_s, n)
     weights_s = None
     if weights is not None:
         w0 = (weights if torch.is_tensor(weights)
               else torch.from_numpy(np.asarray(weights, np.int8)))
-        w0 = w0.to(device=mesh.devices[0], dtype=torch.int8)
-        w_words = words_s[0].shape[1] * (mesh.size if kaxis else 1)
+        w0 = w0.to(device=mesh.home, dtype=torch.int8)
+        w_words = words_s[mesh.local[0]].shape[1] * (mesh.size if kaxis
+                                                     else 1)
         if w0.shape != (w_words * 32,):
             raise ValueError("weights must be int8 [W*32]")
-        weights_s = ([part.to(dev) for part, dev
-                      in zip(w0.chunk(mesh.size), mesh.devices)]
-                     if kaxis else broadcast_from_first(w0, mesh))
+        if kaxis:
+            parts = w0.chunk(mesh.size)
+            weights_s = [parts[d].to(dev) if d in mesh.local else None
+                         for d, dev in enumerate(mesh.devices)]
+        else:
+            weights_s = broadcast_from_first(w0, mesh)
     return _Staged(words_s, classes_s, weights_s, n_pad)
 
 
@@ -631,19 +656,20 @@ def _ring_steps(mesh: Mesh, words_s, classes_s, block: int,
 
 def _new_outputs(mesh: Mesh, rows: int, nb: int, *, stats: bool, cap: int,
                  window: int, owners: int):
-    """The accumulators of a pass on the first ``owners`` devices:
-    row_stats [rows, 8] and hits [nb, nb, 2] with ``stats``, pair
-    buffers of ``cap`` plus one ``window`` of slack with ``cap``; None
-    where unused."""
-    devs = mesh.devices[:owners]
+    """The accumulators of a pass on the first ``owners`` devices (this
+    rank's among them; None at the others): row_stats [rows, 8] and hits
+    [nb, nb, 2] with ``stats``, pair buffers of ``cap`` plus one
+    ``window`` of slack with ``cap``; None where unused."""
+    devs = [dev if d in mesh.local else None
+            for d, dev in enumerate(mesh.devices[:owners])]
     row_stats = hits = bufs = None
     if stats:
-        row_stats = [torch.empty((rows, 8), dtype=torch.int32, device=dev)
-                     for dev in devs]
-        hits = [torch.zeros((nb, nb, 2), dtype=torch.int32, device=dev)
-                for dev in devs]
+        row_stats = [dev and torch.empty((rows, 8), dtype=torch.int32,
+                                         device=dev) for dev in devs]
+        hits = [dev and torch.zeros((nb, nb, 2), dtype=torch.int32,
+                                    device=dev) for dev in devs]
     if cap:
-        bufs = [_new_pair_buffers(cap + window, dev) for dev in devs]
+        bufs = [dev and _new_pair_buffers(cap + window, dev) for dev in devs]
     return row_stats, hits, bufs
 
 
@@ -652,18 +678,19 @@ def _ring_pass(mesh: Mesh, st: _Staged, *, threshold: int,
                cross_amr_only: bool = True):
     """One pass of a ring (flat or 2-D) over staged shards. Each sub-step
     multiplies its stationary rows by the moving rows its shard holds and
-    feeds :func:`_substep_outputs` at the ring's fake offsets. Returns
-    (row_stats [block, 8] per shard, hits [nb, nb, 2] per shard, pair
-    buffers per shard); the unused ones are None."""
-    block, w_words = st.words[0].shape
+    feeds :func:`_substep_outputs` at the ring's fake offsets; a rank runs
+    its own shards' sub-steps. Returns (row_stats [block, 8] per shard,
+    hits [nb, nb, 2] per shard, pair buffers per shard); the unused ones
+    are None, as are other ranks' shards."""
+    block, w_words = st.words[mesh.local[0]].shape
     wc = ring_word_chunk(block, w_words)
     row_stats, hits, bufs = _new_outputs(
         mesh, block, st.n_pad // block_tile, stats=stats, cap=cap,
         window=append_window(block), owners=mesh.size)
     for moving_w, moving_c, step in _ring_steps(mesh, st.words, st.classes,
                                                 block, block_tile):
-        for d, subs in enumerate(step):
-            for sub in subs:
+        for d in mesh.local:
+            for sub in step[d]:
                 r0, r1 = sub.r0, sub.r0 + sub.rows
                 c0, c1 = sub.c0, sub.c0 + sub.cols
                 counts = counts_window_pair(
@@ -692,14 +719,16 @@ def _kaxis_pass(mesh: Mesh, st: _Staged, *, n: int, threshold: int,
     """One k-axis pass (module doc) over staged column shards: each strip's
     partial counts on every device, summed on the first
     (:func:`sum_to_first`), then :func:`_substep_outputs` at the strip's
-    real offsets and ``n``. The outputs live on the first device only.
-    Returns ([row_stats [N_pad, 8]], [hits [nb, nb, 2]], [pair buffers]),
-    the unused ones None."""
-    n_pad, ws = st.words[0].shape
+    real offsets and ``n``. The outputs live on the first device only
+    (across processes: the sum reaches every rank, and only the first
+    shard's rank runs the outputs). Returns ([row_stats [N_pad, 8]],
+    [hits [nb, nb, 2]], [pair buffers]), the unused ones None."""
+    n_pad, ws = st.words[mesh.local[0]].shape
     row_stats, hits, bufs = _new_outputs(
         mesh, n_pad, n_pad // block_tile, stats=stats, cap=cap,
         window=append_window(n_pad), owners=1)
-    cls = st.classes[0]
+    cls = st.classes[mesh.local[0]]
+    first = mesh.local[0] == 0
     for sub in kaxis_strips(mesh.size, n_pad, block_tile):
         r0, r1 = sub.r0, sub.r0 + sub.rows
         wc = _word_chunk(sub.rows + sub.cols, ws, RING_UNPACK_BYTES)
@@ -707,10 +736,14 @@ def _kaxis_pass(mesh: Mesh, st: _Staged, *, n: int, threshold: int,
             counts_window_pair(
                 w[r0:r1], w[r0:], None if st.weights is None
                 else st.weights[d], word_chunk=wc)
+            if d in mesh.local else None
             for d, w in enumerate(st.words)
         ]
         counts = sum_to_first(parts, mesh)
         del parts
+        if not first:
+            del counts
+            continue
         out = _substep_outputs(
             counts, cls[r0:r1], cls[r0:], sub, r0, r0, n,
             threshold=threshold, block_tile=block_tile,
@@ -752,13 +785,14 @@ def _gather_pairs(mesh: Mesh, bufs, cap: int):
     """Every owner's occupied buffer prefix, concatenated on the first
     device, sorted by (i, j) and fetched: (pairs int32 [M, 3] or None when
     the pass overflowed ``cap``, the survivor total M). One host read of
-    the cursors."""
-    cursors = gather_to_first([b[3].reshape(1) for b in bufs], mesh)
+    the cursors. Every rank returns the same."""
+    cursors = gather_to_first([b and b[3].reshape(1) for b in bufs], mesh)
     counts = [int(c) for c in cursors.cpu()]
     total = sum(counts)
     if total > cap:
         return None, total
-    parts = [[b[f][:c] for b, c in zip(bufs, counts)] for f in range(3)]
+    parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
+             for f in range(3)]
     arr = _sort_pairs(*(gather_to_first(p, mesh) for p in parts))
     return arr.cpu().numpy(), total
 
@@ -937,13 +971,13 @@ def doc_freq_psum(mesh: Mesh, codes, valid, k: int):
     bincount per shard (``kmers.index.doc_freq_dense_device``), summed on
     the first device. ``codes``/``valid`` are [N, L] (numpy or tensors,
     N divisible by the mesh size) or shards. Returns int32 [21^k] on the
-    first device."""
+    first device (across processes: on every rank's home device)."""
     from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (
         doc_freq_dense_device,
     )
 
     parts = [
-        doc_freq_dense_device(c, v, k)
+        None if c is None else doc_freq_dense_device(c, v, k)
         for c, v in zip(shard_rows(mesh, codes), shard_rows(mesh, valid))
     ]
     return sum_to_first(parts, mesh)

@@ -37,12 +37,21 @@ Shards that share a card queue on one stream: their time is the sum.
 Integer sums and maxima are associative, so any partition gives the same
 statistics, and the final (i, j) sort makes the pair list independent of
 it: the result equals the single-device engine's for every D.
+
+Across processes (a mesh over a ``torch.distributed`` world) each rank
+stages, builds and sweeps only its own shards, the stack's all-gather
+and the final merges cross ranks, and every rank returns the same
+result; the K2 launches summed over the ranks equal the one-process
+mesh's steps. A resumed run reads the same snapshot on every rank; only
+the first shard's rank seeds its accumulators with it, writes the
+snapshots (the ``CheckpointStore`` writes on rank 0 only, and every rank
+waits for the write at each group boundary) and runs a redo, whose
+pairs it broadcasts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 import zlib
 from typing import Optional
@@ -69,6 +78,8 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
     Mesh,
     _fresh_copy,
     all_gather,
+    barrier,
+    broadcast_array,
     gather_to_first,
     lane_merge_to_first,
     mesh_layout,
@@ -121,7 +132,7 @@ def _stage(mesh: Mesh, block_source: CSRBlockSource, classes, weights,
            bs: int, nbk: int):
     """The replicated staging: the per-block incidence split, once, and a
     fresh copy of it, the bit table, the classes and the weights on every
-    shard's device."""
+    local shard's device (None at the other ranks' shards)."""
     split = split_incidence_blocks(block_source._p, block_source._r, bs,
                                    nbk)
     host = [torch.from_numpy(a) for a in split]
@@ -129,15 +140,16 @@ def _stage(mesh: Mesh, block_source: CSRBlockSource, classes, weights,
     bit_h = torch.tensor(_BIT, dtype=torch.int32)
     w_h = (None if weights is None else torch.from_numpy(
         np.ascontiguousarray(weights, dtype=np.int8)))
-    shards = []
-    for dev in mesh.devices:
+    shards: list = [None] * mesh.size
+    for k in mesh.local:
+        dev = mesh.devices[k]
         rows, ranks, valid = (_fresh_copy(a, dev) for a in host)
-        shards.append(_Shard(
+        shards[k] = _Shard(
             device=dev, rows=rows, ranks=ranks, valid=valid,
             bit=_fresh_copy(bit_h, dev),
             cls=list(_fresh_copy(cls_h, dev).split(bs)),
             wts=None if w_h is None else _fresh_copy(w_h, dev),
-        ))
+        )
     return shards
 
 
@@ -270,12 +282,13 @@ def sweep_extract_stream_mesh(
 
     # + one [bs, bs] window of slack rows a shard for the append
     vcap_l = vcap + bs * bs
-    for sh in shards:
+    mine = [sh for sh in shards if sh is not None]
+    for sh in mine:
         sh.state = (
             torch.zeros((n_pad, 8), dtype=torch.int32, device=sh.device),
             torch.zeros((nb, nb, 2), dtype=torch.int32, device=sh.device),
         ) + _new_pair_buffers(vcap_l, sh.device)
-    if prior_groups:
+    if prior_groups and shards[0] is not None:
         # a restored snapshot seeds the first shard's accumulators, as in
         # the single-device engine: the merges below then carry it
         shards[0].state[0].copy_(torch.from_numpy(snap["row_stats"]))
@@ -289,17 +302,18 @@ def sweep_extract_stream_mesh(
         "d": d, "word_chunk": int(word_chunk), "vcap": int(vcap),
         "overflow": False, "scan_chunk": int(scan_chunk),
     }
-    window = _Window(mesh.devices[0], trace)
+    window = _Window(mesh.home, trace)
     step_kw = dict(n=n, threshold=threshold, block=block, w_thresh=w_thresh,
                    word_chunk=word_chunk, cross_amr_only=cross_amr_only)
 
     def merged():
         """The shards' statistics merged on the first shard, and their
         cursors: one fetch."""
-        rs_t = lane_merge_to_first([sh.state[0] for sh in shards], mesh)
-        bh_t = sum_to_first([sh.state[1] for sh in shards], mesh)
-        cur_t = gather_to_first([sh.state[5].reshape(1) for sh in shards],
-                                mesh)
+        rs_t = lane_merge_to_first([sh and sh.state[0] for sh in shards],
+                                   mesh)
+        bh_t = sum_to_first([sh and sh.state[1] for sh in shards], mesh)
+        cur_t = gather_to_first(
+            [sh and sh.state[5].reshape(1) for sh in shards], mesh)
         return _to_host(rs_t, bh_t, cur_t)
 
     def group_boundary(s0):
@@ -320,6 +334,8 @@ def sweep_extract_stream_mesh(
             row_stats=rs_c,
             block_hits=bh_c,
         )
+        # no rank reads a snapshot before the first rank has written it
+        barrier(mesh)
         trace["ckpt_s"] = trace.get("ckpt_s", 0.0) + (
             time.perf_counter() - t0
         )
@@ -347,18 +363,18 @@ def sweep_extract_stream_mesh(
             stacks = None
             window.drain(0)
         t0 = time.perf_counter()
-        parts = []
-        for k, sh in enumerate(shards):
-            part = torch.empty((gpd, bs, w_words), dtype=torch.int32,
-                               device=sh.device)
+        parts: list = [None] * d
+        for k in mesh.local:
+            sh = shards[k]
+            parts[k] = torch.empty((gpd, bs, w_words), dtype=torch.int32,
+                                   device=sh.device)
             for t in range(gpd):
-                part[t] = sh.block(min(s0 + k * gpd + t, nbk - 1), bs,
-                                   w_words)
-            parts.append(part)
+                parts[k][t] = sh.block(min(s0 + k * gpd + t, nbk - 1), bs,
+                                       w_words)
         stacks = all_gather(parts, mesh)
-        del parts, part
+        del parts
         trace["dispatch_s"] += time.perf_counter() - t0
-        trace["uploads"] += gpd * d
+        trace["uploads"] += gpd * len(mine)
         trace["launches"] += 1
 
         jbs = np.arange(s0, nbk)
@@ -373,7 +389,8 @@ def sweep_extract_stream_mesh(
                                for i in range(0, len(seg), scan_chunk)])
         rounds = max(len(c) for c in seg_chunks)
         for r in range(rounds):
-            for k, sh in enumerate(shards):
+            for k in mesh.local:
+                sh = shards[k]
                 if r >= len(seg_chunks[k]):
                     continue
                 t0 = time.perf_counter()
@@ -394,8 +411,8 @@ def sweep_extract_stream_mesh(
                 trace["dispatch_s"] += time.perf_counter() - t0
                 window.push(device=sh.device)
             trace["launches"] += 1
-            if len(window.pending) > 2 * inflight * d:
-                window.drain(inflight * d)
+            if len(window.pending) > 2 * inflight * len(mine):
+                window.drain(inflight * len(mine))
         group_boundary(s0)
     del stacks
     window.drain(0)
@@ -437,22 +454,28 @@ def sweep_extract_stream_mesh(
         trace["groups_skipped"] = len(prior_groups)
 
     def grouped(tile_hits_wanted):
+        """The grouped extractor on the first shard's device; across
+        processes the first shard's rank runs it and broadcasts the
+        pairs."""
         t0 = time.perf_counter()
-        out = extract_pairs_stream_grouped(
-            None, classes, tile_hits_wanted, tiles, n=n,
-            threshold=threshold, cross_amr_only=cross_amr_only,
-            weights=weights, hbm_budget_bytes=hbm_budget_bytes,
-            inflight=inflight, block_source=block_source, bs=bs,
-            word_chunk=word_chunk, max_group=max_group,
-            pair_format=pair_format, device=mesh.devices[0],
-        )
+        out = None
+        if shards[0] is not None:
+            out = extract_pairs_stream_grouped(
+                None, classes, tile_hits_wanted, tiles, n=n,
+                threshold=threshold, cross_amr_only=cross_amr_only,
+                weights=weights, hbm_budget_bytes=hbm_budget_bytes,
+                inflight=inflight, block_source=block_source, bs=bs,
+                word_chunk=word_chunk, max_group=max_group,
+                pair_format=pair_format, device=mesh.devices[0],
+            )
+        out = broadcast_array(out, mesh)
         trace["redo_s"] = trace.get("redo_s", 0.0) + (
             time.perf_counter() - t0)
         return out
 
     def release():
         # the shards' pair buffers go before a grouped pass allocates its own
-        for sh in shards:
+        for sh in mine:
             sh.state = ()
 
     if (expected > vcap).any():
@@ -467,7 +490,7 @@ def sweep_extract_stream_mesh(
                 f"device, sweep stats promised {expected.tolist()}"
             )
         t0 = time.perf_counter()
-        pairs = _fetch_mesh_pairs(mesh, [sh.state for sh in shards],
+        pairs = _fetch_mesh_pairs(mesh, [sh and sh.state for sh in shards],
                                   cursors, total - total_prior, pair_format,
                                   n_pad)
         trace["fetch_s"] += time.perf_counter() - t0
@@ -487,9 +510,7 @@ def sweep_extract_stream_mesh(
                 )
                 pairs = a[np.lexsort((a[:, 1], a[:, 0]))]
     if ckpt_on:
-        p = checkpoint_store.path(checkpoint_key)
-        if p and os.path.exists(p):
-            os.remove(p)
+        checkpoint_store.remove(checkpoint_key)
     global last_mesh_trace
     last_mesh_trace = trace
     return rs.astype(np.int64), tile_hits, tiles, pairs
@@ -500,10 +521,11 @@ def _fetch_mesh_pairs(mesh: Mesh, states, cursors, total: int,
     """Each shard's live pair prefix ``[0, cursor_k)`` gathered to the
     first shard's device (exactly ``total`` lanes), sorted there by
     (i, j) and fetched once (``similarity.pairwise._fetch_sorted_pairs``:
-    packed int64 when it fits and was asked for, else [M, 3])."""
+    packed int64 when it fits and was asked for, else [M, 3]); across
+    processes every rank gathers, sorts and fetches the same list."""
     bi, bj, bc = (
-        gather_to_first([st[f][: int(c)] for st, c in zip(states, cursors)],
-                        mesh)
+        gather_to_first([st and st[f][: int(c)]
+                         for st, c in zip(states, cursors)], mesh)
         for f in (2, 3, 4)
     )
     return _fetch_sorted_pairs(bi, bj, bc, total, pair_format, n_rows)

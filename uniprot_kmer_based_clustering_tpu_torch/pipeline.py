@@ -146,6 +146,11 @@ def run_pipeline(
     ``parallel.stream_mesh`` (:func:`_sharded_similarity`) — and
     components the sharded label propagation; the other stages run on the
     mesh's first device, which ``device`` may name but not contradict.
+    On a mesh that spans several processes (``parallel.init_distributed``)
+    every rank calls this with the same arguments: the host stages run
+    replicated on each rank, the other stages on the rank's first local
+    device, and every rank returns the one-process result; only rank 0
+    writes checkpoints.
     The checkpoint artifacts do not depend on the device layout, so a
     single-device checkpoint resumes on any mesh and back, in either
     package.
@@ -173,12 +178,12 @@ def run_pipeline(
         device = resolve_device("cuda" if device is None else device)
     else:
         _check_mesh_config(mesh, config)
-        if device is not None and resolve_device(device) != mesh.devices[0]:
+        if device is not None and resolve_device(device) != mesh.home:
             raise ValueError(
                 f"device {device!r} is not the mesh's first device "
-                f"{mesh.devices[0]}"
+                f"{mesh.home}"
             )
-        device = mesh.devices[0]
+        device = mesh.home
     store = CheckpointStore(checkpoint_dir)
     timers = StageTimers(echo=echo_timings)
 

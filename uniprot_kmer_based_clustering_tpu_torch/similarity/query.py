@@ -217,7 +217,8 @@ class QueryServer:
     are gathered to the first shard, where the full counts are read (no
     top-k epilogue, as in the JAX package). The latency route is off on a
     mesh unless ``host_route_max`` is a number; ``mode="host"`` and
-    ``mode="stream"`` raise. ``device`` may name the mesh's first device
+    ``mode="stream"`` raise; a mesh that spans several processes raises
+    (ROADMAP item 14d). ``device`` may name the mesh's first device
     but not contradict it.
     """
 
@@ -240,6 +241,12 @@ class QueryServer:
         if mesh is None:
             self.device = resolve_device("cuda" if device is None else device)
         else:
+            if mesh.multiprocess:
+                raise ValueError(
+                    "QueryServer on a mesh that spans several processes is "
+                    "not ported yet (ROADMAP queue 1, item 14d); build the "
+                    "server on one process's mesh"
+                )
             if device is not None and resolve_device(device) != mesh.devices[0]:
                 raise ValueError(
                     f"device {device!r} is not the mesh's first device "

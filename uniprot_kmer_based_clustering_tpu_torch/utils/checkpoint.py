@@ -8,15 +8,29 @@ a killed run resumes from the last completed stage and downstream stages
 
 The port's own copy of the JAX package's ``utils/checkpoint.py``: the same
 file format and keys, so a checkpoint directory written by either package
-resumes in the other. The port runs one process, so every save writes.
+resumes in the other. In a ``torch.distributed`` world of several
+processes (``cli run --distributed``) the artifacts are replicated and
+only rank 0 writes or removes them, as only JAX process 0 does (ranks
+share the checkpoint filesystem); every rank loads.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 from typing import Dict, Optional
 
 import numpy as np
+
+
+def _writes() -> bool:
+    """False on a rank other than 0 of a multi-process torch world. Only
+    a process that made a group has ``torch.distributed`` loaded with one
+    initialised, so this numpy-only module imports nothing for it."""
+    dist = sys.modules.get("torch.distributed")
+    return not (dist is not None and dist.is_available()
+                and dist.is_initialized() and dist.get_world_size() > 1
+                and dist.get_rank() != 0)
 
 
 class CheckpointStore:
@@ -43,8 +57,14 @@ class CheckpointStore:
         group snapshots, saved at every group boundary, take it, since
         compressing a 1 MB row-statistics snapshot costs ~0.1 s."""
         p = self.path(key)
-        if not p:
+        if not p or not _writes():
             return
         tmp = p[: -len(".npz")] + f".tmp.{os.getpid()}.npz"
         (np.savez_compressed if compressed else np.savez)(tmp, **arrays)
         os.replace(tmp, p)
+
+    def remove(self, key: str) -> None:
+        """Delete ``key``'s artifact, if there is one (rank 0 only)."""
+        p = self.path(key)
+        if p and _writes() and os.path.exists(p):
+            os.remove(p)
