@@ -9,7 +9,8 @@ csrc`` with nvcc (one process per source, in parallel), then:
 1. kernel phase — K1 against its plain PyTorch version on the card at the
    strip shapes of the 10,619-protein path; exact equality;
 2. pipeline phase — the port's ``cli run --device cuda`` on synthetic
-   corpora (``bench_scale.synth_proteins``, seed 0), each run with every
+   corpora (``benches.common.synth_proteins``, the repository's
+   ``bench_scale.synth_proteins``, seed 0), each run with every
    kernel launch counter reset just before it and read just after; the
    pair list and the four parity counters must equal an independent
    scipy ``B·Bᵀ`` oracle (taken in row chunks) exactly:
@@ -219,6 +220,17 @@ csrc`` with nvcc (one process per source, in parallel), then:
    stage, the transport's bytes and seconds, and the one-process mesh's
    seconds beside them. The ranks share one card, so no time is a
    scaling figure, and NCCL with more than one rank does not run here.
+13. benches phase — the port's three benches, each a subprocess on the
+   card (killed after ``BENCH_TIMEOUT``) whose last line is its JSON
+   result, printed here: ``cli bench`` (the headline, 10,619 synthetic
+   proteins) must report the scipy oracle's counters of phase 2a and K1
+   launched once a strip (7) by a warm sweep, K2 not at all;
+   ``benches.engines`` at 10,619 must have every row exact (``value ==
+   engines_total``, no row skipped but the C++ engine where it is not
+   built); ``benches.scale`` at 30,000 with its default stages must pass
+   its oracle gate, report phase 2c's pairs over threshold and cross
+   pairs, and K2 once a scan step (45) by a warm sweep, K1 not at all.
+   Each must exit 0 with no ``error``.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -452,7 +464,9 @@ def write_fasta(path: str, n: int) -> None:
     parses."""
     for k in [k for k in os.environ if k.startswith("UKC_SCALE_")]:
         del os.environ[k]
-    from bench_scale import synth_proteins
+    from uniprot_kmer_based_clustering_tpu_torch.benches.common import (
+        synth_proteins,
+    )
 
     seq_buf, offsets, classes = synth_proteins(n, seed=0)
     with open(path, "w") as f:
@@ -3807,6 +3821,78 @@ def distributed_phase(dev, tmp, state10, pairs10, ref, pairs30, labels30,
     return dict(launches=launches, summary=summary, phase_s=phase_s)
 
 
+# -- phase 13: the benches ----------------------------------------------------
+
+BENCH_TIMEOUT = 420  # seconds a bench subprocess may take before it is killed
+
+
+def _bench_line(label: str, argv: list, smi: str) -> dict:
+    """Run ``python -m *argv`` on the card as a user would (no bench knob
+    of this environment passed on) and return its last line, the JSON
+    result; exit 0 and no ``error`` required."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("UKC_BENCH_", "UKC_SCALE_", "UKC_ENGINES_"))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(
+            f"bench {label} exited {proc.returncode}: "
+            f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    print(f"bench {label} ({secs:.3f} s, {smi}): {lines[-1]}", flush=True)
+    if "error" in line:
+        raise AssertionError(f"bench {label}: {line['error']}")
+    line["_seconds"] = secs
+    return line
+
+
+def benches_phase(want10, want30, steps30, smi):
+    """The port's three benches (docstring, phase 13), each against the
+    oracle of phase 2. Returns their lines."""
+    import torch
+
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    t_phase = time.perf_counter()
+    head = _bench_line("cli bench", [f"{PKG}.cli", "bench"], smi)
+    if head["counters"] != want10:
+        raise AssertionError(f"cli bench counters {head['counters']} != "
+                             f"the oracle's {want10}")
+    if head["kernels"] != {"K1": 7, "K2": 0}:
+        raise AssertionError(f"cli bench kernels {head['kernels']}, "
+                             "expected K1 7 and K2 0 a sweep")
+    if not head["value"] > 0 or head["device"] == "cpu":
+        raise AssertionError("cli bench measured nothing on the card")
+    eng = _bench_line("engines", [f"{PKG}.benches.engines"], smi)
+    bad = {k: v["parity"] for k, v in eng["engines"].items()
+           if v["parity"].startswith(("ERROR", "MISMATCH"))
+           or (v["parity"].startswith("skipped") and k != "native_cpp")}
+    if bad or eng["value"] != eng["engines_total"]:
+        raise AssertionError(f"engines bench: {eng['value']} of "
+                             f"{eng['engines_total']} exact; {bad}")
+    scale = _bench_line("scale", [f"{PKG}.benches.scale"], smi)
+    got30 = (scale["pairs_over_threshold"], scale["cross_amr_pairs"])
+    want = (want30["pairs_over_threshold"], want30["pairs_after_merge"])
+    if scale["n_proteins"] != N_SCALE or got30 != want:
+        raise AssertionError(f"scale bench (pairs over threshold, cross "
+                             f"pairs) {got30} != the oracle's {want}")
+    if not scale["oracle_checked_pairs"] > 0:
+        raise AssertionError("scale bench checked no pair")
+    if scale["kernels"] != {"K1": 0, "K2": steps30}:
+        raise AssertionError(f"scale bench kernels {scale['kernels']}, "
+                             f"expected K2 {steps30} a sweep and no K1")
+    print(f"benches phase: headline {head['value']} pairs/s "
+          f"(sweep {head['sweep_seconds']} s, K1 {head['kernels']['K1']} a "
+          f"sweep), engines {eng['value']:.0f}/{eng['engines_total']} exact, "
+          f"scale {scale['value']} pairs/s (sweep {scale['sweep_seconds']} "
+          f"s, oracle gate {scale['oracle_checked_pairs']} pairs); "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return {"headline": head, "engines": eng, "scale": scale}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke.py must run from a checkout holding {PKG}/",
@@ -3876,6 +3962,8 @@ def main() -> int:
              "flat": mesh["runs"]["two-pass"]["wall"],
              "2d": lay["runs"]["2d two-pass"]["wall"],
              "stream": smesh["mesh_s"]["pipeline"]}, smi)
+        bench = benches_phase(run30["want10"], run30["want"],
+                              launches["K2"], smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -3924,6 +4012,7 @@ def main() -> int:
             "stream_mesh_launches": 0,
             "distributed_launches": {c: v["K1"] for c, v
                                      in dph["launches"].items()},
+            "bench_launches": bench["headline"]["kernels"]["K1"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -3947,6 +4036,7 @@ def main() -> int:
             "stream_mesh_launches": smesh["launches"],
             "distributed_launches": {c: v["K2"] for c, v
                                      in dph["launches"].items()},
+            "bench_launches": bench["scale"]["kernels"]["K2"],
         },
         {
             "name": "sweep_tri_mxu",

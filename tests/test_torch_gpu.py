@@ -309,6 +309,74 @@ def test_sweep_loops_do_not_synchronise(cuda, schedule):
     assert torch.equal(got[1].cpu(), want[1])
 
 
+@pytest.mark.parametrize("schedule", ["strips", "scan"])
+def test_sweep_mxu_async_dispatch_does_not_synchronise(cuda, schedule):
+    """sweep_mxu_async, with numpy classes and weights (copied up from
+    pinned memory), queues three sweeps back to back under
+    torch.cuda.set_sync_debug_mode("error"); each launches K1 once a
+    strip or K2 once a step, and each finalize equals the CPU sweep."""
+    rng = np.random.default_rng(13)
+    words = rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words &= rng.integers(0, 2**32, size=(1536, 64), dtype=np.uint32)
+    words[1500:] = 0
+    cls = rng.integers(0, 4, 1536).astype(np.int32)
+    wts = rng.integers(1, 30, 64 * 32).astype(np.int8)
+    w = torch.from_numpy(words.view(np.int32))
+    kw = dict(strip=512, block=512, schedule=schedule, weights=wts)
+    want = bitmul.sweep_mxu(w, cls, 1500, 1900, **kw)
+    ww = w.to(cuda)
+    bitmul.sweep_mxu(ww, cls, 1500, 1900, **kw)
+    torch.cuda.synchronize()
+    before = (stats.stats_from_counts_into.launches,
+              stats.stats_from_counts_traced_into.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatched = [bitmul.sweep_mxu_async(ww, cls, 1500, 1900, **kw)
+                      for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launched = (stats.stats_from_counts_into.launches - before[0],
+                stats.stats_from_counts_traced_into.launches - before[1])
+    assert launched == ((9, 0) if schedule == "strips" else (0, 18))
+    for handles, finalize in dispatched:
+        rs, th, tiles = finalize(handles)
+        assert np.array_equal(rs, want[0]) and np.array_equal(th, want[1])
+    assert int(want[1][:, 0].sum()) > 0
+
+
+def test_headline_bench_on_the_card(cuda, monkeypatch, capsys):
+    """benches.headline at 2,000 synthetic proteins on the card: the
+    oracle's counters, K1 once a strip of the warm sweep and no K2, the
+    card's name and power limit in the line."""
+    import json
+    import os
+
+    from uniprot_kmer_based_clustering_tpu_torch.benches import (
+        common,
+        headline,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.kmers import (
+        build_index,
+        encode_kmers,
+    )
+
+    for k in [k for k in os.environ if k.startswith("UKC_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("UKC_BENCH_N", "2000")
+    monkeypatch.setenv("UKC_BENCH_REPS", "2")
+    assert headline.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    seq_buf, offsets, classes = common.synth_proteins(2000, seed=0)
+    codes, koff = encode_kmers(seq_buf, offsets, 5)
+    want, _ = common.index_oracle(build_index(codes, koff, 5), classes, 2000)
+    _, _, ns = bitmul.resolve_schedule(2048, 512)
+    assert line["counters"] == want and line["parity"] == "oracle-exact"
+    assert line["kernels"] == {"K1": ns, "K2": 0}
+    assert line["value"] > 0 and line["vs_baseline"] > 0
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["power_limit_w"] is None or line["power_limit_w"] > 0
+
+
 @pytest.mark.parametrize("tile", [128, 96])
 def test_k4_matches_reference(cuda, tile):
     """K4 on every tile pair of 384 rows (n 370, W 70: a ragged last word

@@ -44,6 +44,12 @@ the mesh spans every rank's card (``cuda:LOCAL_RANK``, or the card
 ``--mesh-shape HxC`` and ``--shard-axis kmers`` lay it out as in one
 process. Every rank runs the whole pipeline; only rank 0 writes files.
 ``query`` prints the JAX package's ``cli query`` TSV to stdout.
+
+  python -m uniprot_kmer_based_clustering_tpu_torch.cli bench [fasta]
+
+``bench`` runs the port's headline benchmark (``benches.headline``) in
+this process and prints its one JSON line; an explicit ``fasta`` wins
+over an exported ``UKC_BENCH_FASTA``.
 """
 
 from __future__ import annotations
@@ -385,6 +391,18 @@ def cmd_query(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    if args.fasta is not None:
+        if not os.path.exists(args.fasta):
+            print(f"bench: no such FASTA {args.fasta!r}", file=sys.stderr)
+            return 2
+        # an explicitly passed path wins over an exported UKC_BENCH_FASTA
+        os.environ["UKC_BENCH_FASTA"] = args.fasta
+    from uniprot_kmer_based_clustering_tpu_torch.benches import headline
+
+    return headline.main()
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="uniprot-kmer-cluster-torch",
@@ -499,6 +517,12 @@ def main(argv=None) -> int:
     q.add_argument("--cpu", action="store_true",
                    help="the same as --device cpu")
     q.set_defaults(func=cmd_query)
+
+    b = sub.add_parser("bench", help="run the headline benchmark")
+    b.add_argument("fasta", nargs="?", default=None,
+                   help="dataset (default: $UKC_BENCH_FASTA, else the "
+                        "synthetic corpus of $UKC_BENCH_N proteins)")
+    b.set_defaults(func=cmd_bench)
 
     args = p.parse_args(argv)
     return args.func(args)

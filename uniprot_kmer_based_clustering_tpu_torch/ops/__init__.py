@@ -8,3 +8,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (  # noqa: F401
     sweep_xla,
     upper_triangle_tiles,
 )
+from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (  # noqa: F401
+    sweep_mxu,
+    sweep_mxu_async,
+)

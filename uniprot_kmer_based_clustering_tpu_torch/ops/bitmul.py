@@ -23,8 +23,10 @@ strips):
   (``ops.stats.stats_from_counts_traced_into``: one launch that merges
   the block into the device accumulators). Each step unpacks its two row
   windows (the stationary one is reused while the row stays the same).
-  Neither loop copies from the host or synchronises; the sweep ends in
-  the copies of its two outputs to the host. With ``fused_k`` each step
+  Neither loop copies from the host or synchronises: ``sweep_mxu_async``
+  only queues them, and its ``finalize`` (which ``sweep_mxu`` calls at
+  once) ends the sweep in the copies of its two outputs to the host, as
+  the JAX package's pair of the same names does. With ``fused_k`` each step
   also keeps its surviving pairs as per-sub-tile ``torch.topk``
   candidates (:class:`FusedCandidates`), for
   ``similarity.pairwise.extract_pairs_fused``.
@@ -421,7 +423,19 @@ def _strip_sweep(words, classes, weights, *, strip: int, n: int,
     return row_stats, block_hits
 
 
-def sweep_mxu(
+def _to_device(x, dtype, dev):
+    """``x`` (a tensor or numpy array) as a ``dtype`` tensor on ``dev``,
+    with no host sync: host data goes up from pinned memory (a pageable
+    copy to the card blocks)."""
+    t = torch.as_tensor(x, dtype=dtype)
+    if t.device == dev:
+        return t
+    if dev.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def sweep_mxu_async(
     words,
     classes,
     n: int,
@@ -437,29 +451,15 @@ def sweep_mxu(
     fused_k: Optional[int] = 0,
     fused_same: bool = False,
 ):
-    """Full upper-triangle sweep as int8 GEMMs + a statistics epilogue.
+    """Dispatch the full sweep; return ``(handles, finalize)``.
 
-    ``words`` int32 [N_pad, W] and ``classes`` int32 [N_pad] live on the
-    device the sweep runs on; ``weights`` (int8 [W*32], tensor or numpy)
-    enables the BLOSUM-weighted score. ``w_thresh`` is the count that
-    counts as "present" for the pairs lanes. The HBM budget keeps the JAX
-    package's default, sized for a 16 GB TPU v5e, so both packages pick
-    the same word chunk and fused capacity.
-
-    ``schedule`` "auto" follows :func:`resolve_schedule`. ``stats_engine``
-    "auto" and "pallas" run the kernels (K1 on strips, K2 on the scan;
-    their plain versions on CPU tensors); "xla" runs the plain epilogue.
-    ``fused_k`` requests fused extraction: 0 off, None auto-sized from the
-    budget, > 0 an explicit capacity. It needs the scan; explicit
-    "pallas" with it raises, as in the JAX package. ``fused_same`` keeps
-    same-class survivors too.
-
-    Returns (row_stats int64 [N_pad, 8], tile_hits int32 [nT, 2], tiles
-    (ti, tj, block)) as numpy arrays, in the upper-triangle tile
-    enumeration every engine shares, after one device→host copy. When
-    ``fused_k`` is non-0 a 4th element follows: a :class:`FusedCandidates`
-    on the device, or None when the schedule resolved to strips or the
-    budget holds no candidate buffers (two-pass extraction then).
+    The device work is queued on the current stream of ``words``'s
+    device with no host sync (no ``.item()``, no ``nonzero``, no pageable
+    copy: numpy ``classes`` and ``weights`` go up from pinned memory), and
+    every call allocates its own outputs, so sweeps dispatched back to
+    back pipeline on the device. ``finalize(handles)`` waits for the
+    dispatching stream, copies the results to the host and returns what
+    :func:`sweep_mxu` returns. The arguments are :func:`sweep_mxu`'s.
     """
     if schedule not in ("auto", "strips", "scan"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -500,9 +500,9 @@ def sweep_mxu(
     if word_chunk >= w_words:
         word_chunk = 0
     dev = words.device
-    classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
+    classes = _to_device(classes, torch.int32, dev)
     if weights is not None:
-        weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
+        weights = _to_device(weights, torch.int8, dev)
         if weights.shape != (w_words * 32,):
             raise ValueError("weights must be int8 [W*32]")
 
@@ -523,10 +523,68 @@ def sweep_mxu(
         row_stats, block_hits = _strip_sweep(
             words, classes, weights, strip=strip, **common,
         )
-    ti, tj = upper_triangle_tiles(n_pad, block)
-    out = (
-        row_stats.cpu().numpy().astype(np.int64),
-        block_hits.cpu().numpy()[ti, tj],
-        (ti, tj, block),
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def finalize(handles):
+        row_stats, block_hits, cands = handles
+        if stream is not None:
+            stream.synchronize()
+        ti, tj = upper_triangle_tiles(n_pad, block)
+        out = (
+            row_stats.cpu().numpy().astype(np.int64),
+            block_hits.cpu().numpy()[ti, tj],
+            (ti, tj, block),
+        )
+        return out + (cands,) if fused_requested else out
+
+    return (row_stats, block_hits, cands), finalize
+
+
+def sweep_mxu(
+    words,
+    classes,
+    n: int,
+    threshold: int,
+    strip: Optional[int] = None,
+    block: int = 512,
+    weights=None,
+    w_thresh: int = 1,
+    word_chunk: Optional[int] = None,
+    hbm_budget_bytes: int = 13 << 30,
+    stats_engine: str = "auto",
+    schedule: str = "auto",
+    fused_k: Optional[int] = 0,
+    fused_same: bool = False,
+):
+    """Full upper-triangle sweep as int8 GEMMs + a statistics epilogue:
+    :func:`sweep_mxu_async` and its ``finalize``.
+
+    ``words`` int32 [N_pad, W] lives on the device the sweep runs on;
+    ``classes`` int32 [N_pad] and ``weights`` (int8 [W*32], enabling the
+    BLOSUM-weighted score) are tensors or numpy arrays. ``w_thresh`` is
+    the count that counts as "present" for the pairs lanes. The HBM budget
+    keeps the JAX package's default, sized for a 16 GB TPU v5e, so both
+    packages pick the same word chunk and fused capacity.
+
+    ``schedule`` "auto" follows :func:`resolve_schedule`. ``stats_engine``
+    "auto" and "pallas" run the kernels (K1 on strips, K2 on the scan;
+    their plain versions on CPU tensors); "xla" runs the plain epilogue.
+    ``fused_k`` requests fused extraction: 0 off, None auto-sized from the
+    budget, > 0 an explicit capacity. It needs the scan; explicit
+    "pallas" with it raises, as in the JAX package. ``fused_same`` keeps
+    same-class survivors too.
+
+    Returns (row_stats int64 [N_pad, 8], tile_hits int32 [nT, 2], tiles
+    (ti, tj, block)) as numpy arrays, in the upper-triangle tile
+    enumeration every engine shares, after one device→host copy. When
+    ``fused_k`` is non-0 a 4th element follows: a :class:`FusedCandidates`
+    on the device, or None when the schedule resolved to strips or the
+    budget holds no candidate buffers (two-pass extraction then).
+    """
+    handles, finalize = sweep_mxu_async(
+        words, classes, n, threshold, strip=strip, block=block,
+        weights=weights, w_thresh=w_thresh, word_chunk=word_chunk,
+        hbm_budget_bytes=hbm_budget_bytes, stats_engine=stats_engine,
+        schedule=schedule, fused_k=fused_k, fused_same=fused_same,
     )
-    return out + (cands,) if fused_requested else out
+    return finalize(handles)

@@ -217,8 +217,9 @@ class QueryServer:
     are gathered to the first shard, where the full counts are read (no
     top-k epilogue, as in the JAX package). The latency route is off on a
     mesh unless ``host_route_max`` is a number; ``mode="host"`` and
-    ``mode="stream"`` raise; a mesh that spans several processes raises
-    (ROADMAP item 14d). ``device`` may name the mesh's first device
+    ``mode="stream"`` raise; a mesh that spans several processes raises, as
+    the JAX package cannot serve over one either (its mesh server reads
+    counts spread over devices another process holds). ``device`` may name the mesh's first device
     but not contradict it.
     """
 
@@ -243,9 +244,11 @@ class QueryServer:
         else:
             if mesh.multiprocess:
                 raise ValueError(
-                    "QueryServer on a mesh that spans several processes is "
-                    "not ported yet (ROADMAP queue 1, item 14d); build the "
-                    "server on one process's mesh"
+                    "QueryServer on a mesh that spans several processes: "
+                    "the JAX package does not serve over a mesh of several "
+                    "processes either (its mesh server reads the counts of "
+                    "devices other processes hold); build the server on "
+                    "one process's mesh"
                 )
             if device is not None and resolve_device(device) != mesh.devices[0]:
                 raise ValueError(
