@@ -86,7 +86,7 @@ csrc`` with nvcc (one process per source, in parallel), then:
       device ms by layer, rounds, merges, seconds and peak memory;
    c. ``cli run --cluster tree`` at 2,000 proteins equal to the tree on
       its numpy path;
-   d. T, the smallest threshold leaving at most 1,000 oracle pairs at
+   d. T, the smallest threshold leaving at most 500 oracle pairs at
       10,619: ``cli run --threshold T --align sw``, ``auto`` and
       ``diamond`` (no diamond on PATH: the sw fallback) byte-equal to
       ``align_pairs_sw(device_scores=False)``; ``sw_scores_device`` equal
@@ -218,11 +218,16 @@ csrc`` with nvcc (one process per source, in parallel), then:
    every rank's pairs, parity counters and labels equal the oracle and
    the union-find; per case the wall seconds, the slowest rank's sweep
    stage, the transport's bytes and seconds, and the one-process mesh's
-   seconds beside them. The ranks share one card, so no time is a
-   scaling figure, and NCCL with more than one rank does not run here.
+   seconds beside them. The cases run in the waves of ``DIST_WAVES``,
+   (a, d) and then (b, c, e), each wave's ranks all at once. The ranks
+   share one card, so no time is a scaling figure, and NCCL with more
+   than one rank does not run here.
 13. benches phase — the port's three benches, each a subprocess on the
    card (killed after ``BENCH_TIMEOUT``) whose last line is its JSON
-   result, printed here: ``cli bench`` (the headline, 10,619 synthetic
+   result, printed here; the eight subprocesses of phases 13 and 14 run
+   ``BENCH_PARALLEL`` (4) at a time, so each one's figures are taken
+   beside the others' and only its gates are compared with earlier
+   runs: ``cli bench`` (the headline, 10,619 synthetic
    proteins) must report the scipy oracle's counters of phase 2a and K1
    launched once a strip (7) by a warm sweep, K2 not at all;
    ``benches.engines`` at 10,619 must have every row exact (``value ==
@@ -231,6 +236,25 @@ csrc`` with nvcc (one process per source, in parallel), then:
    its oracle gate, report phase 2c's pairs over threshold and cross
    pairs, and K2 once a scan step (45) by a warm sweep, K1 not at all.
    Each must exit 0 with no ``error``.
+14. more benches phase — the port's query, cluster and pod benches, each
+   a subprocess as in phase 13 with only the knobs named here:
+   a. ``benches.query`` on the 10,619 corpus with ``UKC_QUERY_STREAM=1``:
+      host-exact parity, queries/s above 0 on the card, no launch of
+      K1–K4, the stream point host-exact and the CPU mesh probe without
+      an error;
+   b. ``benches.cluster`` with components at 30,000, agglomerative at
+      10,619 and the tree at 5,000: phase 2's 30k pair count, the
+      clusters and largest component of phase 9's 30k labels, K2 once a
+      scan step (45) and no K1, phase 8's agglomerative rounds, merges
+      and clusters at 10,619, the 2,000-protein scipy reference gate and
+      the tree's gate;
+   c. ``benches.pod`` at 10,619 three times: the flat ring on one card
+      (``UKC_POD_DEVICES=1``), the 2-D ring on ``UKC_POD_MESH=1x1`` and
+      under ``UKC_POD_DISTRIBUTED=1`` as one NCCL rank: each with phase
+      2's oracle counters, pair count and largest score, K1 7
+      (``parallel.count_substeps``) and no K2 a warm sweep, on one
+      device; the line carries ``scaling_efficiency`` (1.0 by
+      construction at D = 1, so that check is of the field alone).
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -240,6 +264,10 @@ their type), and as the last line ``{"ok": true, "device": {...}}``.
 Exits nonzero, printing no result, when no CUDA GPU is visible, when run
 outside a checkout, or when any phase fails. Imports nothing of JAX or
 of the JAX package, and checks at the end that neither was loaded.
+Every process the run starts carries ``UKC_CHIP_SMOKE_RUN`` in its
+environment; whether the run passes or fails, it ends by stopping
+multiprocessing's resource tracker (started by phase 8's spawn pool, it
+would outlive the script for a moment) and any such process still alive.
 """
 
 from __future__ import annotations
@@ -247,10 +275,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "uniprot_kmer_based_clustering_tpu_torch"
@@ -1857,7 +1887,7 @@ def index_phase(dev, tmp, state10, pairs10, want10, ns):
 
 
 N_SMALL = 2000  # the post-processing phase's scipy-transcription corpus
-ALIGN_MAX_PAIRS = 1000  # the alignment step's pair budget
+ALIGN_MAX_PAIRS = 500  # the alignment step's pair budget
 
 
 # kernel launches of the post-processing phase's library steps, summed
@@ -1907,60 +1937,6 @@ def _same_clustering(what, got, labels, merges, rounds=None):
             and np.array_equal(got.merges, merges)
             and (rounds is None or got.rounds == rounds)):
         raise AssertionError(f"{what} differs from the cli run's clusters")
-
-
-def scipy_agglomerative(index, n: int, min_shared: int = 1):
-    """An independent transcription of the agglomerative rounds over
-    scipy sparse rows: counts S·Sᵀ, the diagonal and inactive rows and
-    columns masked to −1, first-max argmax, mutual pairs with i < j at
-    ≥ min_shared, the winner's row the AND of both, the loser inactive;
-    labels the minimum member of each union. (labels, merges [M, 3],
-    rounds)."""
-    import numpy as np
-    import scipy.sparse as sp
-
-    ip, ir = index.incidence_protein, index.incidence_rank
-    starts = np.searchsorted(ip, np.arange(n + 1))
-    rows = [ir[starts[p] : starts[p + 1]] for p in range(n)]
-    active = np.ones(n, bool)
-    parent = list(range(n))
-
-    def find(x):
-        while parent[x] != x:
-            x = parent[x]
-        return x
-
-    merges = []
-    rounds = 0
-    while True:
-        rounds += 1
-        lens = np.array([len(r) for r in rows])
-        s = sp.csr_matrix(
-            (np.ones(int(lens.sum()), np.int32),
-             np.concatenate(rows) if lens.sum() else np.zeros(0, np.int64),
-             np.concatenate([[0], np.cumsum(lens)])),
-            shape=(n, index.n_repeated))
-        c = (s @ s.T).toarray().astype(np.int64)
-        c[~active, :] = -1
-        c[:, ~active] = -1
-        np.fill_diagonal(c, -1)
-        bj = c.argmax(axis=1)
-        bc = c[np.arange(n), bj]
-        i = np.arange(n)
-        mutual = active & (bc >= min_shared) & (bj[bj] == i) & (i < bj)
-        if not mutual.any():
-            break
-        for w, l in zip(i[mutual], bj[mutual]):
-            merges.append((int(w), int(l), int(bc[w])))
-            rows[w] = np.intersect1d(rows[w], rows[l])
-            rows[l] = rows[l][:0]
-            active[l] = False
-            parent[find(int(l))] = find(int(w))
-    roots = {}
-    labels = np.empty(n, np.int32)
-    for p in range(n):
-        labels[p] = roots.setdefault(find(p), p)
-    return labels, np.array(merges, np.int64).reshape(-1, 3), rounds
 
 
 def _strip_budget(bitset):
@@ -2020,6 +1996,10 @@ def _agglomerative_checks(dev, label, fasta, state, out, want, want_pairs,
             f"{dev_peak} bytes); strips {plan} under {budget} bytes "
             f"{strip_s:.3f} s (peak {strip_peak} bytes); equal")
     if scipy_ref:
+        from uniprot_kmer_based_clustering_tpu_torch.benches.common import (
+            scipy_agglomerative,
+        )
+
         t0 = time.perf_counter()
         ref = scipy_agglomerative(index, n)
         ref_s = time.perf_counter() - t0
@@ -2028,7 +2008,8 @@ def _agglomerative_checks(dev, label, fasta, state, out, want, want_pairs,
         line += f"; scipy transcription {ref_s:.3f} s, equal"
     print(line, flush=True)
     return dict(stage_s=stage_s, device_s=dev_s, strip_s=strip_s,
-                rounds=dres.rounds, merges=len(merges), peak=dev_peak)
+                rounds=dres.rounds, merges=len(merges),
+                clusters=len(set(labels.tolist())), peak=dev_peak)
 
 
 def _round_times(dev, bitset, n):
@@ -3452,6 +3433,7 @@ def stream_mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
 
 DIST_RANKS = 4  # gloo ranks sharing the one card in cases (b), (d), (e)
 DIST_TIMEOUT = 240  # seconds a case's workers may take before they are killed
+DIST_WAVES = ("ad", "bce")  # cases whose ranks run at once (8 CPU cores)
 DIST_RESUME_GROUP = 2  # max_group of the kill-and-resume: 4 groups at 30k
 
 
@@ -3473,51 +3455,67 @@ def _digest(arr) -> str:
         np.ascontiguousarray(arr, dtype=np.int64).tobytes()).hexdigest()
 
 
-def _launch_ranks(spec: dict, world: int) -> list:
+def _launch_ranks(jobs: list) -> list:
     """Start ``world`` worker processes of this script (``--dist-worker``)
-    with the torchrun environment (MASTER_ADDR, MASTER_PORT, RANK,
-    WORLD_SIZE, LOCAL_RANK) and wait for them; each prints one ``DIST``
-    JSON line. A worker that exits nonzero, or that outlives
-    ``DIST_TIMEOUT``, fails the phase (all workers are killed first).
-    Returns (the lines by rank, the seconds from launch to the last
-    exit)."""
-    port = _free_port()
-    procs = []
+    for each ``(spec, world)`` of ``jobs``, all at once, with the torchrun
+    environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK;
+    a port for each job) and wait for them; each prints one ``DIST`` JSON
+    line. A worker that exits nonzero, or that outlives ``DIST_TIMEOUT``,
+    fails the phase (all workers are killed first). Returns, for each
+    job, (the lines by rank, the seconds from launch to its last exit)."""
+    ports = set()
+    while len(ports) < len(jobs):
+        ports.add(_free_port())
+    started = []
     t0 = time.perf_counter()
-    for r in range(world):
-        env = dict(os.environ, MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), RANK=str(r),
-                   WORLD_SIZE=str(world), LOCAL_RANK=str(r))
-        env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--dist-worker",
-             json.dumps(spec)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    logs = []
+    for (spec, world), port in zip(jobs, sorted(ports)):
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), RANK=str(r),
+                       WORLD_SIZE=str(world), LOCAL_RANK=str(r))
+            env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 json.dumps(spec)], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        started.append((spec, procs))
+    def wait(procs):
+        logs = [p.communicate(timeout=max(
+            1.0, DIST_TIMEOUT - (time.perf_counter() - t0)))[0]
+            for p in procs]
+        return logs, time.perf_counter() - t0
+
     try:
-        for p in procs:
-            left = max(1.0, DIST_TIMEOUT - (time.perf_counter() - t0))
-            logs.append(p.communicate(timeout=left)[0])
+        with ThreadPoolExecutor(len(started)) as pool:
+            done = [f.result() for f in [pool.submit(wait, procs)
+                                         for _, procs in started]]
     except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-        for p in procs:
-            p.wait()
-        raise AssertionError(f"distributed case {spec['case']}: a worker "
+        for _, procs in started:
+            for p in procs:
+                p.kill()
+        for _, procs in started:
+            for p in procs:
+                p.wait()
+        raise AssertionError(f"distributed cases "
+                             f"{[x['case'] for x, _ in started]}: a worker "
                              f"outlived {DIST_TIMEOUT} s")
-    wall = time.perf_counter() - t0
-    lines = []
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"distributed case {spec['case']}: rank {r} "
-                                 f"exited {p.returncode}:\n{log[-6000:]}")
-        found = [json.loads(x[5:]) for x in log.splitlines()
-                 if x.startswith("DIST ")]
-        if len(found) != 1:
-            raise AssertionError(f"rank {r} printed {len(found)} result "
-                                 f"lines:\n{log[-6000:]}")
-        lines.append(found[0])
-    return lines, wall
+    out = []
+    for (spec, procs), (logs, wall) in zip(started, done):
+        lines = []
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"distributed case {spec['case']}: rank {r} exited "
+                    f"{p.returncode}:\n{log[-6000:]}")
+            found = [json.loads(x[5:]) for x in log.splitlines()
+                     if x.startswith("DIST ")]
+            if len(found) != 1:
+                raise AssertionError(f"rank {r} printed {len(found)} result "
+                                     f"lines:\n{log[-6000:]}")
+            lines.append(found[0])
+        out.append((lines, wall))
+    return out
 
 
 def _dist_worker(spec: dict) -> int:
@@ -3731,12 +3729,19 @@ def distributed_phase(dev, tmp, state10, pairs10, ref, pairs30, labels30,
     beside = {"a": single["single 30k"], "b": single["flat"],
               "c": single["2d"], "d": single["stream"],
               "e": single["kaxis 10619"]}
+    cases = [(case, world, dict(spec, case=case,
+                                out=os.path.join(tmp, f"dist_{case}")),
+              corpus, expect, single_name)
+             for case, world, spec, corpus, expect, single_name in cases]
+    ran = {}
+    for wave in DIST_WAVES:
+        jobs = [c for c in cases if c[0] in wave]
+        for c, res in zip(jobs, _launch_ranks([(c[2], c[1]) for c in jobs])):
+            ran[c[0]] = res
     launches = {}
     summary = {}
     for case, world, spec, corpus, expect, single_name in cases:
-        spec = dict(spec, case=case,
-                    out=os.path.join(tmp, f"dist_{case}"))
-        lines, wall = _launch_ranks(spec, world)
+        lines, wall = ran[case]
         pd, ld, parity_want = want[corpus]
         totals = {k: sum(x["launches"][k] for x in lines)
                   for k in ("K1", "K2", "K3", "K4")}
@@ -3824,14 +3829,20 @@ def distributed_phase(dev, tmp, state10, pairs10, ref, pairs30, labels30,
 # -- phase 13: the benches ----------------------------------------------------
 
 BENCH_TIMEOUT = 420  # seconds a bench subprocess may take before it is killed
+BENCH_PARALLEL = 4  # bench subprocesses of phases 13-14 sharing the card at once
 
 
-def _bench_line(label: str, argv: list, smi: str) -> dict:
+BENCH_KNOBS = ("UKC_BENCH_", "UKC_SCALE_", "UKC_ENGINES_", "UKC_QUERY_",
+               "UKC_CLUSTER_", "UKC_POD_", "UKC_1CHIP_")
+
+
+def _bench_line(label: str, argv: list, smi: str, knobs=None) -> dict:
     """Run ``python -m *argv`` on the card as a user would (no bench knob
-    of this environment passed on) and return its last line, the JSON
-    result; exit 0 and no ``error`` required."""
+    of this environment passed on; ``knobs`` set) and return its last
+    line, the JSON result; exit 0 and no ``error`` required."""
     env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("UKC_BENCH_", "UKC_SCALE_", "UKC_ENGINES_"))}
+           if not k.startswith(BENCH_KNOBS)}
+    env.update(knobs or {})
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
                           capture_output=True, text=True,
@@ -3850,14 +3861,45 @@ def _bench_line(label: str, argv: list, smi: str) -> dict:
     return line
 
 
-def benches_phase(want10, want30, steps30, smi):
-    """The port's three benches (docstring, phase 13), each against the
-    oracle of phase 2. Returns their lines."""
+def bench_runs(smi) -> dict:
+    """The eight bench subprocesses of phases 13 and 14, each as
+    :func:`_bench_line` runs it, ``BENCH_PARALLEL`` at a time on the one
+    card (longest first), so each one's figures are taken beside the
+    others'. Returns their lines by label."""
     import torch
 
     torch.cuda.empty_cache()  # the subprocesses need the card's memory
-    t_phase = time.perf_counter()
-    head = _bench_line("cli bench", [f"{PKG}.cli", "bench"], smi)
+    runs = [
+        ("cluster", [f"{PKG}.benches.cluster"], {
+            "UKC_CLUSTER_COMPONENTS_N": str(N_SCALE),
+            "UKC_CLUSTER_AGG_N": str(N_PROTEINS),
+            "UKC_CLUSTER_N": "5000"}),
+        ("scale", [f"{PKG}.benches.scale"], None),
+        ("query", [f"{PKG}.benches.query"], {"UKC_QUERY_STREAM": "1"}),
+        ("engines", [f"{PKG}.benches.engines"], None),
+        ("cli bench", [f"{PKG}.cli", "bench"], None),
+        ("pod flat", [f"{PKG}.benches.pod"], {"UKC_POD_DEVICES": "1"}),
+        ("pod 1x1", [f"{PKG}.benches.pod"], {"UKC_POD_MESH": "1x1"}),
+        ("pod nccl", [f"{PKG}.benches.pod"], {
+            "UKC_POD_DISTRIBUTED": "1", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(_free_port()), "RANK": "0",
+            "WORLD_SIZE": "1", "LOCAL_RANK": "0"}),
+    ]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(BENCH_PARALLEL) as pool:
+        futures = [(label, pool.submit(_bench_line, label, argv, smi, knobs))
+                   for label, argv, knobs in runs]
+        lines = {label: f.result() for label, f in futures}
+    print(f"bench subprocesses of phases 13-14: {len(runs)}, "
+          f"{BENCH_PARALLEL} at a time on the one card, "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return lines
+
+
+def benches_phase(lines, want10, want30, steps30):
+    """The port's three benches (docstring, phase 13), each against the
+    oracle of phase 2. Returns their lines."""
+    head = lines["cli bench"]
     if head["counters"] != want10:
         raise AssertionError(f"cli bench counters {head['counters']} != "
                              f"the oracle's {want10}")
@@ -3866,14 +3908,14 @@ def benches_phase(want10, want30, steps30, smi):
                              "expected K1 7 and K2 0 a sweep")
     if not head["value"] > 0 or head["device"] == "cpu":
         raise AssertionError("cli bench measured nothing on the card")
-    eng = _bench_line("engines", [f"{PKG}.benches.engines"], smi)
+    eng = lines["engines"]
     bad = {k: v["parity"] for k, v in eng["engines"].items()
            if v["parity"].startswith(("ERROR", "MISMATCH"))
            or (v["parity"].startswith("skipped") and k != "native_cpp")}
     if bad or eng["value"] != eng["engines_total"]:
         raise AssertionError(f"engines bench: {eng['value']} of "
                              f"{eng['engines_total']} exact; {bad}")
-    scale = _bench_line("scale", [f"{PKG}.benches.scale"], smi)
+    scale = lines["scale"]
     got30 = (scale["pairs_over_threshold"], scale["cross_amr_pairs"])
     want = (want30["pairs_over_threshold"], want30["pairs_after_merge"])
     if scale["n_proteins"] != N_SCALE or got30 != want:
@@ -3888,9 +3930,146 @@ def benches_phase(want10, want30, steps30, smi):
           f"(sweep {head['sweep_seconds']} s, K1 {head['kernels']['K1']} a "
           f"sweep), engines {eng['value']:.0f}/{eng['engines_total']} exact, "
           f"scale {scale['value']} pairs/s (sweep {scale['sweep_seconds']} "
-          f"s, oracle gate {scale['oracle_checked_pairs']} pairs); "
-          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+          f"s, oracle gate {scale['oracle_checked_pairs']} pairs)",
+          flush=True)
     return {"headline": head, "engines": eng, "scale": scale}
+
+
+# -- phase 14: more benches ---------------------------------------------------
+
+def _check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise AssertionError(msg)
+
+
+def more_benches_phase(lines, want10, pairs10, steps30, n_pairs30, labels30,
+                       agg10):
+    """The port's query, cluster and pod benches (docstring, phase 14),
+    each held to the oracles of phases 2, 8 and 9. Returns their lines."""
+    import numpy as np
+
+    # (a) serving on the 10,619 corpus, with the stream server
+    q = lines["query"]
+    _check(q["parity"].startswith("host-exact")
+           and q["max_sustained_qps"] > 0 and q["device"] != "cpu",
+           f"query bench: parity {q['parity']!r}, "
+           f"{q['max_sustained_qps']} queries/s on {q['device']}")
+    _check(q["kernels"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0},
+           f"query bench launched {q['kernels']}")
+    _check(q["stream_mode"]["parity"].startswith("host-exact"),
+           f"query bench stream point: {q['stream_mode']['parity']}")
+    _check("error" not in q["mesh_virtual_cpu"],
+           f"query bench CPU mesh probe: {q['mesh_virtual_cpu']}")
+
+    # (b) clustering: components at 30k, agglomerative at 10,619, tree
+    c = lines["cluster"]
+    _, counts = np.unique(labels30, return_counts=True)
+    got = (c["components_pairs"], c["components_clusters"],
+           c["components_largest"])
+    want = (n_pairs30, int(counts.shape[0]), int(counts.max()))
+    _check(got == want, f"cluster bench components (pairs, clusters, "
+                        f"largest) {got} != phases 2 and 9's {want}")
+    _check(c["kernels"] == {"K1": 0, "K2": steps30},
+           f"cluster bench kernels {c['kernels']}, expected K2 {steps30} "
+           "a scan and no K1")
+    got = (c["agg_rounds"], c["agg_merges"], c["agg_clusters"])
+    want = (agg10["rounds"], agg10["merges"], agg10["clusters"])
+    _check(got == want, f"cluster bench agglomerative (rounds, merges, "
+                        f"clusters) {got} != phase 8's {want}")
+    _check("agg_reference_gate" in c and "tree_gates" in c
+           and c["tree_n"] == 5000, "cluster bench skipped a gate")
+
+    # (c) the pod bench at 10,619: flat, 2-D 1x1, one NCCL rank
+    top = int(pairs10[:, 2].max())
+    pods = {}
+    for label in ("flat", "1x1", "nccl"):
+        pod = lines[f"pod {label}"]
+        _check(pod["counters"] == want10
+               and (pod["extracted_pairs"], pod["extracted_max"]) == (
+                   len(pairs10), top),
+               f"pod bench {label}: counters {pod['counters']}, "
+               f"{pod['extracted_pairs']} pairs (max "
+               f"{pod['extracted_max']}) != the oracle's {want10}, "
+               f"{len(pairs10)} pairs (max {top})")
+        _check(pod["kernels"] == {"K1": 7, "K2": 0},
+               f"pod bench {label} kernels {pod['kernels']}, expected K1 7 "
+               "a sweep")
+        # at D = 1 the bench's one-card rate is its own, so efficiency
+        # reads 1.0 by construction: a check that the field is there
+        _check(pod["devices"] == 1 and "scaling_efficiency" in pod,
+               f"pod bench {label}: D {pod['devices']}, no efficiency")
+        pods[label] = pod
+    print(f"more benches phase: query {q['max_sustained_qps']} queries/s "
+          f"(batch 1 {q['single_query_latency_ms']} ms, stream warm "
+          f"{q['stream_mode']['warm_seconds']} s); cluster components "
+          f"{c['value']} proteins/s (K2 {c['kernels']['K2']}), "
+          f"agglomerative {c['agg_seconds']} s, tree {c['tree_seconds']} s; "
+          f"pod " + ", ".join(f"{k} {v['value']} pairs/s/chip (sweep "
+                               f"{v['sweep_seconds']} s)"
+                               for k, v in pods.items()), flush=True)
+    return {"query": q, "cluster": c, "pod": pods}
+
+
+RUN_TOKEN = "UKC_CHIP_SMOKE_RUN"  # environment mark of this run's processes
+
+
+def _stop_resource_tracker() -> None:
+    """Stop the resource tracker that a spawn pool starts: closing its pipe
+    ends it (it ignores SIGTERM), and it is reaped here rather than left
+    to exit after this script does."""
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._fd is not None:
+            os.close(tracker._fd)
+            tracker._fd = None
+        if tracker._pid is not None:
+            os.waitpid(tracker._pid, 0)
+            tracker._pid = None
+
+
+def _marked_pids() -> list:
+    """Live processes other than this one whose environment carries this
+    run's ``RUN_TOKEN``: what the run started, at any depth."""
+    mark = f"{RUN_TOKEN}={os.environ[RUN_TOKEN]}".encode()
+    pids = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit() or int(name) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{name}/environ", "rb") as f:
+                if mark in f.read().split(b"\0"):
+                    pids.append(int(name))
+        except OSError:
+            continue
+    return pids
+
+
+def stop_leftovers(wait_s: float = 10.0) -> None:
+    """Stop every process this run started that is still alive, naming
+    each on stderr, and reap this script's children."""
+    _stop_resource_tracker()
+    pids = _marked_pids()
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            continue
+        print(f"stopped a leftover process {pid}: {cmd[:300]}",
+              file=sys.stderr, flush=True)
+    deadline = time.monotonic() + wait_s
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] != 0:
+                continue
+        except ChildProcessError:
+            pass
+        if not _marked_pids() or time.monotonic() > deadline:
+            return
+        time.sleep(0.05)
 
 
 def main() -> int:
@@ -3905,6 +4084,17 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dist-worker"]:
         return _dist_worker(json.loads(sys.argv[2]))
+    os.environ[RUN_TOKEN] = f"{os.getpid()}.{time.time_ns()}"
+    try:
+        return smoke()
+    finally:
+        stop_leftovers()
+
+
+def smoke() -> int:
+    """Phases 1-14 (docstring); raises on the first failure."""
+    import torch
+
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3942,8 +4132,8 @@ def main() -> int:
         i_launches = index_phase(dev, tmp, state10, pairs10,
                                  run30["want10"], run30["ns10"])
         k3 = k3_phase(dev, state10, state30, sm_mhz)
-        post_phase(dev, tmp, state10, pairs10, run30["want10"],
-                   run30["ns10"], state30, pairs30)
+        post = post_phase(dev, tmp, state10, pairs10, run30["want10"],
+                          run30["ns10"], state30, pairs30)
         mesh = mesh_phase(dev, tmp, state10, pairs10, run30, state30,
                           pairs30, scan["sweep_s"], smi)
         lay = layouts_phase(dev, tmp, state10, pairs10, run30, state30,
@@ -3962,8 +4152,12 @@ def main() -> int:
              "flat": mesh["runs"]["two-pass"]["wall"],
              "2d": lay["runs"]["2d two-pass"]["wall"],
              "stream": smesh["mesh_s"]["pipeline"]}, smi)
-        bench = benches_phase(run30["want10"], run30["want"],
-                              launches["K2"], smi)
+        lines = bench_runs(smi)
+        bench = benches_phase(lines, run30["want10"], run30["want"],
+                              launches["K2"])
+        more = more_benches_phase(lines, run30["want10"], pairs10,
+                                  launches["K2"], len(pairs30),
+                                  mesh["labels30"], post["agg10"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -4013,6 +4207,10 @@ def main() -> int:
             "distributed_launches": {c: v["K1"] for c, v
                                      in dph["launches"].items()},
             "bench_launches": bench["headline"]["kernels"]["K1"],
+            "pod_bench_launches": {k: v["kernels"]["K1"]
+                                   for k, v in more["pod"].items()},
+            "cluster_bench_launches": more["cluster"]["kernels"]["K1"],
+            "query_bench_launches": more["query"]["kernels"]["K1"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -4037,6 +4235,10 @@ def main() -> int:
             "distributed_launches": {c: v["K2"] for c, v
                                      in dph["launches"].items()},
             "bench_launches": bench["scale"]["kernels"]["K2"],
+            "pod_bench_launches": {k: v["kernels"]["K2"]
+                                   for k, v in more["pod"].items()},
+            "cluster_bench_launches": more["cluster"]["kernels"]["K2"],
+            "query_bench_launches": more["query"]["kernels"]["K2"],
         },
         {
             "name": "sweep_tri_mxu",

@@ -377,6 +377,87 @@ def test_headline_bench_on_the_card(cuda, monkeypatch, capsys):
     assert line["power_limit_w"] is None or line["power_limit_w"] > 0
 
 
+def _bench_on_the_card(monkeypatch, capsys, bench, **knobs):
+    """Run ``bench.main()`` on the card with only ``knobs`` set; its one
+    JSON line."""
+    import json
+    import os
+
+    for k in [k for k in os.environ if k.startswith("UKC_")]:
+        monkeypatch.delenv(k)
+    for k, v in knobs.items():
+        monkeypatch.setenv(k, str(v))
+    assert bench.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["power_limit_w"] is None or line["power_limit_w"] > 0
+    return line
+
+
+def _synth_oracle(n):
+    from uniprot_kmer_based_clustering_tpu_torch.benches import common
+    from uniprot_kmer_based_clustering_tpu_torch.kmers import (
+        build_index,
+        encode_kmers,
+    )
+
+    seq_buf, offsets, classes = common.synth_proteins(n, seed=0)
+    codes, koff = encode_kmers(seq_buf, offsets, 5)
+    return common.index_oracle(build_index(codes, koff, 5), classes, n)
+
+
+def test_pod_bench_on_the_card(cuda, monkeypatch, capsys):
+    """benches.pod at 2,000 synthetic proteins on one card (D = 1): the
+    oracle's counters and pairs, K1 once a ring sub-step of a warm sweep
+    (``count_substeps``) and no K2, scaling efficiency 1.0."""
+    from uniprot_kmer_based_clustering_tpu_torch.benches import pod
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_substeps,
+    )
+
+    line = _bench_on_the_card(monkeypatch, capsys, pod, UKC_BENCH_N=2000)
+    want, pairs = _synth_oracle(2000)
+    assert line["counters"] == want and line["parity"] == "oracle-exact"
+    assert (line["extracted_pairs"], line["extracted_max"]) == (
+        len(pairs), int(pairs[:, 2].max()))
+    assert line["kernels"] == {
+        "K1": count_substeps(1, line["n_pad"], line["block_tile"]), "K2": 0}
+    assert line["devices"] == 1 and line["scaling_efficiency"] == 1.0
+    assert line["value"] > 0 and line["fused_seconds"] > 0
+
+
+def test_cluster_bench_on_the_card(cuda, monkeypatch, capsys):
+    """benches.cluster's components at 30,000 proteins (the scan: K2 once
+    a block-pair step, no K1) equal to the host union-find, and its
+    agglomerative stage at 2,000 with the scipy reference gate."""
+    from uniprot_kmer_based_clustering_tpu_torch.benches import cluster
+
+    line = _bench_on_the_card(
+        monkeypatch, capsys, cluster, UKC_CLUSTER_COMPONENTS_N=30000,
+        UKC_CLUSTER_AGG_N=2000, UKC_CLUSTER_TREE=0)
+    sched, _, ns = bitmul.resolve_schedule(32256, 512)
+    assert sched == "scan"
+    assert line["kernels"] == {"K1": 0, "K2": ns * (ns + 1) // 2}
+    assert line["components_pairs"] > 0 and line["value"] > 0
+    assert line["components_oracle_checked"] > 0
+    assert line["agg_gates"].startswith("reference exact + structural")
+    assert line["agg_mode"] == "one-shot matmul"
+
+
+def test_query_bench_on_the_card(cuda, monkeypatch, capsys):
+    """benches.query at 2,000 proteins with the stream point and a
+    two-shard CPU mesh probe: host-exact, and no kernel of K1–K4."""
+    from uniprot_kmer_based_clustering_tpu_torch.benches import query
+
+    line = _bench_on_the_card(monkeypatch, capsys, query, UKC_BENCH_N=2000,
+                              UKC_QUERY_STREAM=1, UKC_QUERY_MESH_D=2)
+    assert line["parity"].startswith("host-exact (256/256")
+    assert line["kernels"] == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    assert line["stream_mode"]["parity"] == "host-exact (256/256)"
+    assert "error" not in line["mesh_virtual_cpu"]
+    assert line["max_sustained_qps"] > 0
+
+
 @pytest.mark.parametrize("tile", [128, 96])
 def test_k4_matches_reference(cuda, tile):
     """K4 on every tile pair of 384 rows (n 370, W 70: a ragged last word

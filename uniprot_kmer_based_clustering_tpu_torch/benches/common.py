@@ -10,6 +10,11 @@ the failure line and the device.
   the four parity counters and the cross-class pairs over the threshold.
   Its seconds are also the benches' CPU baseline (the JAX ``bench.py``'s
   scipy stand-in).
+- :func:`scipy_agglomerative` is the independent transcription of the
+  agglomerative rounds over scipy sparse rows, the reference of the
+  cluster bench's synthetic gate and of ``chip_smoke.py``'s.
+- :class:`Corpus` is a bench's proteins; its ``n`` and ``seq`` are the
+  protein table the query bench reads (``bench_query._SynthTable``).
 - :func:`bench_device` reads ``UKC_BENCH_DEVICE`` (``cuda`` by default).
   A bench asked for CUDA on a machine without a card fails, printing its
   failure line and exiting 1; it never carries on on the CPU. The JAX
@@ -117,6 +122,59 @@ def scipy_oracle(incidence_protein, incidence_rank, n: int, n_bits: int,
     return counters, pairs
 
 
+def scipy_agglomerative(index, n: int, min_shared: int = 1):
+    """An independent transcription of the agglomerative rounds over
+    scipy sparse rows: counts S·Sᵀ, the diagonal and inactive rows and
+    columns masked to −1, first-max argmax, mutual pairs with i < j at
+    ≥ min_shared, the winner's row the AND of both, the loser inactive;
+    labels the minimum member of each union. (labels, merges [M, 3],
+    rounds)."""
+    import scipy.sparse as sp
+
+    ip, ir = index.incidence_protein, index.incidence_rank
+    starts = np.searchsorted(ip, np.arange(n + 1))
+    rows = [ir[starts[p] : starts[p + 1]] for p in range(n)]
+    active = np.ones(n, bool)
+    parent = list(range(n))
+
+    def find(x):
+        while parent[x] != x:
+            x = parent[x]
+        return x
+
+    merges = []
+    rounds = 0
+    while True:
+        rounds += 1
+        lens = np.array([len(r) for r in rows])
+        s = sp.csr_matrix(
+            (np.ones(int(lens.sum()), np.int32),
+             np.concatenate(rows) if lens.sum() else np.zeros(0, np.int64),
+             np.concatenate([[0], np.cumsum(lens)])),
+            shape=(n, index.n_repeated))
+        c = (s @ s.T).toarray().astype(np.int64)
+        c[~active, :] = -1
+        c[:, ~active] = -1
+        np.fill_diagonal(c, -1)
+        bj = c.argmax(axis=1)
+        bc = c[np.arange(n), bj]
+        i = np.arange(n)
+        mutual = active & (bc >= min_shared) & (bj[bj] == i) & (i < bj)
+        if not mutual.any():
+            break
+        for w, lo in zip(i[mutual], bj[mutual]):
+            merges.append((int(w), int(lo), int(bc[w])))
+            rows[w] = np.intersect1d(rows[w], rows[lo])
+            rows[lo] = rows[lo][:0]
+            active[lo] = False
+            parent[find(int(lo))] = find(int(w))
+    roots = {}
+    labels = np.empty(n, np.int32)
+    for p in range(n):
+        labels[p] = roots.setdefault(find(p), p)
+    return labels, np.array(merges, np.int64).reshape(-1, 3), rounds
+
+
 def index_oracle(index, classes, n: int, threshold: int = THRESHOLD,
                  weights=None):
     """:func:`scipy_oracle` over a host ``KmerIndex``'s incidence lists."""
@@ -180,6 +238,10 @@ class Corpus:
     def n(self) -> int:
         return int(self.classes.shape[0])
 
+    def seq(self, i: int) -> str:
+        return (self.seq_buf[self.offsets[i] : self.offsets[i + 1]]
+                .tobytes().decode("ascii"))
+
 
 def load_corpus(default_n: int) -> Corpus:
     path = os.environ.get("UKC_BENCH_FASTA")
@@ -196,9 +258,10 @@ def load_corpus(default_n: int) -> Corpus:
                   f"synth_proteins({n}, seed=0)", None)
 
 
-def bench_device():
+def bench_device(resolve: bool = True):
     """``UKC_BENCH_DEVICE`` (default ``cuda``) as a torch device; CUDA
-    without a visible card raises :class:`BenchFailure`."""
+    without a visible card raises :class:`BenchFailure`. ``resolve``
+    False leaves a bare ``cuda`` unindexed (its card is chosen later)."""
     import torch
 
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
@@ -210,7 +273,7 @@ def bench_device():
             "benches never fall back to the CPU (UKC_BENCH_DEVICE=cpu "
             "asks for it)"
         )
-    return resolve_device(name)
+    return resolve_device(name) if resolve else torch.device(name)
 
 
 def device_fields(dev) -> dict:

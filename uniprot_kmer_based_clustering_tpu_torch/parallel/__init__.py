@@ -31,6 +31,7 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (  # noqa: 
     sharded_pairwise_similarity,
     sharded_pairwise_similarity_2d,
     sharded_pairwise_similarity_kaxis,
+    sharded_sweep_async,
     stage_mesh_inputs,
     stage_mesh_inputs_csr,
 )

@@ -820,12 +820,40 @@ def _sweep(mesh: Mesh, layout: str, words, classes, n: int, threshold: int,
             f"a {mesh_layout(mesh)} mesh {mesh.axis_names}: this sweep "
             f"takes the {layout} layout"
         )
+    dispatch, finalize = sharded_sweep_async(mesh, words, classes, n,
+                                             threshold, block_tile, weights)
+    return finalize(dispatch())
+
+
+def sharded_sweep_async(
+    mesh: Mesh,
+    words,
+    classes,
+    n: int,
+    threshold: int,
+    block_tile: int = 128,
+    weights=None,
+):
+    """Stage and check the inputs once; return ``(dispatch, finalize)``
+    for sweeps of the mesh's own layout (flat, 2-D or k-axis).
+
+    ``dispatch()`` queues one whole sweep on the staged shards with no
+    host sync and returns its handles; every call allocates its own
+    outputs, so sweeps dispatched back to back pipeline on the devices.
+    ``finalize(handles)`` fetches them and returns what
+    :func:`sharded_pairwise_similarity` returns. The arguments are its
+    (``ops.bitmul.sweep_mxu_async`` is the single-device form)."""
     st = _stage_inputs(mesh, words, classes, weights, n, block_tile)
-    row_stats, hits, _ = _pass(
-        mesh, st, n=n, threshold=threshold, block_tile=block_tile,
-        stats=True,
-    )
-    return _finalize_sweep(mesh, row_stats, hits, st.n_pad, block_tile)
+
+    def dispatch():
+        row_stats, hits, _ = _pass(mesh, st, n=n, threshold=threshold,
+                                   block_tile=block_tile, stats=True)
+        return row_stats, hits
+
+    def finalize(handles):
+        return _finalize_sweep(mesh, *handles, st.n_pad, block_tile)
+
+    return dispatch, finalize
 
 
 def sharded_pairwise_similarity(
