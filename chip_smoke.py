@@ -255,6 +255,14 @@ csrc`` with nvcc (one process per source, in parallel), then:
       (``parallel.count_substeps``) and no K2 a warm sweep, on one
       device; the line carries ``scaling_efficiency`` (1.0 by
       construction at D = 1, so that check is of the field alone).
+15. dry-run phase — ``dryrun.entry()`` (the one-strip step, K2 once)
+   on the card against its plain version on the same inputs, exact; then
+   ``dryrun.dryrun_multichip(4)`` (every mesh composition, each held to
+   the flat ring or the single-device engine) on four distinct cards
+   where four are visible, else on four shards of the one card, with the
+   launch counters set to 0 just before and read just after: the root
+   dry run's figures (stats sum 622,733, 36,690 pairs, ...) and K1 and K2
+   launched; its line, launches, distinct cards and seconds are printed.
 
 Prints the card's name, power limit and maximum SM clock (nvidia-smi), a
 JSON line describing each kernel (``ms``: one launch with L2 cold,
@@ -4010,6 +4018,65 @@ def more_benches_phase(lines, want10, pairs10, steps30, n_pairs30, labels30,
     return {"query": q, "cluster": c, "pod": pods}
 
 
+# -- phase 15: the dry run ---------------------------------------------------
+
+# the root dry run's figures at four devices (__graft_entry__.py's line)
+DRYRUN_D = 4
+DRYRUN_FIGURES = {"stats_sum": 622733, "pairs": 36690,
+                  "stream_mesh_pairs": 36690, "docfreq_nnz": 896,
+                  "clusters": 496, "kaxis_pairs": 176}
+
+
+def dryrun_phase(dev, smi) -> dict:
+    """``dryrun.entry()`` against its plain version and
+    ``dryrun.dryrun_multichip(4)`` on four distinct cards, or on four
+    shards of the one card (docstring, phase 15). Returns the entry's
+    error and K2 launches, and the dry run's launches."""
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import dryrun
+
+    t_phase = time.perf_counter()
+    fn, args = dryrun.entry(device=dev)
+    fns = reset_counters()
+    rs, bh = fn(*args)
+    entry_launches = fns["K2"].launches
+    plain_rs, plain_bh = fn(*[a.cpu() for a in args])
+    err = max(max_abs_err(rs.cpu(), plain_rs), max_abs_err(bh.cpu(), plain_bh))
+    print(f"entry(): one strip of 256 rows, K2 launches {entry_launches}, "
+          f"row_stats {tuple(rs.shape)} and block_hits {tuple(bh.shape)} "
+          f"against the plain version: max_abs_err {err} (tolerance {TOL})",
+          flush=True)
+    _check(err <= TOL and {k: f.launches for k, f in fns.items()} == {
+        "K1": 0, "K2": 1, "K3": 0, "K4": 0},
+        "entry(): the kernel disagrees or did not launch once")
+
+    distinct = torch.cuda.device_count() >= DRYRUN_D
+    devices = None if distinct else [dev] * DRYRUN_D
+    where = ("four distinct cards" if distinct
+             else "four shards of the one card")
+    print(f"dry run on {where} ({smi})", flush=True)
+    fns = reset_counters()
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(DRYRUN_D, devices=devices)
+    secs = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in fns.items()}
+    got = {k: res[k] for k in DRYRUN_FIGURES}
+    print(f"dry run: {secs:.3f} s, launches {launches}, "
+          f"{res['distinct_devices']} distinct card(s), figures {got}",
+          flush=True)
+    _check(got == DRYRUN_FIGURES,
+           f"dry run figures {got} != the root dry run's {DRYRUN_FIGURES}")
+    _check(launches["K1"] > 0 and launches["K2"] > 0,
+           f"dry run launches {launches}: K1 and K2 must both launch")
+    _check(res["distinct_devices"] == (DRYRUN_D if distinct else 1),
+           f"dry run on {res['distinct_devices']} distinct cards")
+    print(f"dry-run phase: {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    return {"entry_err": err, "entry_launches": entry_launches,
+            "launches": launches, "seconds": secs}
+
+
 RUN_TOKEN = "UKC_CHIP_SMOKE_RUN"  # environment mark of this run's processes
 
 
@@ -4092,7 +4159,7 @@ def main() -> int:
 
 
 def smoke() -> int:
-    """Phases 1-14 (docstring); raises on the first failure."""
+    """Phases 1-15 (docstring); raises on the first failure."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -4158,6 +4225,7 @@ def smoke() -> int:
         more = more_benches_phase(lines, run30["want10"], pairs10,
                                   launches["K2"], len(pairs30),
                                   mesh["labels30"], post["agg10"])
+        dry = dryrun_phase(dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     loaded = [m for m in sys.modules
@@ -4211,6 +4279,7 @@ def smoke() -> int:
                                    for k, v in more["pod"].items()},
             "cluster_bench_launches": more["cluster"]["kernels"]["K1"],
             "query_bench_launches": more["query"]["kernels"]["K1"],
+            "dryrun_launches": dry["launches"]["K1"],
         },
         {
             "name": "stats_from_counts_traced",
@@ -4219,7 +4288,7 @@ def smoke() -> int:
             "replaces": replaces + "stats_pallas.py:172",
             "launches": launches["K2"],
             "stream_launches": st["launches"],
-            "max_abs_err": max(k2["err"], st["err"]),
+            "max_abs_err": max(k2["err"], st["err"], dry["entry_err"]),
             "ms": k2["ms"],
             "call_ms": k2["call_ms"],
             "plain_ms": k2["plain_ms"],
@@ -4239,6 +4308,8 @@ def smoke() -> int:
                                    for k, v in more["pod"].items()},
             "cluster_bench_launches": more["cluster"]["kernels"]["K2"],
             "query_bench_launches": more["query"]["kernels"]["K2"],
+            "entry_launches": dry["entry_launches"],
+            "dryrun_launches": dry["launches"]["K2"],
         },
         {
             "name": "sweep_tri_mxu",
@@ -4254,6 +4325,7 @@ def smoke() -> int:
             "bound_by": "operations",
             "library_ms": None,
             "query_launches": q_launches["K3"],
+            "dryrun_launches": dry["launches"]["K3"],
             "device_index_launches": i_launches["K3"],
             "post_library_launches": POST_LAUNCHES["K3"],
             "ring_launches": 0,
@@ -4274,6 +4346,7 @@ def smoke() -> int:
             "bound_by": "operations",
             "library_ms": None,
             "query_launches": q_launches["K4"],
+            "dryrun_launches": dry["launches"]["K4"],
             "device_index_launches": i_launches["K4"],
             "post_library_launches": POST_LAUNCHES["K4"],
             "ring_launches": 0,

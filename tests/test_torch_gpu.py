@@ -1658,6 +1658,94 @@ def test_distributed_mesh_on_a_shared_card_matches_cpu(gloo_card_world,
     assert total.tolist() == launches
 
 
+
+# -- the dry run (dryrun.py) ---------------------------------------------------
+
+# the root dry run's figures at four devices (its printed line on the
+# JAX package's virtual CPU devices)
+DRYRUN_FIGURES = {"stats_sum": 622733, "pairs": 36690,
+                  "stream_mesh_pairs": 36690, "docfreq_nnz": 896,
+                  "clusters": 496, "kaxis_pairs": 176}
+
+
+def test_entry_kernel_matches_plain(cuda):
+    """entry()'s step on the card: one K2 launch, equal to its plain
+    version on the same inputs."""
+    from uniprot_kmer_based_clustering_tpu_torch import dryrun
+
+    fn, args = dryrun.entry(device=cuda)
+    fns = _kernel_counters()
+    rs, bh = fn(*args)
+    assert [f.launches for f in fns] == [0, 1, 0, 0]
+    plain_rs, plain_bh = fn(*[a.cpu() for a in args])
+    assert rs.shape == (256, 8) and bh.shape == (2, 2, 2)
+    assert torch.equal(rs.cpu(), plain_rs) and torch.equal(bh.cpu(), plain_bh)
+
+
+def _dryrun_checked(devices):
+    from uniprot_kmer_based_clustering_tpu_torch import dryrun
+
+    fns = _kernel_counters()
+    res = dryrun.dryrun_multichip(4, devices=devices)
+    k1, k2, k3, k4 = (f.launches for f in fns)
+    assert k1 > 0 and k2 > 0 and (k3, k4) == (0, 0)
+    assert {k: res[k] for k in DRYRUN_FIGURES} == DRYRUN_FIGURES
+    assert res["block_tile"] == 32
+    return res
+
+
+def test_dryrun_on_one_shared_card(cuda):
+    """dryrun_multichip(4) with its four shards on one card gives the
+    root dry run's figures, with K1 and K2 launched."""
+    res = _dryrun_checked([torch.device("cuda", 0)] * 4)
+    assert res["distinct_devices"] == 1
+    assert "1 distinct card(s)" in res["line"]
+
+
+def test_dryrun_on_four_distinct_cards(cuda):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    res = _dryrun_checked(None)
+    assert res["distinct_devices"] == 4
+    assert "4 distinct card(s)" in res["line"]
+
+
+def test_stream_server_on_a_second_card(cuda, served, monkeypatch):
+    """A stream server on cuda:1 while cuda:0 is current answers as the
+    device server on cuda:0, and every stream it records on is cuda:1's
+    (its in-flight window used to record on the current card's), from
+    either block source."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+        QueryServer,
+    )
+
+    res, _, seqs = served
+    torch.cuda.set_device(0)
+    one = QueryServer(res.index, res.bitset, mode="device",
+                      device="cuda:0")
+    for source in ("host", "csr"):
+        srv = QueryServer(res.index, res.bitset, mode="stream",
+                          stream_bs=512, stream_source=source,
+                          device="cuda:1")
+        recorded = []
+        real = torch.cuda.Event.record
+
+        def spy(event, stream=None):
+            on = torch.cuda.current_stream() if stream is None else stream
+            recorded.append(on.device)
+            return real(event, stream)
+
+        monkeypatch.setattr(torch.cuda.Event, "record", spy)
+        got = srv.query(seqs, threshold=10)
+        monkeypatch.setattr(torch.cuda.Event, "record", real)
+        _same_matches(got, one.query(seqs, threshold=10))
+        assert recorded and set(recorded) == {torch.device("cuda", 1)}, (
+            source, recorded)
+        assert torch.cuda.current_device() == 0
+
+
 if __name__ == "__main__":
     import sys
 

@@ -253,6 +253,21 @@ def test_pack_bitsets_and_blosum_weights_are_the_jax_packages(row_multiple):
     assert got.dtype == np.int8 and np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("row", [0, 3, 119])
+def test_unpack_ranks_is_the_jax_packages(row):
+    seq_buf, offsets = _random_proteins(11)
+    codes, koff = tencode.encode_kmers(seq_buf, offsets, 5)
+    idx = tindex.build_index(codes, koff, 5)
+    args = (idx.incidence_protein, idx.incidence_rank, 120, idx.n_repeated)
+    j = jbitset.pack_bitsets(*args)
+    t = tbitset.pack_bitsets(*args)
+    want = jbitset.unpack_ranks(j, row)
+    got = tbitset.unpack_ranks(t, row)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert np.array_equal(
+        got, np.sort(idx.incidence_rank[idx.incidence_protein == row]))
+
+
 @pytest.mark.parametrize("writer", ["jax", "torch", "torch-uncompressed"])
 def test_checkpoint_files_cross_packages(tmp_path, writer):
     rng = np.random.default_rng(2)

@@ -1139,3 +1139,29 @@ def test_stream_run_with_checkpoint_dir_keeps_progress(toy_fasta, tmp_path,
                            device="cpu")
     assert np.array_equal(got.pairwise.pairs, ref.pairwise.pairs)
     assert len(ref.pairwise.pairs) > 0
+
+
+@pytest.mark.parametrize("device", [None, "cuda:2"])
+def test_window_records_on_the_steps_card(monkeypatch, device):
+    """A window on a second card records each step's event on that
+    card's stream (or on the card a push names), never on the current
+    device's: a push without a device used to bound cuda:0's stream
+    while the steps ran on cuda:1 (a stream server or engine on any card
+    but the current one). Fakes stand in for the CUDA event and stream."""
+    recorded = []
+
+    class FakeEvent:
+        def record(self, stream):
+            recorded.append(stream)
+
+        def synchronize(self):
+            recorded.append("waited")
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: f"stream of {dev}")
+    window = ts._Window(torch.device("cuda", 1), {})
+    want = torch.device("cuda", 1) if device is None else torch.device(device)
+    window.push("step", device=None if device is None else want)
+    assert recorded == [f"stream of {want}"]
+    assert window.drain(0) == ["step"] and recorded[-1] == "waited"

@@ -211,3 +211,8 @@ def pack_bitsets_device(
         flat = p.to(torch.int64) * w_pad + (r >> 5).to(torch.int64)
         words.index_add_(0, flat, table[(r & 31).to(torch.int64)])
     return BitsetMatrix(words=words.view(n_pad, w_pad), n=n, n_bits=n_bits)
+
+
+def unpack_ranks(bitset: BitsetMatrix, i: int) -> np.ndarray:
+    """Rank ids present in row i (testing/debug)."""
+    return np.nonzero(bitset.row_bits(i))[0]

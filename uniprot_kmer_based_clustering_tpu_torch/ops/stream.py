@@ -308,20 +308,23 @@ class _BlockFeed:
 class _Window:
     """The in-flight bound: the host runs at most ``limit`` steps ahead of
     the device. Each pushed step records a CUDA event on its device's
-    current stream (``device``: the step's device, default the current
-    one); draining waits for the newest retired step's event of each
-    device (a device runs its steps in launch order, so that retires
-    every earlier one) and hands back the retired payloads. No copy, no
-    stream synchronisation. On the CPU steps have run when they
-    return."""
+    current stream (``device``: the step's device, default the window's
+    own, never the current device: a window on a second card would
+    otherwise bound the first card's stream); draining waits for the
+    newest retired step's event of each device (a device runs its steps
+    in launch order, so that retires every earlier one) and hands back
+    the retired payloads. No copy, no stream synchronisation. On the CPU
+    steps have run when they return."""
 
     def __init__(self, device, trace: dict):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.trace = trace
         self.pending = []
         trace.setdefault("drain_s", 0.0)
 
     def push(self, payload=None, device=None):
+        device = self.device if device is None else device
         done = None
         if self.cuda:
             done = torch.cuda.Event()
