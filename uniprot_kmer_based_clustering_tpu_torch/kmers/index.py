@@ -29,6 +29,8 @@ from typing import Optional
 
 import numpy as np
 
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
+
 
 @dataclasses.dataclass
 class KmerIndex:
@@ -166,10 +168,15 @@ def build_index(
     if engine in ("auto", "native"):
         from uniprot_kmer_based_clustering_tpu_torch.io import native
 
-        res = native.index_build(codes, kmer_offsets, k)
+        with span("index.build"):
+            res = native.index_build(codes, kmer_offsets, k)
         if res is not None:
             distinct, freq, inc_p, inc_r, _ = res
             repeated_mask = freq >= 2
+            with span("index.owners"):
+                owners = _unique_owners(
+                    distinct[~repeated_mask], codes, kmer_offsets
+                )
             return KmerIndex(
                 k=k,
                 codes=distinct,
@@ -178,13 +185,31 @@ def build_index(
                 incidence_protein=inc_p,
                 incidence_rank=inc_r,
                 hash_doc_freq=freq[repeated_mask],
-                unique_owner=_unique_owners(
-                    distinct[~repeated_mask], codes, kmer_offsets
-                ),
+                unique_owner=owners,
             )
         if engine == "native":
             raise RuntimeError("native index builder unavailable")
 
+    with span("index.build"):
+        index, owner_protein, owner_code = _build_index_numpy(
+            codes, kmer_offsets, k
+        )
+    with span("index.owners"):
+        # owners fall straight out of the deduped incidences here — a
+        # docfreq-1 code has exactly one (protein, code) row; re-scanning
+        # the raw window stream (_unique_owners, needed only for the
+        # native path which never materializes inc arrays) would add an
+        # np.repeat + searchsorted over every raw k-mer to every build
+        index.unique_owner = _owners_from_incidences(owner_protein,
+                                                     owner_code)
+    return index
+
+
+def _build_index_numpy(codes: np.ndarray, kmer_offsets: np.ndarray,
+                       k: int):
+    """The pure-numpy build, with no owners: (index, protein, code) of
+    the unique codes' incidences, from which :func:`build_index` takes
+    the owners."""
     n = kmer_offsets.shape[0] - 1
     per_protein_counts = np.diff(kmer_offsets)
     protein_of = np.repeat(
@@ -216,7 +241,7 @@ def build_index(
         else np.zeros_like(inc_code, dtype=bool)
     )
 
-    return KmerIndex(
+    index = KmerIndex(
         k=k,
         codes=distinct_codes,
         doc_freq=doc_freq.astype(np.int64),
@@ -224,16 +249,8 @@ def build_index(
         incidence_protein=inc_protein[keep],
         incidence_rank=rank[keep].astype(np.int32),
         hash_doc_freq=hash_doc_freq,
-        # owners fall straight out of the deduped incidences here — a
-        # docfreq-1 code has exactly one (protein, code) row; re-scanning
-        # the raw window stream (_unique_owners, needed only for the
-        # native path which never materializes inc arrays) would add an
-        # np.repeat + searchsorted over every raw k-mer to every build
-        # on this ~85 MB/s-write host
-        unique_owner=_owners_from_incidences(
-            inc_protein[~keep], inc_code[~keep]
-        ),
     )
+    return index, inc_protein[~keep], inc_code[~keep]
 
 
 def _owners_from_incidences(

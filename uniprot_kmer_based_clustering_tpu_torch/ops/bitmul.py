@@ -53,6 +53,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (  # noqa: F401
     stats_from_counts_traced_into,
     stats_tiles,
 )
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 
 def subtile_rows(x, bt: int):
@@ -435,6 +436,7 @@ def _to_device(x, dtype, dev):
     return t.to(dev)
 
 
+@span("sweep.dispatch")
 def sweep_mxu_async(
     words,
     classes,
@@ -460,6 +462,8 @@ def sweep_mxu_async(
     back pipeline on the device. ``finalize(handles)`` waits for the
     dispatching stream, copies the results to the host and returns what
     :func:`sweep_mxu` returns. The arguments are :func:`sweep_mxu`'s.
+    The dispatch is the span ``ukc.sweep.dispatch``, ``finalize``
+    ``ukc.sweep.finalize``.
     """
     if schedule not in ("auto", "strips", "scan"):
         raise ValueError(f"unknown schedule {schedule!r}")
@@ -527,14 +531,15 @@ def sweep_mxu_async(
 
     def finalize(handles):
         row_stats, block_hits, cands = handles
-        if stream is not None:
-            stream.synchronize()
-        ti, tj = upper_triangle_tiles(n_pad, block)
-        out = (
-            row_stats.cpu().numpy().astype(np.int64),
-            block_hits.cpu().numpy()[ti, tj],
-            (ti, tj, block),
-        )
+        with span("sweep.finalize"):
+            if stream is not None:
+                stream.synchronize()
+            ti, tj = upper_triangle_tiles(n_pad, block)
+            out = (
+                row_stats.cpu().numpy().astype(np.int64),
+                block_hits.cpu().numpy()[ti, tj],
+                (ti, tj, block),
+            )
         return out + (cands,) if fused_requested else out
 
     return (row_stats, block_hits, cands), finalize

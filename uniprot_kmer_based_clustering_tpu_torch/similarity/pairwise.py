@@ -52,6 +52,22 @@ from uniprot_kmer_based_clustering_tpu_torch.state import (
     classes_to_torch,
     weights_to_torch,
 )
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
+
+#: Counts of the most recent :func:`pairwise_similarity` call that swept
+#: on the device (engines ``mxu``, ``popcount``, ``xla``), the
+#: ``ops.stream.last_trace`` convention: ``upload_bytes`` (the words,
+#: classes, weights and the fused keep mask sent to the device),
+#: ``hit_tiles``, ``extract_products`` (pass-2 ``int8_gemm`` calls, one a
+#: run of adjacent hit tiles), ``extract_syncs`` (every host wait of
+#: extraction: a ``nonzero`` a product or a boolean-mask compaction, and
+#: the final fetch) and ``pairs``. Times are the spans' (``utils.timing``).
+last_trace: dict = {}
+
+
+def _new_trace() -> dict:
+    return dict(upload_bytes=0, hit_tiles=0, extract_products=0,
+                extract_syncs=0, pairs=0)
 
 
 @dataclasses.dataclass
@@ -296,6 +312,7 @@ def extract_pairs(
     threshold: int,
     cross_amr_only: bool = True,
     weights=None,
+    trace: Optional[dict] = None,
 ) -> np.ndarray:
     """Pass-2 exact pair recovery from the tiles that reported hits.
 
@@ -307,36 +324,40 @@ def extract_pairs(
     ``_UNPACK_WINDOW_BYTES`` (the whole matrix when it fits: 2.6 GB for
     the 10,619-protein corpus). Returns int32 [M, 3] (i, j, count)
     sorted by (i, j); raises when the compacted count disagrees with the
-    sweep's promise.
+    sweep's promise. ``trace`` (a :data:`last_trace` dict) gains the hit
+    tiles, the products and the host syncs.
     """
-    ti, tj, tile = tiles
-    tile_hits = np.asarray(tile_hits)
-    want = tile_hits[:, 0] > 0
-    hits_per_tile = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        want |= tile_hits[:, 1] > 0
-        hits_per_tile = hits_per_tile + tile_hits[:, 1]
-    hit_tiles = np.nonzero(want)[0]
-    if len(hit_tiles) == 0:
-        return np.zeros((0, 3), dtype=np.int32)
-    total = int(hits_per_tile[hit_tiles].sum())
+    trace = _new_trace() if trace is None else trace
+    with span("extract.plan"):
+        ti, tj, tile = tiles
+        tile_hits = np.asarray(tile_hits)
+        want = tile_hits[:, 0] > 0
+        hits_per_tile = tile_hits[:, 0].astype(np.int64)
+        if not cross_amr_only:
+            want |= tile_hits[:, 1] > 0
+            hits_per_tile = hits_per_tile + tile_hits[:, 1]
+        hit_tiles = np.nonzero(want)[0]
+        trace["hit_tiles"] += len(hit_tiles)
+        if len(hit_tiles) == 0:
+            return np.zeros((0, 3), dtype=np.int32)
+        total = int(hits_per_tile[hit_tiles].sum())
 
-    dev = words.device
-    n_pad = words.shape[0]
-    classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
-    if classes.shape[0] < n_pad:
-        classes = torch.cat([
-            classes,
-            torch.full((n_pad - classes.shape[0],), -1, dtype=torch.int32,
-                       device=dev),
-        ])
-    if weights is not None:
-        weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
-    window = _window_rows(n_pad, tile, words.shape[1] * 32)
-    nwin = n_pad // window
-    hti = ti[hit_tiles].astype(np.int64)
-    htj = tj[hit_tiles].astype(np.int64)
-    group = (hti * tile // window) * nwin + htj * tile // window
+        dev = words.device
+        n_pad = words.shape[0]
+        classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
+        if classes.shape[0] < n_pad:
+            classes = torch.cat([
+                classes,
+                torch.full((n_pad - classes.shape[0],), -1,
+                           dtype=torch.int32, device=dev),
+            ])
+        if weights is not None:
+            weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
+        window = _window_rows(n_pad, tile, words.shape[1] * 32)
+        nwin = n_pad // window
+        hti = ti[hit_tiles].astype(np.int64)
+        htj = tj[hit_tiles].astype(np.int64)
+        group = (hti * tile // window) * nwin + htj * tile // window
 
     keys, vals = [], []
     a = b = None
@@ -347,42 +368,50 @@ def extract_pairs(
             # the stationary operand carries the weights, as in the JAX
             # package
             a = None
-            a = unpack_words_to_int8(
-                words[w_i * window : (w_i + 1) * window], weights
-            )
+            with span("extract.unpack"):
+                a = unpack_words_to_int8(
+                    words[w_i * window : (w_i + 1) * window], weights
+                )
             a_win = w_i
         if weights is None and w_j == w_i:
             b, b_win = a, None
         elif b_win != w_j:
             b = None
-            b = unpack_words_to_int8(words[w_j * window : (w_j + 1) * window])
+            with span("extract.unpack"):
+                b = unpack_words_to_int8(
+                    words[w_j * window : (w_j + 1) * window])
             b_win = w_j
         m = group == g
         # a run of adjacent hit tiles in one tile row is one wider
         # product: the same multiply-adds, far fewer and larger GEMMs
         # when hits are dense
-        for r_ti, r_tj, r_len in _tile_runs(hti[m], htj[m]):
-            i0, j0 = int(r_ti) * tile, int(r_tj) * tile
-            width = int(r_len) * tile
-            ai, bj = i0 - w_i * window, j0 - w_j * window
-            counts = int8_gemm(a[ai : ai + tile], b[bj : bj + width])
-            mask = survivor_mask(
-                counts, classes[i0 : i0 + tile], classes[j0 : j0 + width],
-                i0, j0, n=n, threshold=threshold,
-                include_same=not cross_amr_only,
-            )
-            r, c = torch.nonzero(mask, as_tuple=True)
-            keys.append((i0 + r, j0 + c))
-            vals.append(counts[r, c])
+        with span("extract.products"):
+            for r_ti, r_tj, r_len in _tile_runs(hti[m], htj[m]):
+                i0, j0 = int(r_ti) * tile, int(r_tj) * tile
+                width = int(r_len) * tile
+                ai, bj = i0 - w_i * window, j0 - w_j * window
+                counts = int8_gemm(a[ai : ai + tile], b[bj : bj + width])
+                mask = survivor_mask(
+                    counts, classes[i0 : i0 + tile],
+                    classes[j0 : j0 + width], i0, j0, n=n,
+                    threshold=threshold, include_same=not cross_amr_only,
+                )
+                r, c = torch.nonzero(mask, as_tuple=True)
+                keys.append((i0 + r, j0 + c))
+                vals.append(counts[r, c])
+                trace["extract_products"] += 1
+                trace["extract_syncs"] += 1
     del a, b
-    gi = torch.cat([k[0] for k in keys])
-    if gi.numel() != total:
-        raise AssertionError(
-            f"extraction compacted {gi.numel()} pairs, sweep stats "
-            f"promised {total}"
-        )
-    gj = torch.cat([k[1] for k in keys])
-    return _sorted_pairs(gi, gj, torch.cat(vals), n_pad).cpu().numpy()
+    with span("extract.fetch"):
+        gi = torch.cat([k[0] for k in keys])
+        if gi.numel() != total:
+            raise AssertionError(
+                f"extraction compacted {gi.numel()} pairs, sweep stats "
+                f"promised {total}"
+            )
+        gj = torch.cat([k[1] for k in keys])
+        trace["extract_syncs"] += 1
+        return _sorted_pairs(gi, gj, torch.cat(vals), n_pad).cpu().numpy()
 
 
 def _compact_fused(bi, bj, bc, keep, n_pad: int):
@@ -405,6 +434,7 @@ def extract_pairs_fused(
     threshold: int,
     cross_amr_only: bool = True,
     weights=None,
+    trace: Optional[dict] = None,
 ) -> np.ndarray:
     """Fused-mode pair recovery: compact the sweep's own per-sub-tile
     top-k candidates instead of recomputing the hit tiles.
@@ -413,7 +443,10 @@ def extract_pairs_fused(
     are exact, so a sub-tile whose hit count exceeds ``fused.k`` is
     detected, its incomplete candidates dropped, and the tile redone by
     :func:`extract_pairs`. Returns int32 [M, 3] sorted by (i, j).
+    ``trace`` is :func:`extract_pairs`'s; the keep mask's bytes count as
+    uploaded.
     """
+    trace = _new_trace() if trace is None else trace
     ti, tj, tile = tiles
     if tile != fused.block:
         raise ValueError("tile enumeration granularity mismatch")
@@ -440,8 +473,10 @@ def extract_pairs_fused(
     keep = h_ps <= fused.k
     total_kept = int((h_ps * keep).sum())
 
+    trace["hit_tiles"] += int(np.count_nonzero(h))
     parts = []
     if total_kept:
+        trace["upload_bytes"] += keep.nbytes
         pairs, count = _compact_fused(
             fused.bi, fused.bj, fused.bc,
             torch.from_numpy(keep).to(fused.bc.device), n_pad,
@@ -451,6 +486,9 @@ def extract_pairs_fused(
                 f"fused compaction found {count} survivors, sweep stats "
                 f"promised {total_kept}"
             )
+        # each of the three boolean-mask compactions waits for its
+        # count, then the fetch
+        trace["extract_syncs"] += 4
         parts.append(pairs.cpu().numpy())
 
     if not keep.all():
@@ -462,12 +500,15 @@ def extract_pairs_fused(
         rows = rid[bi_idx[op, osub // nbs], bj_idx[op, osub % nbs]]
         masked = np.zeros_like(tile_hits)
         masked[rows] = tile_hits[rows]  # hits > k ≥ 1: rows all ≥ 0
+        redo = _new_trace()
         parts.append(
             extract_pairs(
                 words, classes, masked, tiles, n=n, threshold=threshold,
-                cross_amr_only=cross_amr_only, weights=weights,
+                cross_amr_only=cross_amr_only, weights=weights, trace=redo,
             )
         )
+        trace["extract_products"] += redo["extract_products"]
+        trace["extract_syncs"] += redo["extract_syncs"]
 
     if not parts:
         return np.zeros((0, 3), dtype=np.int32)
@@ -660,40 +701,51 @@ def pairwise_similarity(
             row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
 
-    words = bitset_to_torch(bitset, device)
-    classes = classes_to_torch(classes_np, n_pad, device)
-    wts = None if weights is None else weights_to_torch(weights, device)
+    trace = _new_trace()
+    with span("pairwise.upload"):
+        words = bitset_to_torch(bitset, device)
+        classes = classes_to_torch(classes_np, n_pad, device)
+        wts = None if weights is None else weights_to_torch(weights, device)
+    trace["upload_bytes"] = sum(t.nbytes for t in (words, classes, wts)
+                                if t is not None)
     fused = None
-    if engine == "mxu":
-        strip = config.strip
-        if strip is not None and n_pad % strip != 0:
-            strip = config.tile
-        want_fused = config.extract == "fused"
-        out = sweep_mxu(
-            words, classes, n=n, threshold=threshold, strip=strip,
-            block=config.tile, weights=wts,
-            fused_k=(config.extract_k or None) if want_fused else 0,
-            fused_same=not config.cross_amr_only,
+    with span("pairwise.sweep"):
+        if engine == "mxu":
+            strip = config.strip
+            if strip is not None and n_pad % strip != 0:
+                strip = config.tile
+            want_fused = config.extract == "fused"
+            out = sweep_mxu(
+                words, classes, n=n, threshold=threshold, strip=strip,
+                block=config.tile, weights=wts,
+                fused_k=(config.extract_k or None) if want_fused else 0,
+                fused_same=not config.cross_amr_only,
+            )
+            row_stats, tile_hits, tiles = out[:3]
+            if want_fused:
+                fused = out[3]
+        else:
+            row_stats, tile_hits, tiles = sweep(
+                words, classes, n=n, threshold=config.threshold,
+                tile=config.tile,
+            )
+    with span("pairwise.extract"):
+        if fused is not None:
+            pairs = extract_pairs_fused(
+                words, classes, tile_hits, tiles, fused, n=n,
+                threshold=threshold, cross_amr_only=config.cross_amr_only,
+                weights=wts, trace=trace,
+            )
+        else:
+            pairs = extract_pairs(
+                words, classes, tile_hits, tiles, n=n, threshold=threshold,
+                cross_amr_only=config.cross_amr_only, weights=wts,
+                trace=trace,
+            )
+    trace["pairs"] = len(pairs)
+    global last_trace
+    last_trace = trace
+    with span("pairwise.result"):
+        return PairwiseResult.from_row_stats(
+            row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
-        row_stats, tile_hits, tiles = out[:3]
-        if want_fused:
-            fused = out[3]
-    else:
-        row_stats, tile_hits, tiles = sweep(
-            words, classes, n=n, threshold=config.threshold,
-            tile=config.tile,
-        )
-    if fused is not None:
-        pairs = extract_pairs_fused(
-            words, classes, tile_hits, tiles, fused, n=n,
-            threshold=threshold, cross_amr_only=config.cross_amr_only,
-            weights=wts,
-        )
-    else:
-        pairs = extract_pairs(
-            words, classes, tile_hits, tiles, n=n, threshold=threshold,
-            cross_amr_only=config.cross_amr_only, weights=wts,
-        )
-    return PairwiseResult.from_row_stats(
-        row_stats, pairs, cross_amr_only=config.cross_amr_only
-    )
