@@ -3,7 +3,7 @@
 Replaces the reference's ``seq_io`` reader-thread + worker pipeline
 (``src/main.rs:62-74``) with a flat-buffer parse: one pass over the file
 produces a concatenated residue byte buffer plus per-protein offsets — the
-natural feed for device arrays. A native C++ parser (``native/ukc_native.cpp``)
+natural feed for device arrays. A native C++ parser (``csrc/ukc_native.cpp``)
 is used when built; the numpy fallback below is behavior-identical.
 
 Semantics matched to the reference:
@@ -145,7 +145,7 @@ def read_fasta(path: str) -> ProteinTable:
     """Read a protein FASTA (plain or gzipped) into a ProteinTable.
 
     Uses the native C++ parser when the shared library has been built
-    (``native/``), otherwise the numpy fallback — both produce identical
+    (``csrc/ukc_native.cpp``), otherwise the numpy fallback — both produce identical
     tables (tested in ``tests/test_native.py``).
     """
     from uniprot_kmer_based_clustering_tpu_torch.io import native

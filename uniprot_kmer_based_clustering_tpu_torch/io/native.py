@@ -1,9 +1,10 @@
-"""ctypes bindings for the native host runtime (native/ukc_native.cpp).
+"""ctypes bindings for the native host runtime (csrc/ukc_native.cpp).
 
-The port's own copy of the JAX package's ``io/native.py``. It binds the
-same C++ source, which sits at the repository root, but builds it
-itself: ``g++`` with the flags of ``native/Makefile`` compiles it at
-first use into the port's ``build/`` directory, under a name that
+The port's own copy of the JAX package's ``io/native.py``, over the
+port's own copy of the C++ source, whose index build also emits the
+unique codes' owners. It builds the source itself: ``g++`` with the
+flags of ``native/Makefile`` compiles it at first use into the port's
+``build/`` directory, under a name that
 carries a hash of the source and the flags. The compiler writes a file
 private to its process and ``os.replace`` moves it into place, so
 processes that load the library at once (``pytest -n``) never see a
@@ -24,7 +25,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG_DIR), "native", "ukc_native.cpp")
+SOURCE = os.path.join(_PKG_DIR, "csrc", "ukc_native.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
 _lock = threading.Lock()
@@ -85,7 +86,7 @@ def _load() -> Optional[ctypes.CDLL]:
 
 # must equal ukc_abi_version() in ukc_native.cpp; bumped together on any
 # exported-signature change
-_ABI_VERSION = 3
+_ABI_VERSION = 4
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -122,7 +123,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ukc_and_popcnt_rows.argtypes = [_u64p, _i64, _i64, _u64p, _i64p]
     lib.ukc_index_build.restype = ctypes.c_int
     lib.ukc_index_build.argtypes = [
-        _i64p, _i64p, _i64, _i64, _i64p, _i64p, _i32p, _i32p,
+        _i64p, _i64p, _i64, _i64, _i64p, _i64p, _i32p, _i32p, _i32p,
         ctypes.POINTER(_i64), ctypes.POINTER(_i64),
         ctypes.POINTER(_i64), ctypes.POINTER(_i64),
     ]
@@ -195,8 +196,11 @@ def pack_bits(
 def index_build(codes: np.ndarray, offsets: np.ndarray, k: int):
     """Native k-mer doc-freq index (radix sorts + linear scans).
 
-    Returns (distinct_codes, doc_freq, inc_protein, inc_rank, nnz) or
-    None when the library is unavailable. Semantics bit-identical to
+    Returns (distinct_codes, doc_freq, inc_protein, inc_rank, nnz,
+    unique_owner) or None when the library is unavailable.
+    ``unique_owner`` (int32) is the protein of each doc-freq-1 code, in
+    the order of ``distinct_codes[doc_freq == 1]``, taken by the scan
+    that counts the doc freqs. Semantics bit-identical to
     kmers.index.build_index's numpy path (asserted in tests).
     """
     lib = _load()
@@ -210,12 +214,13 @@ def index_build(codes: np.ndarray, offsets: np.ndarray, k: int):
     freq = np.empty(max(m_total, 1), np.int64)
     inc_p = np.empty(max(m_total, 1), np.int32)
     inc_r = np.empty(max(m_total, 1), np.int32)
+    owner = np.empty(max(m_total, 1), np.int32)
     nd = _i64(0)
     nr = _i64(0)
     nnz = _i64(0)
     nnz_r = _i64(0)
     rc = lib.ukc_index_build(
-        codes, offsets, n, 21**k, distinct, freq, inc_p, inc_r,
+        codes, offsets, n, 21**k, distinct, freq, inc_p, inc_r, owner,
         ctypes.byref(nd), ctypes.byref(nr), ctypes.byref(nnz),
         ctypes.byref(nnz_r),
     )
@@ -227,6 +232,7 @@ def index_build(codes: np.ndarray, offsets: np.ndarray, k: int):
         inc_p[: nnz_r.value].copy(),
         inc_r[: nnz_r.value].copy(),
         int(nnz.value),
+        owner[: nd.value - nr.value].copy(),
     )
 
 

@@ -120,7 +120,7 @@ def pack_bitsets(
     w = _round_up(max(n_bits, 1), 32) // 32
     w_pad = _round_up(w, word_multiple)
 
-    # Native scatter packer when built (native/ukc_native.cpp) — an order
+    # Native scatter packer when built (csrc/ukc_native.cpp) — an order
     # of magnitude faster than the chunked packbits fallback below.
     try:
         from uniprot_kmer_based_clustering_tpu_torch.io import native

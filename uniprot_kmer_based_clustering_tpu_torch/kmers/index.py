@@ -31,6 +31,13 @@ import numpy as np
 
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
+#: How the most recent host :func:`build_index` ran, the
+#: ``similarity.pairwise.last_trace`` convention: ``engine`` ("native" or
+#: "numpy"), ``owners_from`` (where the unique codes' owners came from:
+#: "scan", the native scan that counts the doc freqs, or "incidences",
+#: the numpy build's deduped incidences) and ``n_unique``.
+last_build: dict = {}
+
 
 @dataclasses.dataclass
 class KmerIndex:
@@ -161,7 +168,7 @@ def build_index(
     ``kmers.encode.encode_kmers``.
 
     ``engine``: "native" uses the C++ radix-sort builder
-    (native/ukc_native.cpp — ~6× the numpy path at 100k proteins),
+    (csrc/ukc_native.cpp — ~6× the numpy path at 100k proteins),
     "numpy" forces the pure-numpy path, "auto" prefers native when the
     library builds. Both are bit-identical (tests/test_native.py).
     """
@@ -171,12 +178,12 @@ def build_index(
         with span("index.build"):
             res = native.index_build(codes, kmer_offsets, k)
         if res is not None:
-            distinct, freq, inc_p, inc_r, _ = res
-            repeated_mask = freq >= 2
             with span("index.owners"):
-                owners = _unique_owners(
-                    distinct[~repeated_mask], codes, kmer_offsets
-                )
+                # the scan that counted the doc freqs named each unique
+                # code's protein as it passed the code's run
+                distinct, freq, inc_p, inc_r, _, owners = res
+            repeated_mask = freq >= 2
+            _set_last_build("native", "scan", owners)
             return KmerIndex(
                 k=k,
                 codes=distinct,
@@ -196,13 +203,18 @@ def build_index(
         )
     with span("index.owners"):
         # owners fall straight out of the deduped incidences here — a
-        # docfreq-1 code has exactly one (protein, code) row; re-scanning
-        # the raw window stream (_unique_owners, needed only for the
-        # native path which never materializes inc arrays) would add an
-        # np.repeat + searchsorted over every raw k-mer to every build
+        # docfreq-1 code has exactly one (protein, code) row
         index.unique_owner = _owners_from_incidences(owner_protein,
                                                      owner_code)
+    _set_last_build("numpy", "incidences", index.unique_owner)
     return index
+
+
+def _set_last_build(engine: str, owners_from: str,
+                    owners: np.ndarray) -> None:
+    global last_build
+    last_build = dict(engine=engine, owners_from=owners_from,
+                      n_unique=int(owners.shape[0]))
 
 
 def _build_index_numpy(codes: np.ndarray, kmer_offsets: np.ndarray,
@@ -260,34 +272,6 @@ def _owners_from_incidences(
     deduped unique-code incidences (each appears exactly once)."""
     order = np.argsort(code, kind="stable")
     return np.ascontiguousarray(prot[order]).astype(np.int32)
-
-
-def _unique_owners(
-    unique_codes: np.ndarray,
-    codes: np.ndarray,
-    kmer_offsets: np.ndarray,
-) -> np.ndarray:
-    """int32 owner row of each unique (docfreq==1) code.
-
-    A docfreq-1 code appears in exactly one protein; one vectorized
-    searchsorted over the raw window codes finds it. Repeated windows of
-    the same code inside that protein overwrite with the same owner —
-    idempotent. Engine-independent (derived from the raw encoder output,
-    not the builder's internals), so native- and numpy-built indexes
-    carry identical owners.
-    """
-    n = kmer_offsets.shape[0] - 1
-    owner = np.full(unique_codes.shape[0], -1, np.int32)
-    if unique_codes.shape[0] == 0 or codes.shape[0] == 0:
-        return owner
-    protein_of = np.repeat(
-        np.arange(n, dtype=np.int64), np.diff(kmer_offsets)
-    )
-    pos = np.searchsorted(unique_codes, codes)
-    pos = np.clip(pos, 0, unique_codes.shape[0] - 1)
-    hit = unique_codes[pos] == codes
-    owner[pos[hit]] = protein_of[hit].astype(np.int32)
-    return owner
 
 
 def doc_freq_dense_device(codes, valid, k: int):
