@@ -68,6 +68,7 @@ from torch import distributed as dist
 
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 from uniprot_kmer_based_clustering_tpu_torch.ops.stats import merge_row_stats_at
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 #: Counters of this process's transport, read and set to 0 by the caller
 #: as the kernels' ``.launches`` are (:func:`reset_transport_stats`):
@@ -645,27 +646,29 @@ def ring_shift(blocks: list, mesh: Mesh, axis: Optional[str] = None) -> list:
     first of each ring, kept until the ring's wrap-around reads it. On a
     multi-process mesh this rank's shards take local sources by a device
     copy and remote ones from one ``batch_isend_irecv`` (the blocks of a
-    ring all have one shape, so a receiver allocates the buffer)."""
-    src = ring_sources(mesh, axis)
-    if not mesh.multiprocess:
-        saved = {s: blocks[s] for i, s in enumerate(src) if s < i}
-        for i, s in enumerate(src):
-            blocks[i] = _fresh_copy(saved.pop(s) if s < i else blocks[s],
-                                    mesh.devices[i])
+    ring all have one shape, so a receiver allocates the buffer). Under
+    a profiler the step is the span ``ukc.ring.shift``."""
+    with span("ring.shift"):
+        src = ring_sources(mesh, axis)
+        if not mesh.multiprocess:
+            saved = {s: blocks[s] for i, s in enumerate(src) if s < i}
+            for i, s in enumerate(src):
+                blocks[i] = _fresh_copy(saved.pop(s) if s < i else blocks[s],
+                                        mesh.devices[i])
+            return blocks
+        me, ranks = mesh.rank, mesh.ranks
+        new = {i: _fresh_copy(blocks[src[i]], mesh.devices[i])
+               for i in mesh.local if ranks[src[i]] == me}
+        sends = [(blocks[s], ranks[i], i) for i, s in enumerate(src)
+                 if ranks[s] == me and ranks[i] != me]
+        recvs = [(i, (blocks[i].shape, blocks[i].dtype, ranks[src[i]], i,
+                      mesh.devices[i]))
+                 for i in mesh.local if ranks[src[i]] != me]
+        got = _p2p(mesh, sends, [r for _, r in recvs])
+        new.update((i, t) for (i, _), t in zip(recvs, got))
+        for i, t in new.items():
+            blocks[i] = t
         return blocks
-    me, ranks = mesh.rank, mesh.ranks
-    new = {i: _fresh_copy(blocks[src[i]], mesh.devices[i])
-           for i in mesh.local if ranks[src[i]] == me}
-    sends = [(blocks[s], ranks[i], i) for i, s in enumerate(src)
-             if ranks[s] == me and ranks[i] != me]
-    recvs = [(i, (blocks[i].shape, blocks[i].dtype, ranks[src[i]], i,
-                  mesh.devices[i]))
-             for i in mesh.local if ranks[src[i]] != me]
-    got = _p2p(mesh, sends, [r for _, r in recvs])
-    new.update((i, t) for (i, _), t in zip(recvs, got))
-    for i, t in new.items():
-        blocks[i] = t
-    return blocks
 
 
 def gather_to_first(parts: Sequence[torch.Tensor], mesh: Mesh,

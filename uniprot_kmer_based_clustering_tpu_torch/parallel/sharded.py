@@ -86,6 +86,10 @@ statistics, tile hits and pair prefixes are gathered to every rank, and
 each rank sorts the same pair list. A check that reads only local shards
 is agreed over the ranks, so that all raise together.
 
+**Tracing.** Every pass counts into a :data:`last_trace` dict, and
+``_gather_pairs`` is the span ``ukc.ring.gather`` (``utils.timing``;
+``ring_shift`` is ``ukc.ring.shift``).
+
 The JAX package builds each pass as a memoised ``make_ring_*`` /
 ``make_kaxis_*`` closure so that ``jit`` does not retrace; the port has
 no compiled closures to keep, so those makers have no counterpart here.
@@ -133,6 +137,7 @@ from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
     _new_pair_buffers,
     _sort_pairs,
 )
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 #: ``n`` of every K1 launch and survivor mask of the rings (see module doc)
 FAKE_N = 1 << 30
@@ -147,6 +152,30 @@ KAXIS_STRIP_BYTES = 2 << 30
 # lanes of one append window (its sort temporaries and each shard's
 # buffer slack scale with it)
 _APPEND_LANES = 1 << 22
+
+#: Counts of the most recent sweep, extraction or fused pass on a mesh,
+#: over this rank's shards, in every layout (the
+#: ``similarity.pairwise.last_trace`` convention): ``stage_bytes`` (the
+#: words and classes :func:`stage_mesh_inputs` or
+#: :func:`stage_mesh_inputs_csr` put on the devices), ``shift_bytes``
+#: (the moving words and classes of every ring shift; 0 on the k axis),
+#: ``substeps`` (products: ring sub-steps, or k-axis strips, of every
+#: pass), ``hit_tiles`` (tiles holding a survivor, set by
+#: :func:`survivor_total`) and ``pairs`` (the survivors of the last
+#: gather). A
+#: caller that hands one :func:`new_trace` dict to its staging and its
+#: passes, as ``pipeline._sharded_similarity`` does, reads the whole
+#: job here. Times are the spans'.
+last_trace: dict = {}
+
+
+def new_trace() -> dict:
+    return dict(stage_bytes=0, shift_bytes=0, substeps=0, hit_tiles=0,
+                pairs=0)
+
+
+def _nbytes(shards) -> int:
+    return sum(t.nbytes for t in shards if t is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -401,7 +430,7 @@ def _replicate(mesh: Mesh, t: torch.Tensor) -> list:
     return broadcast_from_first(t.to(mesh.home), mesh)
 
 
-def stage_mesh_inputs(mesh: Mesh, words, classes):
+def stage_mesh_inputs(mesh: Mesh, words, classes, trace=None):
     """Stage (words, classes) onto the mesh's layout ONCE, so a sweep
     followed by an extraction does not copy the matrix twice (JAX
     ``stage_mesh_inputs``). The rings (flat, and 2-D in host-major shard
@@ -409,11 +438,14 @@ def stage_mesh_inputs(mesh: Mesh, words, classes):
     column shards ``[N_pad, W/D]`` and the classes whole on every device.
     The words become int32 bits (from numpy uint32, or an int32 tensor),
     the classes int32. Staged inputs (a list or tuple of shards each)
-    pass through unchanged. Returns ``(words_shards, classes_shards)``."""
+    pass through unchanged; ``trace`` (a :data:`last_trace` dict) gains
+    the bytes of the shards made here. Returns ``(words_shards,
+    classes_shards)``."""
     staged = isinstance(words, (list, tuple))
+    staged_classes = isinstance(classes, (list, tuple))
     if not staged:
         words = _as_int32(words)
-    if not isinstance(classes, (list, tuple)):
+    if not staged_classes:
         classes = _as_int32(classes)
         if mesh_layout(mesh) == "kaxis":
             classes = _replicate(mesh, classes)
@@ -421,12 +453,20 @@ def stage_mesh_inputs(mesh: Mesh, words, classes):
         if not staged:
             _check_kaxis_width(words.shape[1], mesh.size)
             words = _shard_cols(mesh, words)
-        return list(words), list(classes)
-    return shard_rows(mesh, words), shard_rows(mesh, classes)
+        words_s, classes_s = list(words), list(classes)
+    else:
+        words_s = shard_rows(mesh, words)
+        classes_s = shard_rows(mesh, classes)
+    made = ([] if staged else words_s) + ([] if staged_classes
+                                          else classes_s)
+    if trace is not None:
+        trace["stage_bytes"] += _nbytes(made)
+    return words_s, classes_s
 
 
 def stage_mesh_inputs_csr(mesh: Mesh, incidence_protein, incidence_rank,
-                          n_pad: int, w_pad: int, classes, axis=None):
+                          n_pad: int, w_pad: int, classes, axis=None,
+                          trace=None):
     """Stage the packed bitset by building each device's shard ON THE
     DEVICE from the sparse incidence lists: the dense host matrix is
     never copied (JAX ``stage_mesh_inputs_csr``). ``axis`` names the
@@ -438,7 +478,8 @@ def stage_mesh_inputs_csr(mesh: Mesh, incidence_protein, incidence_rank,
     equal ``pack_bitsets``' rows; the JAX k-axis staging's
     ``unique_indices=True`` scatter, where such ranks collide, is not
     copied. ``classes`` are padded to ``n_pad`` with -1. Returns
-    ``(words_shards, classes_shards)``, as :func:`stage_mesh_inputs`."""
+    ``(words_shards, classes_shards)`` and counts into ``trace``, as
+    :func:`stage_mesh_inputs`."""
     axes = (mesh.axis_names if axis is None
             else (axis,) if isinstance(axis, str) else tuple(axis))
     if axes != mesh.axis_names:
@@ -484,32 +525,39 @@ def stage_mesh_inputs_csr(mesh: Mesh, incidence_protein, incidence_rank,
     ids = np.asarray(classes, np.int32)[:n_pad]
     cls[: ids.shape[0]] = ids
     cls = torch.from_numpy(cls)
-    return words_s, (_replicate(mesh, cls) if kaxis
-                     else shard_rows(mesh, cls))
+    classes_s = _replicate(mesh, cls) if kaxis else shard_rows(mesh, cls)
+    if trace is not None:
+        trace["stage_bytes"] += _nbytes(words_s) + _nbytes(classes_s)
+    return words_s, classes_s
 
 
 @dataclasses.dataclass
 class _Staged:
     """What a pass runs on: the shards, the weights (None when
     unweighted; replicated on the rings, column-sharded on the k axis),
-    and the matrix's N_pad."""
+    the matrix's N_pad and the :data:`last_trace` dict its passes count
+    into."""
 
     words: list
     classes: list
     weights: Optional[list]
     n_pad: int
+    trace: dict
 
 
 def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
-                  block_tile: int) -> _Staged:
-    """Staged shards and weights, and the checks every wrapper makes."""
+                  block_tile: int, trace: Optional[dict]) -> _Staged:
+    """Staged shards and weights, and the checks every wrapper makes;
+    ``trace`` (a fresh one when None) becomes :data:`last_trace`."""
+    global last_trace
+    last_trace = trace = new_trace() if trace is None else trace
     if block_tile % 32 and any(d.type == "cuda" for d in mesh.devices):
         raise ValueError(
             f"block_tile {block_tile}: on CUDA the mesh layouts take "
             f"multiples of 32 (K1's tiles; torch._int_mm needs more than "
             f"16 rows)"
         )
-    words_s, classes_s = stage_mesh_inputs(mesh, words, classes)
+    words_s, classes_s = stage_mesh_inputs(mesh, words, classes, trace)
     kaxis = mesh_layout(mesh) == "kaxis"
     if kaxis:
         n_pad = words_s[mesh.local[0]].shape[0]
@@ -536,7 +584,7 @@ def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
                          for d, dev in enumerate(mesh.devices)]
         else:
             weights_s = broadcast_from_first(w0, mesh)
-    return _Staged(words_s, classes_s, weights_s, n_pad)
+    return _Staged(words_s, classes_s, weights_s, n_pad, trace)
 
 
 def append_window(block: int) -> int:
@@ -614,22 +662,27 @@ def _substep_outputs(counts, ca, cb, sub: SubStep, i_off: int, j_off: int,
     return bufs
 
 
+def _shift(blocks: list, mesh: Mesh, trace: dict, axis=None) -> None:
+    ring_shift(blocks, mesh, axis)
+    trace["shift_bytes"] += _nbytes(blocks)
+
+
 def _ring_steps(mesh: Mesh, words_s, classes_s, block: int,
-                block_tile: int):
+                block_tile: int, trace: dict):
     """Yield each step of the mesh's ring: (the moving words and classes
     each shard holds, the sub-steps of each shard). The flat ring shifts
     its moving copy round the whole mesh a step. The 2-D ring shifts it
     along the host axis an outer step, then walks a second copy of it
     round the chip axis an inner step (JAX ``make_ring_sweep_2d``); every
     shift makes fresh buffers, so the inner copy never aliases the
-    moving one it started from."""
+    moving one it started from. ``trace`` gains the bytes shifted."""
     moving = [list(words_s), list(classes_s)]
     if mesh_layout(mesh) != "2d":
         for s, subs in enumerate(ring_schedule(mesh.size, block,
                                                block_tile)):
             if s:
                 for m in moving:
-                    ring_shift(m, mesh)
+                    _shift(m, mesh, trace)
             yield moving[0], moving[1], subs
         return
     h_ax, c_ax = mesh.axis_names
@@ -646,11 +699,11 @@ def _ring_steps(mesh: Mesh, words_s, classes_s, block: int,
                     m.clear()
             if sh:
                 for m in moving:
-                    ring_shift(m, mesh, h_ax)
+                    _shift(m, mesh, trace, h_ax)
             inner = [list(m) for m in moving]
         else:
             for m in inner:
-                ring_shift(m, mesh, c_ax)
+                _shift(m, mesh, trace, c_ax)
         yield inner[0], inner[1], subs
 
 
@@ -688,8 +741,9 @@ def _ring_pass(mesh: Mesh, st: _Staged, *, threshold: int,
         mesh, block, st.n_pad // block_tile, stats=stats, cap=cap,
         window=append_window(block), owners=mesh.size)
     for moving_w, moving_c, step in _ring_steps(mesh, st.words, st.classes,
-                                                block, block_tile):
+                                                block, block_tile, st.trace):
         for d in mesh.local:
+            st.trace["substeps"] += len(step[d])
             for sub in step[d]:
                 r0, r1 = sub.r0, sub.r0 + sub.rows
                 c0, c1 = sub.c0, sub.c0 + sub.cols
@@ -730,6 +784,7 @@ def _kaxis_pass(mesh: Mesh, st: _Staged, *, n: int, threshold: int,
     cls = st.classes[mesh.local[0]]
     first = mesh.local[0] == 0
     for sub in kaxis_strips(mesh.size, n_pad, block_tile):
+        st.trace["substeps"] += 1
         r0, r1 = sub.r0, sub.r0 + sub.rows
         wc = _word_chunk(sub.rows + sub.cols, ws, RING_UNPACK_BYTES)
         parts = [
@@ -781,20 +836,23 @@ def _finalize_sweep(mesh: Mesh, row_stats, hits, n_pad: int,
     return rs, tile_hits, (ti, tj, block_tile)
 
 
-def _gather_pairs(mesh: Mesh, bufs, cap: int):
+def _gather_pairs(mesh: Mesh, bufs, cap: int, trace: dict):
     """Every owner's occupied buffer prefix, concatenated on the first
     device, sorted by (i, j) and fetched: (pairs int32 [M, 3] or None when
     the pass overflowed ``cap``, the survivor total M). One host read of
-    the cursors. Every rank returns the same."""
-    cursors = gather_to_first([b and b[3].reshape(1) for b in bufs], mesh)
-    counts = [int(c) for c in cursors.cpu()]
-    total = sum(counts)
-    if total > cap:
-        return None, total
-    parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
-             for f in range(3)]
-    arr = _sort_pairs(*(gather_to_first(p, mesh) for p in parts))
-    return arr.cpu().numpy(), total
+    the cursors. Every rank returns the same; ``trace["pairs"]`` becomes
+    M."""
+    with span("ring.gather"):
+        cursors = gather_to_first([b and b[3].reshape(1) for b in bufs],
+                                  mesh)
+        counts = [int(c) for c in cursors.cpu()]
+        total = trace["pairs"] = sum(counts)
+        if total > cap:
+            return None, total
+        parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
+                 for f in range(3)]
+        arr = _sort_pairs(*(gather_to_first(p, mesh) for p in parts))
+        return arr.cpu().numpy(), total
 
 
 def _pairs_from_buffers(arr, m: int, cap: int,
@@ -814,15 +872,29 @@ def _pairs_from_buffers(arr, m: int, cap: int,
 
 
 def _sweep(mesh: Mesh, layout: str, words, classes, n: int, threshold: int,
-           block_tile: int, weights):
+           block_tile: int, weights, trace):
     if mesh_layout(mesh) != layout:
         raise ValueError(
             f"a {mesh_layout(mesh)} mesh {mesh.axis_names}: this sweep "
             f"takes the {layout} layout"
         )
     dispatch, finalize = sharded_sweep_async(mesh, words, classes, n,
-                                             threshold, block_tile, weights)
+                                             threshold, block_tile, weights,
+                                             trace)
     return finalize(dispatch())
+
+
+def survivor_total(tile_hits, cross_amr_only: bool,
+                   trace: Optional[dict] = None) -> int:
+    """The pairs a sweep's tile hits promise extraction (the cross-class
+    lane, and the same-class one unless ``cross_amr_only``);
+    ``trace["hit_tiles"]`` becomes the tiles holding any of them."""
+    per_tile = tile_hits[:, 0].astype(np.int64)
+    if not cross_amr_only:
+        per_tile = per_tile + tile_hits[:, 1]
+    if trace is not None:
+        trace["hit_tiles"] = int(np.count_nonzero(per_tile))
+    return int(per_tile.sum())
 
 
 def sharded_sweep_async(
@@ -833,6 +905,7 @@ def sharded_sweep_async(
     threshold: int,
     block_tile: int = 128,
     weights=None,
+    trace: Optional[dict] = None,
 ):
     """Stage and check the inputs once; return ``(dispatch, finalize)``
     for sweeps of the mesh's own layout (flat, 2-D or k-axis).
@@ -842,8 +915,9 @@ def sharded_sweep_async(
     outputs, so sweeps dispatched back to back pipeline on the devices.
     ``finalize(handles)`` fetches them and returns what
     :func:`sharded_pairwise_similarity` returns. The arguments are its
-    (``ops.bitmul.sweep_mxu_async`` is the single-device form)."""
-    st = _stage_inputs(mesh, words, classes, weights, n, block_tile)
+    (``ops.bitmul.sweep_mxu_async`` is the single-device form); every
+    sweep dispatched counts into ``trace``."""
+    st = _stage_inputs(mesh, words, classes, weights, n, block_tile, trace)
 
     def dispatch():
         row_stats, hits, _ = _pass(mesh, st, n=n, threshold=threshold,
@@ -864,6 +938,7 @@ def sharded_pairwise_similarity(
     threshold: int,
     block_tile: int = 128,
     weights=None,
+    trace: Optional[dict] = None,
 ):
     """The flat ring sweep on a mesh: (row_stats np[N_pad, 8] int64,
     tile_hits np[nT, 2], tiles) in the single-chip engine format.
@@ -871,9 +946,10 @@ def sharded_pairwise_similarity(
     shards (:func:`stage_mesh_inputs`); ``weights`` (int8 [W*32]) give
     the BLOSUM-weighted score. The statistics are K1's on every sub-step
     (the JAX package's ``stats_engine`` choices are bit-identical and not
-    carried)."""
+    carried). The pass counts into ``trace`` (a :data:`last_trace` dict;
+    a fresh one when None), which becomes :data:`last_trace`."""
     return _sweep(mesh, "flat", words, classes, n, threshold, block_tile,
-                  weights)
+                  weights, trace)
 
 
 def sharded_pairwise_similarity_2d(
@@ -884,13 +960,14 @@ def sharded_pairwise_similarity_2d(
     threshold: int,
     block_tile: int = 128,
     weights=None,
+    trace: Optional[dict] = None,
 ):
     """The hierarchical (hosts × chips) ring sweep on a mesh of two axes
     (``parallel.make_mesh_2d``; its axis names are the host and chip
     axes): as :func:`sharded_pairwise_similarity`, N_pad a multiple of
     H × C × block_tile."""
     return _sweep(mesh, "2d", words, classes, n, threshold, block_tile,
-                  weights)
+                  weights, trace)
 
 
 def sharded_pairwise_similarity_kaxis(
@@ -901,13 +978,14 @@ def sharded_pairwise_similarity_kaxis(
     threshold: int,
     block_tile: int = 128,
     weights=None,
+    trace: Optional[dict] = None,
 ):
     """The k-axis sweep on a mesh whose one axis is ``"k"``: the packed
     words column-sharded (W divisible by D), one K1 launch a row strip
     (module doc); output as :func:`sharded_pairwise_similarity`, with the
     row stats credited to the smaller index."""
     return _sweep(mesh, "kaxis", words, classes, n, threshold, block_tile,
-                  weights)
+                  weights, trace)
 
 
 def sharded_extract_pairs(
@@ -922,6 +1000,7 @@ def sharded_extract_pairs(
     cap: int = 1 << 20,
     tile_cap: Optional[int] = None,
     expected_total: Optional[int] = None,
+    trace: Optional[dict] = None,
 ):
     """Mesh-parallel exact pair extraction on any layout: the mesh's
     schedule once more, compacting survivors into pair buffers — each
@@ -935,16 +1014,17 @@ def sharded_extract_pairs(
     hits) selects per-sub-tile ``torch.topk`` compaction at a width
     bucketed from it: a sub-tile over that width is dropped whole, and
     ``expected_total`` (the sweep's exact total) turns the shortfall into
-    a raise. None appends the whole mask (what the pipeline runs)."""
+    a raise. None appends the whole mask (what the pipeline runs).
+    ``trace`` as for the sweeps."""
     k = 0
     if tile_cap is not None:
         k = bucket_pow2(tile_cap, 128, block_tile * block_tile)
-    st = _stage_inputs(mesh, words, classes, weights, n, block_tile)
+    st = _stage_inputs(mesh, words, classes, weights, n, block_tile, trace)
     _, _, bufs = _pass(
         mesh, st, n=n, threshold=threshold, block_tile=block_tile,
         stats=False, cap=cap, k=k, cross_amr_only=cross_amr_only,
     )
-    arr, m = _gather_pairs(mesh, bufs, cap)
+    arr, m = _gather_pairs(mesh, bufs, cap, st.trace)
     return _pairs_from_buffers(arr, m, cap, expected_total)
 
 
@@ -959,6 +1039,7 @@ def sharded_pairwise_fused(
     cross_amr_only: bool = True,
     cap: int = 1 << 20,
     k: Optional[int] = None,
+    trace: Optional[dict] = None,
 ):
     """One fused pass on any layout → (row_stats, tile_hits, tiles,
     pairs): each sub-step's or strip's counts feed K1 and the
@@ -968,27 +1049,26 @@ def sharded_pairwise_fused(
     ``cap`` in all), the statistics stand and the pairs are extracted
     again by :func:`sharded_extract_pairs`, sized from this pass's exact
     tile hits. ``k`` defaults to 0 off the TPU, as in the JAX package
-    (whole-mask compaction: only ``cap`` can overflow)."""
+    (whole-mask compaction: only ``cap`` can overflow). ``trace`` as for
+    the sweeps; the second extraction counts into it too."""
     k = 0 if k is None else min(k, block_tile * block_tile)
-    st = _stage_inputs(mesh, words, classes, weights, n, block_tile)
+    st = _stage_inputs(mesh, words, classes, weights, n, block_tile, trace)
     row_stats, hits, bufs = _pass(
         mesh, st, n=n, threshold=threshold, block_tile=block_tile,
         stats=True, cap=cap, k=k, cross_amr_only=cross_amr_only,
     )
     row_stats, tile_hits, tiles = _finalize_sweep(
         mesh, row_stats, hits, st.n_pad, block_tile)
-    arr, m = _gather_pairs(mesh, bufs, cap)
+    arr, m = _gather_pairs(mesh, bufs, cap, st.trace)
     del bufs
-    per_tile = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        per_tile = per_tile + tile_hits[:, 1]
-    total = int(per_tile.sum())
+    total = survivor_total(tile_hits, cross_amr_only, st.trace)
     if arr is not None and m == total:
         return row_stats, tile_hits, tiles, arr
     pairs = sharded_extract_pairs(
         mesh, st.words, st.classes, n, threshold, block_tile=block_tile,
         weights=weights, cross_amr_only=cross_amr_only,
         cap=max(1 << 18, total), tile_cap=None, expected_total=total,
+        trace=st.trace,
     )
     return row_stats, tile_hits, tiles, pairs
 

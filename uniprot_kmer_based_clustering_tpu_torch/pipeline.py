@@ -60,7 +60,10 @@ from uniprot_kmer_based_clustering_tpu_torch.utils.blosum import (
 from uniprot_kmer_based_clustering_tpu_torch.utils.checkpoint import (
     CheckpointStore,
 )
-from uniprot_kmer_based_clustering_tpu_torch.utils.timing import StageTimers
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import (
+    StageTimers,
+    span,
+)
 
 
 @dataclasses.dataclass
@@ -431,12 +434,17 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
     — built on the devices from the index's incidence lists under
     ``stream_source="csr"`` (packless), else copied from the packed host
     matrix — then one fused pass, or the layout's sweep and a
-    mesh-parallel extraction sized by the sweep's exact tile hits."""
+    mesh-parallel extraction sized by the sweep's exact tile hits. Under
+    a profiler the staging, the sweep (its host reads included), the
+    extraction and the fused pass are the spans ``ukc.ring.stage``,
+    ``.sweep``, ``.extract`` and ``.fused``, and
+    ``parallel.sharded.last_trace`` holds the call's counts."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         mesh_layout,
         pad_for_mesh,
     )
     from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (
+        new_trace,
         sharded_extract_pairs,
         sharded_pairwise_fused,
         sharded_pairwise_similarity,
@@ -444,6 +452,7 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
         sharded_pairwise_similarity_kaxis,
         stage_mesh_inputs,
         stage_mesh_inputs_csr,
+        survivor_total,
     )
 
     if config.stream_source == "csr" and (
@@ -488,42 +497,44 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
     n_pad = pad_for_mesh(bitset.n_pad, mesh.size, block_tile)
     classes = np.full(n_pad, -1, dtype=np.int32)
     classes[: bitset.n] = np.asarray(table.amr_class_ids, np.int32)
-    if config.stream_source == "csr":
-        words, classes = stage_mesh_inputs_csr(
-            mesh, index.incidence_protein, index.incidence_rank, n_pad,
-            bitset.w_pad, classes,
-        )
-    else:
-        words = bitset.words
-        if n_pad != bitset.n_pad:
-            words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
-            words[: bitset.n_pad] = bitset.words
-        words, classes = stage_mesh_inputs(mesh, words, classes)
+    trace = new_trace()
+    with span("ring.stage"):
+        if config.stream_source == "csr":
+            words, classes = stage_mesh_inputs_csr(
+                mesh, index.incidence_protein, index.incidence_rank, n_pad,
+                bitset.w_pad, classes, trace=trace,
+            )
+        else:
+            words = bitset.words
+            if n_pad != bitset.n_pad:
+                words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
+                words[: bitset.n_pad] = bitset.words
+            words, classes = stage_mesh_inputs(mesh, words, classes, trace)
 
     if config.extract == "fused":
-        row_stats, _, _, pairs = sharded_pairwise_fused(
-            mesh, words, classes, bitset.n, threshold,
-            block_tile=block_tile, weights=weights,
-            cross_amr_only=config.cross_amr_only,
-            k=config.extract_k or None,
-        )
+        with span("ring.fused"):
+            row_stats, _, _, pairs = sharded_pairwise_fused(
+                mesh, words, classes, bitset.n, threshold,
+                block_tile=block_tile, weights=weights,
+                cross_amr_only=config.cross_amr_only,
+                k=config.extract_k or None, trace=trace,
+            )
         return PairwiseResult.from_row_stats(
             row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
-    row_stats, tile_hits, _ = sweep(
-        mesh, words, classes, bitset.n, threshold, block_tile,
-        weights=weights,
-    )
-    per_tile = tile_hits[:, 0].astype(np.int64)
-    if not config.cross_amr_only:
-        per_tile = per_tile + tile_hits[:, 1]
-    total = int(per_tile.sum())
-    pairs = sharded_extract_pairs(
-        mesh, words, classes, bitset.n, threshold,
-        block_tile=block_tile, weights=weights,
-        cross_amr_only=config.cross_amr_only,
-        cap=max(1 << 18, total), expected_total=total,
-    )
+    with span("ring.sweep"):
+        row_stats, tile_hits, _ = sweep(
+            mesh, words, classes, bitset.n, threshold, block_tile,
+            weights=weights, trace=trace,
+        )
+    total = survivor_total(tile_hits, config.cross_amr_only, trace)
+    with span("ring.extract"):
+        pairs = sharded_extract_pairs(
+            mesh, words, classes, bitset.n, threshold,
+            block_tile=block_tile, weights=weights,
+            cross_amr_only=config.cross_amr_only,
+            cap=max(1 << 18, total), expected_total=total, trace=trace,
+        )
     return PairwiseResult.from_row_stats(
         row_stats, pairs, cross_amr_only=config.cross_amr_only
     )
