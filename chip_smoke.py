@@ -24,10 +24,15 @@ csrc`` with nvcc (one process per source, in parallel), then:
    3,584² block of the 30k corpus, unweighted and weighted;
 3. timing phase — warm sweeps and extractions of both corpora, per-layer
    and per-kernel times against the plain versions, peak device memory;
-   K1 (strip 0) and K2 (the (0, 3584) block) kernel-only with L2 cold
-   beside back-to-back calls and their needed-bytes bound, and the
-   epilogue of one sweep: what the strip sweep launches on its 7 strips
-   and the scan on its 45 steps, summed;
+   K1's survivor append on every strip of the 10,619 corpus against its
+   plain version, exactly (the stored (i, j, count) triples and the
+   cursor, with room for every survivor and in the main path's
+   65,536 slots), and the extraction of what it appended beside pass 2;
+   K1 (strip 0, with and without the append) and K2 (the (0, 3584)
+   block) kernel-only with L2 cold beside back-to-back calls and their
+   needed-bytes bound, and the epilogue of one sweep: what the strip
+   sweep launches on its 7 strips (K1 with the append, and without it as
+   the ring launches it) and the scan on its 45 steps, summed;
 4. stream phase — the out-of-core stream engine at 30,000 proteins:
    ``cli run --engine stream`` (two-pass) and ``cli run --engine stream
    --stream-source csr`` (packless, one-pass), each against the scipy
@@ -1473,13 +1478,18 @@ def scan_timing_phase(dev, state, want_pairs):
 
 
 def timing_phase(dev, state, want_pairs, stats):
-    """10,619 proteins: warm sweep/extraction, per-layer times of one
-    sweep, K1 vs its plain version on strip 0 of the corpus."""
+    """10,619 proteins: warm sweeps (without and with K1's survivor
+    append) and extractions (pass 2, and the sort and fetch of what K1
+    appended), per-layer times of one sweep, K1's append against its
+    plain version on every strip, K1 with and without the append against
+    its plain version on strip 0 of the corpus."""
     import numpy as np
     import torch
 
     from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
     from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+        _EPILOGUE_PAIR_CAP,
+        _new_pair_buffers,
         _tile_runs,
         extract_pairs,
     )
@@ -1494,46 +1504,146 @@ def timing_phase(dev, state, want_pairs, stats):
     classes = classes_to_torch(table.amr_class_ids, n_pad, dev)
     torch.cuda.reset_peak_memory_stats(dev)
 
-    def sweep():
-        return bitmul.sweep_mxu(words, classes, n=n, threshold=THRESHOLD)
+    def sweep(**kw):
+        return bitmul.sweep_mxu(words, classes, n=n, threshold=THRESHOLD,
+                                **kw)
 
     sweep_s, (rs, th, tiles) = best_seconds(sweep)
+    # what the main path's sweep launches: every strip's K1 appends into
+    # _EPILOGUE_PAIR_CAP slots
+    asweep_s, res = best_seconds(lambda: sweep(append=True))
+    total = int(th[:, 0].sum())
+    if (not np.array_equal(res.row_stats, rs)
+            or not np.array_equal(res.tile_hits, th)
+            or int(res.pairs[3]) != total):
+        raise AssertionError("the sweep with K1's append differs from the "
+                             "sweep without it")
     extract_s, pairs = best_seconds(
         lambda: extract_pairs(words, classes, th, tiles, n=n,
                               threshold=THRESHOLD)
     )
+    # the main path's extraction: the appended pairs when they fit the
+    # buffers, else pass 2
+    mextract_s, mpairs = best_seconds(
+        lambda: extract_pairs(words, classes, th, tiles, n=n,
+                              threshold=THRESHOLD, appended=res.pairs))
     peak = torch.cuda.max_memory_allocated(dev)
-    if not np.array_equal(pairs, want_pairs):
+    if not (np.array_equal(pairs, want_pairs)
+            and np.array_equal(mpairs, want_pairs)):
         raise AssertionError("warm extraction differs from the run")
     pair_count = n * (n - 1) // 2
+    fits = total <= _EPILOGUE_PAIR_CAP
     print(f"warm sweep_mxu {sweep_s:.6f} s (best of 3 after 2 warm-ups) "
-          f"= {pair_count / sweep_s:.6e} pairs/s; warm extract_pairs "
-          f"{extract_s:.6f} s for {len(pairs)} pairs; peak device memory "
-          f"{peak} bytes", flush=True)
+          f"= {pair_count / sweep_s:.6e} pairs/s; with K1's append "
+          f"{asweep_s:.6f} s; warm extract_pairs (pass 2) "
+          f"{extract_s:.6f} s for {len(pairs)} pairs; the main path's "
+          f"extraction of the appended buffers ({total} survivors, "
+          f"{_EPILOGUE_PAIR_CAP} slots: "
+          f"{'sort and fetch' if fits else 'pass 2'}) {mextract_s:.6f} s; "
+          f"peak device memory {peak} bytes", flush=True)
 
-    # per-layer device times of one sweep (CUDA events)
+    # per-layer device times of one sweep (CUDA events); K1's append
+    # against its plain version on every strip: with room for every
+    # survivor (the stored triples and the cursor equal the plain
+    # append's) and in the main path's _EPILOGUE_PAIR_CAP slots (the
+    # cursor counts every survivor, the stored slots are survivors, each
+    # once)
     _, strip, ns = bitmul.resolve_schedule(n_pad, 512)
     unpack_ms = cuda_ms(lambda: bitmul.unpack_words_to_int8(words), reps=3)
     bits = bitmul.unpack_words_to_int8(words)
     nb = n_pad // 512
-    row_stats = torch.empty((n_pad, 8), dtype=torch.int32, device=dev)
-    block_hits = torch.zeros((nb, nb, 2), dtype=torch.int32, device=dev)
-    gemm_ms = epi_ms = 0.0
+
+    def sweep_buffers():
+        return (torch.empty((n_pad, 8), dtype=torch.int32, device=dev),
+                torch.zeros((nb, nb, 2), dtype=torch.int32, device=dev))
+
+    plain_rs, plain_bh = sweep_buffers()
+    app_rs, app_bh = sweep_buffers()
+    ref_rs, ref_bh = sweep_buffers()
+    junk = sweep_buffers()  # the timed calls' outputs
+    room = _new_pair_buffers(total + 7, dev)
+    short = _new_pair_buffers(_EPILOGUE_PAIR_CAP, dev)
+    ref = _new_pair_buffers(total + 7, dev)
+    # room for every survivor of the timed calls of the biggest strip
+    timed = _new_pair_buffers(24 * total, dev)
+    gemm_ms = epi_ms = app_ms = 0.0
+    strip_survivors = []
     for si in range(ns):
         i0, gb = si * strip, si * strip // 512
         a, b = bits[i0 : i0 + strip], bits[i0:]
         gemm_ms += cuda_ms(lambda: bitmul.int8_gemm(a, b), reps=3)
         counts = bitmul.int8_gemm(a, b)
         kw = dict(i_off=i0, j_off=i0, n=n, threshold=THRESHOLD, tile=512)
-        # what the strip sweep launches for this strip's epilogue
-        epi_ms += cuda_ms(lambda: stats.stats_from_counts_into(
-            counts, classes[i0 : i0 + strip], classes[i0:],
-            row_stats[i0 : i0 + strip], block_hits[gb:, gb:], **kw))
+        ca, cb = classes[i0 : i0 + strip], classes[i0:]
+
+        def k1(rs_, bh_, pairs=None):
+            return stats.stats_from_counts_into(
+                counts, ca, cb, rs_[i0 : i0 + strip], bh_[gb:, gb:],
+                pairs=pairs, **kw)
+
+        # what the ring and every path but the strip sweep launch
+        epi_ms += cuda_ms(lambda: k1(*junk))
+        # what the strip sweep launches: K1 storing every survivor, as on
+        # the ARG corpus
+        timed[3].zero_()
+        app_ms += cuda_ms(lambda: k1(*junk, timed))
+        k1(plain_rs, plain_bh)
+        k1(app_rs, app_bh, room)
+        k1(*junk, short)
+        before = int(ref[3])
+        stats.stats_from_counts_into_reference(
+            counts, ca, cb, ref_rs[i0 : i0 + strip], ref_bh[gb:, gb:],
+            pairs=ref, **kw)
+        strip_survivors.append(int(ref[3]) - before)
+    del counts, a, b
+    torch.cuda.synchronize()
+
+    def stored(bufs, count):
+        return _sorted_pair_rows(*(t[:count] for t in bufs[:3]))
+
+    want = stored(ref, total)
+    got = stored(room, total)
+    kept = stored(short, min(total, _EPILOGUE_PAIR_CAP))
+    key = want[:, 0] * (1 << 32) + want[:, 1]
+    kept_key = kept[:, 0] * (1 << 32) + kept[:, 1]
+    at = np.minimum(np.searchsorted(key, kept_key), max(total - 1, 0))
+    checks = {
+        "cursor = survivors (room)": int(room[3]) == total,
+        "cursor = survivors (main path's slots)": int(short[3]) == total,
+        "plain cursor = tile hits": int(ref[3]) == total,
+        "stored = plain append (room)": np.array_equal(got, want),
+        "unused slots untouched (room)": bool(
+            (room[2][total:] == -1).all()),
+        "stored are survivors, each once (main path's slots)": (
+            len(np.unique(kept_key)) == len(kept)
+            and np.array_equal(want[at], kept)),
+        "row stats and tile hits = K1 without the append = plain": (
+            torch.equal(app_rs, ref_rs) and torch.equal(app_bh, ref_bh)
+            and torch.equal(plain_rs, ref_rs)
+            and torch.equal(plain_bh, ref_bh)),
+    }
+    print(f"K1's append on the {ns} strips of the corpus ({total} "
+          f"survivors, {strip_survivors} a strip) against its plain "
+          f"version: {checks}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError("K1's append disagrees with its plain version")
+    appended_s, apairs = best_seconds(
+        lambda: extract_pairs(words, classes, th, tiles, n=n,
+                              threshold=THRESHOLD,
+                              appended=room[:3] + (room[3].cpu(),)))
+    if not np.array_equal(apairs, want_pairs):
+        raise AssertionError("the appended pairs differ from the run")
+    del room, short, ref, timed, junk
     macs = sum(strip * (n_pad - si * strip) for si in range(ns)) * bits.shape[1]
     print(f"sweep layers (device ms): unpack {unpack_ms:.4f}, int8 GEMM "
           f"{gemm_ms:.4f} ({2 * macs / gemm_ms / 1e9:.1f} TOP/s), K1 "
-          f"epilogue {epi_ms:.4f} over {ns} strips (one accumulate-into "
-          f"call a strip, back-to-back device time)", flush=True)
+          f"epilogue over {ns} strips (one accumulate-into call a strip, "
+          f"back-to-back device time): with the survivor append, as the "
+          f"strip sweep launches it, {app_ms:.4f}; without, as the ring "
+          f"launches it, {epi_ms:.4f} ({app_ms / epi_ms:.3f}x); "
+          f"extraction of the {total} appended survivors (sort and "
+          f"fetch) {appended_s * 1e3:.4f} ms host wall, beside pass 2's "
+          f"{extract_s * 1e3:.4f}", flush=True)
 
     # the extraction's share spent in its recompute products (one per
     # run of adjacent hit tiles in a tile row)
@@ -1547,11 +1657,12 @@ def timing_phase(dev, state, want_pairs, stats):
             bitmul.int8_gemm(bits[i0 : i0 + tile], bits[j0 : j0 + width])
 
     xg_ms = cuda_ms(hit_run_gemms, reps=1, warmup=1)
-    print(f"extraction layers (device ms): {len(runs)} products over "
-          f"{len(hit)} hit tiles {xg_ms:.4f} of the {extract_s * 1e3:.4f} "
-          f"ms warm extraction", flush=True)
+    print(f"pass-2 extraction layers (device ms): {len(runs)} products "
+          f"over {len(hit)} hit tiles {xg_ms:.4f} of the "
+          f"{extract_s * 1e3:.4f} ms warm pass 2", flush=True)
 
-    # K1 against its plain version on strip 0 of the corpus, and its times
+    # K1 against its plain version on strip 0 of the corpus, and its
+    # times, without and with the survivor append
     counts = bitmul.int8_gemm(bits[:strip], bits)
     del bits
     kw = dict(i_off=0, j_off=0, n=n, threshold=THRESHOLD, tile=512)
@@ -1564,17 +1675,50 @@ def timing_phase(dev, state, want_pairs, stats):
     rs = torch.empty((strip, 8), dtype=torch.int32, device=dev)
     bh = torch.zeros((strip // 512, n_pad // 512, 2), dtype=torch.int32,
                      device=dev)
+    out_ints = 8 * strip + 2 * len(th_k)
     t = epilogue_times(
         lambda: stats.stats_from_counts_into(counts, crow, ccol, rs, bh, **kw),
         lambda: stats.stats_from_counts(counts, crow, ccol, **kw),
         lambda: stats.stats_from_counts_reference(counts, crow, ccol, **kw),
-        epilogue_bound_ms(strip, n_pad, 0, 0, n, 8 * strip + 2 * len(th_k)),
+        epilogue_bound_ms(strip, n_pad, 0, 0, n, out_ints),
     )
     print(f"K1 on strip 0 counts[{strip}, {n_pad}] "
           f"({needed_pairs(strip, n_pad, 0, 0, n)} needed counts): "
           f"{epilogue_line(t)}; max_abs_err {err}", flush=True)
+    # with the append: every call stores its survivors (room for the
+    # ~170 calls epilogue_times makes), the bound adds their 12 bytes
+    # each and the cursor's 8
+    m0 = strip_survivors[0]
+    app = _new_pair_buffers(176 * m0 + 1, dev)
+    app_ref = _new_pair_buffers(48 * m0 + 1, dev)
+    rs_r, bh_r = rs.clone(), bh.clone()
+    ta = epilogue_times(
+        lambda: stats.stats_from_counts_into(counts, crow, ccol, rs, bh,
+                                             pairs=app, **kw),
+        lambda: stats.stats_from_counts(counts, crow, ccol, **kw),
+        lambda: stats.stats_from_counts_into_reference(
+            counts, crow, ccol, rs_r, bh_r, pairs=app_ref, **kw),
+        epilogue_bound_ms(strip, n_pad, 0, 0, n, out_ints + 3 * m0 + 2),
+    )
+    del app, app_ref
+    print(f"K1 with the survivor append on strip 0 ({m0} survivors): "
+          f"{epilogue_line(ta)}; {ta['ms'] / t['ms']:.3f}x K1 without "
+          f"(kernel-only)", flush=True)
     return dict(sweep_s=sweep_s, extract_s=extract_s, peak=peak, err=err,
-                epi_ms=epi_ms, **t)
+                epi_ms=epi_ms, app_ms=app_ms, asweep_s=asweep_s,
+                appended_s=appended_s, survivors=total,
+                append={k: ta[k] for k in ("ms", "call_ms", "plain_ms",
+                                           "bound_ms")},
+                **t)
+
+
+def _sorted_pair_rows(i, j, c):
+    """(i, j, count) device tensors as one int64 host array sorted by
+    (i, j)."""
+    import numpy as np
+
+    out = np.stack([x.cpu().numpy().astype(np.int64) for x in (i, j, c)], 1)
+    return out[np.lexsort((out[:, 1], out[:, 0]))]
 
 
 QUERY_BATCH = 256  # the self-query batch of the query phase
@@ -4249,6 +4393,10 @@ def smoke() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": "bytes",
+            "append_ms": t["append"]["ms"],
+            "append_call_ms": t["append"]["call_ms"],
+            "append_plain_ms": t["append"]["plain_ms"],
+            "append_bound_ms": t["append"]["bound_ms"],
             "library_ms": None,
             "query_launches": q_launches["K1"],
             "device_index_launches": i_launches["K1"],

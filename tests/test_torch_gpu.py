@@ -19,6 +19,7 @@ import torch
 from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, stats
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise as tpw
 
 pytestmark = pytest.mark.gpu
 
@@ -114,6 +115,44 @@ def test_pipeline_gpu_matches_cpu(cuda, synth_fasta, weighting):
     assert gpu.parity_report()["pairs_over_threshold"] > 0
     assert np.array_equal(gpu.pairwise.pairs, cpu.pairwise.pairs)
     assert np.array_equal(gpu.cluster_labels, cpu.cluster_labels)
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """The names of the ``csrc/stats_epilogue.cu`` entries launched
+    while the test runs (``ukc_stats_epilogue_append_into`` is K1 with
+    the survivor append)."""
+    names = []
+    real = stats._launch
+
+    def counted(name, *args, **kw):
+        names.append(name)
+        return real(name, *args, **kw)
+
+    monkeypatch.setattr(stats, "_launch", counted)
+    return names
+
+
+@pytest.mark.parametrize("weighting", ["none", "blosum62"])
+def test_pipeline_epilogue_route_matches_two_pass(cuda, synth_fasta,
+                                                  launched, weighting):
+    """3 strips of 512 rows, tile 512: the default extraction takes the
+    survivors K1 appended (no product, one fetch) and gives two-pass's
+    pairs, counters and clusters."""
+    cfg = PipelineConfig(engine="mxu", tile=512, strip=512,
+                         weighting=weighting)
+    got = run_pipeline(synth_fasta, cfg, device=cuda)
+    trace = dict(tpw.last_trace)
+    assert launched == ["ukc_stats_epilogue_append_into"] * 3
+    two = run_pipeline(synth_fasta, PipelineConfig(
+        engine="mxu", tile=512, strip=512, weighting=weighting,
+        extract="two_pass"), device=cuda)
+    assert tpw.last_trace["extract_products"] > 0
+    assert trace["extract_products"] == 0 and trace["extract_syncs"] == 1
+    assert trace["epilogue_pairs"] == len(got.pairwise.pairs) > 0
+    assert got.parity_report() == two.parity_report()
+    assert np.array_equal(got.pairwise.pairs, two.pairwise.pairs)
+    assert np.array_equal(got.cluster_labels, two.cluster_labels)
 
 
 @pytest.mark.parametrize("i0,j0", [(0, 1024), (512, 512)])
@@ -219,6 +258,58 @@ def test_k2_into_matches_reference(cuda, name, signed):
         assert not torch.equal(got[1], bh0)
 
 
+def _pair_keys(i, j, c):
+    """(i, j, count) tensors as one host array sorted by (i, j)."""
+    out = np.stack([x.cpu().numpy().astype(np.int64) for x in (i, j, c)], 1)
+    return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+@pytest.mark.parametrize("cap", ["room", "short"])
+@pytest.mark.parametrize("include_same", [False, True])
+@pytest.mark.parametrize("name", ["strip0", "strip6", "ragged", "tile96"])
+def test_k1_appends_the_survivor_mask(cuda, launched, name, include_same,
+                                      cap):
+    """K1 handed pair buffers (vec4 path at tile 512, scalar path at tile
+    96) stores the same row stats and tile hits as without them, and
+    appends exactly survivor_mask's pairs (signed counts where same-class
+    pairs survive too); with room for a third of them (``short``) the
+    cursor still counts all, and the slots it stored are survivors, each
+    once."""
+    counts, ca, cb, rs0, bh0, i_off, j_off, kw = _into_case(
+        cuda, name, signed=include_same)
+    plain, got = (rs0.clone(), bh0.clone()), (rs0.clone(), bh0.clone())
+    stats.stats_from_counts_into(counts, ca, cb, plain[0], plain[1][1:, 2:],
+                                 i_off=i_off, j_off=j_off, **kw)
+    mask = stats.survivor_mask(counts, ca, cb, i_off, j_off, n=kw["n"],
+                               threshold=kw["threshold"],
+                               include_same=include_same)
+    r, c = torch.nonzero(mask, as_tuple=True)
+    want = _pair_keys(i_off + r, j_off + c, counts[r, c])
+    total = len(want)
+    room = total + 7 if cap == "room" else total // 3
+    pairs = tpw._new_pair_buffers(room, cuda)
+    before = stats.stats_from_counts_into.launches
+    stats.stats_from_counts_into(counts, ca, cb, got[0], got[1][1:, 2:],
+                                 i_off=i_off, j_off=j_off, pairs=pairs,
+                                 include_same=include_same, **kw)
+    torch.cuda.synchronize()
+    assert stats.stats_from_counts_into.launches == before + 1
+    assert launched == ["ukc_stats_epilogue_into",
+                        "ukc_stats_epilogue_append_into"]
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    assert total > 0 and int(pairs[3]) == total
+    stored = _pair_keys(*(b[: min(room, total)] for b in pairs[:3]))
+    if cap == "room":
+        assert np.array_equal(stored, want)
+        assert bool((pairs[2][total:] == -1).all())
+    else:
+        key = want[:, 0] * (1 << 32) + want[:, 1]
+        got_key = stored[:, 0] * (1 << 32) + stored[:, 1]
+        at = np.searchsorted(key, got_key)
+        assert len(stored) == room == len(np.unique(got_key))
+        assert np.array_equal(want[np.minimum(at, total - 1)], stored)
+
+
 def test_epilogue_repeats_exactly(cuda):
     """Two identical calls of each entry give identical results: integer
     atomics merge to the same sums in any order."""
@@ -267,7 +358,8 @@ def test_epilogue_wrappers_do_not_synchronise(cuda):
     assert torch.equal(k2[0], want2[0]) and torch.equal(k2[1], want2[1])
 
 
-@pytest.mark.parametrize("schedule", ["strips", "scan", "fused"])
+@pytest.mark.parametrize("schedule", ["strips", "scan", "fused",
+                                      "appended"])
 def test_sweep_loops_do_not_synchronise(cuda, schedule):
     """The strip loop (K1 once a strip) and the scan loop (K2 once a step,
     with fused candidates too) run under
@@ -287,6 +379,10 @@ def test_sweep_loops_do_not_synchronise(cuda, schedule):
     def loop(ww, cc):
         if schedule == "strips":
             return bitmul._strip_sweep(ww, cc, None, strip=512, **kw)
+        if schedule == "appended":
+            bufs = tpw._new_pair_buffers(tpw._EPILOGUE_PAIR_CAP, ww.device)
+            return bitmul._strip_sweep(ww, cc, None, strip=512, pairs=bufs,
+                                       **kw)
         return bitmul._scan_sweep(
             ww, cc, None, pairs, bs=512, fused_same=False,
             fused_k=4096 if schedule == "fused" else 0, **kw)[:2]
@@ -304,7 +400,8 @@ def test_sweep_loops_do_not_synchronise(cuda, schedule):
         torch.cuda.set_sync_debug_mode(0)
     launched = (stats.stats_from_counts_into.launches - before[0],
                 stats.stats_from_counts_traced_into.launches - before[1])
-    assert launched == ((3, 0) if schedule == "strips" else (0, 6))
+    assert launched == ((3, 0) if schedule in ("strips", "appended")
+                        else (0, 6))
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
 

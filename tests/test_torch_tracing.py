@@ -28,7 +28,9 @@ STRIPS = dict(engine="mxu", tile=16, strip=64, threshold=2)
 FUSED = dict(engine="mxu", tile=16, strip=16, threshold=2, extract="fused")
 
 # the nearest enclosing ukc.* span of each span, as the call tree nests
-# them; None is the caller
+# them; None is the caller. Under extract="two_pass" extraction unpacks
+# and recomputes the hit tiles; under the default, on the strip
+# schedule, it only plans and fetches what K1 appended.
 STAGES = ["ingest", "encode", "index", "pack", "sweep", "cluster"]
 PAIRWISE_PARENTS = {
     "ukc.pairwise.upload": None,
@@ -42,12 +44,19 @@ PAIRWISE_PARENTS = {
     "ukc.extract.fetch": "ukc.pairwise.extract",
     "ukc.pairwise.result": None,
 }
-PIPELINE_PARENTS = {
-    **{f"ukc.stage.{s}": None for s in STAGES},
-    "ukc.index.build": "ukc.stage.index",
-    "ukc.index.owners": "ukc.stage.index",
-    **{k: v or "ukc.stage.sweep" for k, v in PAIRWISE_PARENTS.items()},
+APPENDED_PARENTS = {
+    k: v for k, v in PAIRWISE_PARENTS.items()
+    if k not in ("ukc.extract.unpack", "ukc.extract.products")
 }
+
+
+def _pipeline_parents(pairwise):
+    return {
+        **{f"ukc.stage.{s}": None for s in STAGES},
+        "ukc.index.build": "ukc.stage.index",
+        "ukc.index.owners": "ukc.stage.index",
+        **{k: v or "ukc.stage.sweep" for k, v in pairwise.items()},
+    }
 
 
 @pytest.fixture(scope="module")
@@ -105,18 +114,25 @@ def _pairwise(packed, config, weights=None):
     )
 
 
-@pytest.mark.parametrize("what", ["pairwise", "pipeline"])
-def test_the_spans_nest_as_the_call_tree(fasta, packed, what):
-    config = PipelineConfig(**STRIPS)
+@pytest.mark.parametrize("what,extract", [
+    pytest.param("pairwise", "auto", id="pairwise"),
+    pytest.param("pipeline", "auto", id="pipeline"),
+    pytest.param("pairwise", "two_pass", id="pairwise-two_pass"),
+    pytest.param("pipeline", "two_pass", id="pipeline-two_pass"),
+])
+def test_the_spans_nest_as_the_call_tree(fasta, packed, what, extract):
+    config = PipelineConfig(**STRIPS, extract=extract)
+    pairwise = PAIRWISE_PARENTS if extract == "two_pass" else APPENDED_PARENTS
     if what == "pairwise":
         _, spans = _profiled(lambda: _pairwise(packed, config))
-        want = PAIRWISE_PARENTS
+        want = pairwise
     else:
         _, spans = _profiled(lambda: run_pipeline(fasta, config,
                                                   device="cpu"))
-        want = PIPELINE_PARENTS
+        want = _pipeline_parents(pairwise)
     assert dict(spans) == want
-    # one window: one unpack, one span around the products' loop
+    # each span once: one window, one unpack, one span around the
+    # products' loop (two-pass); one plan and one fetch (appended)
     names = [s for s, _ in spans]
     assert len(names) == len(want)
     if what == "pipeline":
@@ -150,9 +166,17 @@ def test_no_record_function_without_a_profiler(fasta, monkeypatch):
         _profiled(lambda: run_pipeline(fasta, config, device="cpu"))
 
 
-@pytest.mark.parametrize("weighting", ["none", "blosum62"])
-def test_the_two_pass_counts_are_the_inputs(packed, weighting):
-    config = PipelineConfig(**STRIPS, weighting=weighting)
+@pytest.mark.parametrize("weighting,extract", [
+    pytest.param("none", "two_pass", id="none"),
+    pytest.param("blosum62", "two_pass", id="blosum62"),
+    pytest.param("none", "auto", id="none-appended"),
+    pytest.param("blosum62", "auto", id="blosum62-appended"),
+])
+def test_the_two_pass_counts_are_the_inputs(packed, weighting, extract):
+    """Two-pass: a product and a ``nonzero`` a run of hit tiles, and the
+    fetch. The default on the strip schedule: no product, the one fetch,
+    and every pair appended by K1."""
+    config = PipelineConfig(**STRIPS, weighting=weighting, extract=extract)
     bitset = packed.bitset
     weights = blosum_weights(packed.index, config, bitset)
     r = _pairwise(packed, config, weights)
@@ -177,9 +201,16 @@ def test_the_two_pass_counts_are_the_inputs(packed, weighting):
     hit = np.nonzero(tile_hits[:, 0] > 0)[0]
     runs = list(tpw._tile_runs(ti[hit], tj[hit]))
     assert 0 < len(runs) < len(hit)
-    assert t == {"upload_bytes": upload, "hit_tiles": len(hit),
-                 "extract_products": len(runs),
-                 "extract_syncs": len(runs) + 1, "pairs": len(r.pairs)}
+    if extract == "two_pass":
+        assert t == {"upload_bytes": upload, "hit_tiles": len(hit),
+                     "extract_products": len(runs),
+                     "extract_syncs": len(runs) + 1, "epilogue_pairs": 0,
+                     "pairs": len(r.pairs)}
+    else:
+        assert t == {"upload_bytes": upload, "hit_tiles": len(hit),
+                     "extract_products": 0, "extract_syncs": 1,
+                     "epilogue_pairs": len(r.pairs), "pairs": len(r.pairs)}
+    assert len(r.pairs) == int(tile_hits[:, 0].sum())
 
 
 def test_the_fused_counts_are_the_inputs(fasta):

@@ -78,9 +78,13 @@ class PipelineConfig:
                                     #   survivors into device pair buffers
                                     #   during the streamed sweep itself —
                                     #   no candidate-capacity guessing, no
-                                    #   per-step drain volume; auto
-                                    #   currently = two_pass. Bit-identical
-                                    #   outputs.
+                                    #   per-step drain volume; auto (and
+                                    #   fused) on the strip schedule take
+                                    #   the survivors the K1 epilogue
+                                    #   appended during the sweep, with
+                                    #   two_pass beyond their capacity;
+                                    #   auto elsewhere = two_pass.
+                                    #   Bit-identical outputs.
     extract_k: int = 0              # extraction capacity knob; the meaning
                                     #   depends on `extract` (the two differ
                                     #   by orders of magnitude — don't carry

@@ -53,6 +53,46 @@
 //     block_hits view.
 // Tiles or strides that break 16-byte alignment (tile % 128 != 0) take a
 // scalar-load path of 32-column chunks.
+//
+// Survivor append (K1 only, kAppend 1 or 2; the launch picks it when the
+// caller passes pair buffers, ukc_stats_epilogue_append_into, and only
+// then): the counts K1 reads once are the counts the pair list is made
+// of, so K1 appends each survivor as it reads it, and extraction
+// recomputes nothing.
+//   * predicate: a valid count x > threshold whose two classes differ
+//     (kAppend 1), or every valid count over the threshold (2, the
+//     caller's include_same): exactly ops.stats.survivor_mask, and exactly
+//     what the tile hits count (the cross lane, or both lanes).
+//   * finding them costs a compare a chunk: a survivor is a count that the
+//     lane's over count (cross, or cross + same) takes in, so a lane whose
+//     over count moved in a chunk marks which of its kVec counts survive,
+//     a bit each (rare: 465 cross-class pairs in the 56 M of the
+//     10,619-protein sweep), and one __ballot_sync a group of kAhead
+//     chunks tells the warp whether any lane marked one.
+//   * warp-aggregated cursor: such a group takes each lane's place by one
+//     ballot (a scan where a lane holds two) and stages the survivors, as
+//     (gj, x), in the warp's kStage-entry stage in shared memory. A full
+//     stage, and the row's end, take their slots with one atomicAdd on the
+//     int64 cursor by lane 0 and store (gi, gj, x) into the int32 buffers
+//     pair_i, pair_j, pair_c; the row's last atomic goes out before the
+//     row's reduction, which covers its round trip.
+//   * what it costs: every row of a strip runs at once, so a launch lasts
+//     as long as its slowest row, here a row of a two-class family with up
+//     to 62 survivors in 15 groups; each of those groups adds a short chain
+//     of waits to that row's warp. 1.10 times K1's time without the append
+//     over a sweep job (PERF.md). Designs that took an atomic a chunk (60
+//     round trips on such a row), or re-read the classes and balloted each
+//     element slot of such a group, took 1.4 to 1.8 times on the strips
+//     that hold those rows; marking survivors on every count cost 12-17%
+//     on the strips that hold few.
+//   * capacity and exactness: only slots below cap are stored, but the
+//     cursor counts every survivor, so an overflow shows exactly. The
+//     caller compares the cursor with the sweep's own tile hits, the exact
+//     total: equal and within cap, the buffers hold the whole pair list;
+//     above cap it extracts the other way (recomputing the hit tiles); any
+//     other disagreement raises.
+// With kAppend 0 the append code is not compiled in: K1 without buffers
+// and K2 run the kernel they ran before it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,6 +104,12 @@ namespace {
 constexpr int kWarps = 4;  // rows of a block: one warp owns one row
 constexpr int kAhead = 4;  // chunks a lane loads ahead, twice over
 constexpr int kWindow = 11264;  // column classes staged at once (44 KB)
+// kAppend: survivors a warp stages in shared memory, as (gj, count), before
+// it takes their slots with one atomicAdd; and the window that leaves room
+// for the four warps' stages in the 48 KB of dynamic shared memory a launch
+// gets without opting in, at the least tile (32: 2 * 346 hit slots)
+constexpr int kStage = 64;
+constexpr int kAppendWindow = 11008;
 
 struct Args {
   const int* counts;
@@ -76,6 +122,13 @@ struct Args {
   unsigned* hits;     // hit (ti, tj, lane) at ti * hits_ld + tj * 2 + lane
   long long hits_ld;
   int win;            // columns staged a window, a multiple of the chunk
+  // survivor append (kAppend): buffers [cap] and their slot cursor
+  int include_same;
+  int* pair_i;
+  int* pair_j;
+  int* pair_c;
+  unsigned long long* cursor;
+  long long cap;
 };
 
 // One lane's share of a row: cross pairs (c*) and all valid pairs (t*);
@@ -106,6 +159,21 @@ __device__ __forceinline__ void add_pair(Partial& a, int x, int ccol,
 __device__ __forceinline__ unsigned over_total(unsigned folded,
                                                unsigned packed) {
   return folded + (packed >> 16);
+}
+
+// kAppend: 1 when count x survives: over the threshold and cross-class
+// (kAppend 1) or over it (2), as ops.stats.survivor_mask has it.
+template <int kAppend>
+__device__ __forceinline__ unsigned survives(int x, int ccol, int crow,
+                                             int threshold) {
+  return x > threshold && (kAppend == 2 || ccol != crow) ? 1u : 0u;
+}
+
+// kAppend: the over count that survivors add to (a lane's, in its high 16
+// bits): cross-class (kAppend 1) or every pair (2).
+template <int kAppend>
+__device__ __forceinline__ unsigned survivor_count(const Partial& a) {
+  return kAppend == 1 ? a.cpo : a.tpo;
 }
 
 __device__ __forceinline__ void fold_window(Partial& a) {
@@ -187,7 +255,103 @@ __device__ __forceinline__ void load_group(Lanes<kVec> (&g)[kAhead],
   }
 }
 
-template <int kVec, bool kAccumulate>
+// Store a warp's staged survivors at the slots from base on, those below
+// cap. Every lane of the warp calls.
+__device__ __forceinline__ void store_stage(const Args& a, const int* stage,
+                                            unsigned staged,
+                                            unsigned long long base, int gi,
+                                            int lane) {
+  for (unsigned q = lane; q < staged; q += 32) {
+    const unsigned long long slot = base + q;
+    if (slot < static_cast<unsigned long long>(a.cap)) {
+      a.pair_i[slot] = gi;
+      a.pair_j[slot] = stage[2 * q];
+      a.pair_c[slot] = stage[2 * q + 1];
+    }
+  }
+}
+
+// Append a warp's staged survivors: one atomicAdd on the cursor for their
+// slots, then their stores. Every lane of the warp calls.
+__device__ __forceinline__ void flush_stage(const Args& a, const int* stage,
+                                            unsigned& staged, int gi,
+                                            int lane) {
+  __syncwarp();  // every lane's staged entries are visible
+  unsigned long long base = 0ull;
+  if (lane == 0)
+    base = atomicAdd(a.cursor, static_cast<unsigned long long>(staged));
+  store_stage(a, stage, staged, __shfl_sync(0xffffffffu, base, 0), gi, lane);
+  __syncwarp();  // the stage is read before it is written again
+  staged = 0u;
+}
+
+// x[q / kVec].at(q % kVec) for a q known only at run time, by selects (an
+// index into the registers would put them in local memory).
+template <int kVec>
+__device__ __forceinline__ int pick(const Lanes<kVec> (&x)[kAhead], int q) {
+  Lanes<kVec> chunk = x[0];
+#pragma unroll
+  for (int k = 1; k < kAhead; ++k)
+    if (q / kVec == k) chunk = x[k];
+  return chunk.at(q % kVec);
+}
+
+// Stage the survivors of a group of kAhead chunks that holds some: bit
+// k * kVec + e of the lane's svm marks its count x[k].at(e), at local column
+// c + k * 32 * kVec + lane * kVec + e of row gi. A group with more than a
+// stage holds takes its slots at once and stores them straight into the
+// buffers. Every lane of the warp calls.
+template <int kVec>
+__device__ __forceinline__ void stage_survivors(
+    const Args& a, const Lanes<kVec> (&x)[kAhead], unsigned svm, int c,
+    int* stage, unsigned& staged, int gi, int lane) {
+  const unsigned all = 0xffffffffu;
+  const unsigned below = (1u << lane) - 1u;
+  // this lane's first place among the group's survivors: a ballot where no
+  // lane holds two (the usual case), else an exclusive scan
+  const unsigned mine = __popc(svm);
+  const unsigned any = __ballot_sync(all, mine != 0u);
+  unsigned at = __popc(any & below);
+  unsigned total = __popc(any);
+  if (__ballot_sync(all, mine > 1u)) {
+    unsigned upto = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned v = __shfl_up_sync(all, upto, o);
+      if (lane >= o) upto += v;
+    }
+    total = __shfl_sync(all, upto, 31);
+    at = upto - mine;
+  }
+  const int gj = a.j_off + c + lane * kVec;
+  if (staged + total > kStage) flush_stage(a, stage, staged, gi, lane);
+  if (total > kStage) {
+    unsigned long long base = 0ull;
+    if (lane == 0)
+      base = atomicAdd(a.cursor, static_cast<unsigned long long>(total));
+    base = __shfl_sync(all, base, 0) + at;
+    for (unsigned bits = svm; bits; bits &= bits - 1u, ++base) {
+      const int q = __ffs(bits) - 1;
+      if (base < static_cast<unsigned long long>(a.cap)) {
+        a.pair_i[base] = gi;
+        a.pair_j[base] = gj + q / kVec * 32 * kVec + q % kVec;
+        a.pair_c[base] = pick<kVec>(x, q);
+      }
+    }
+    __syncwarp();
+    return;
+  }
+  int* p = stage + 2 * (staged + at);
+  for (unsigned bits = svm; bits; bits &= bits - 1u, p += 2) {
+    const int q = __ffs(bits) - 1;
+    p[0] = gj + q / kVec * 32 * kVec + q % kVec;
+    p[1] = pick<kVec>(x, q);
+  }
+  __syncwarp();
+  staged += total;
+}
+
+template <int kVec, bool kAccumulate, int kAppend>
 __global__ void __launch_bounds__(kWarps * 32)
 stats_epilogue_kernel(const Args a) {
   constexpr int kChunk = 32 * kVec;
@@ -195,6 +359,10 @@ stats_epilogue_kernel(const Args a) {
   int* s_cls = smem;                                         // [win]
   unsigned* s_hits = reinterpret_cast<unsigned*>(smem + a.win);  // [slots, 2]
   const int slots = a.win / a.tile + 2;
+  // kAppend: this warp's stage, [kStage, 2], and how much of it is used
+  [[maybe_unused]] int* stage =
+      smem + a.win + 2 * slots + (threadIdx.x >> 5) * 2 * kStage;
+  [[maybe_unused]] unsigned staged = 0u;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -233,6 +401,10 @@ stats_epilogue_kernel(const Args a) {
 #pragma unroll
       for (int k = 0; k < kAhead; ++k) cur[k] = next[k];
       load_group<kVec>(next, row, c + kAhead * kChunk, c1, lane);
+      // kAppend: this lane's survivors in the group, bit k * kVec + e, and
+      // its survivor_count before the chunk
+      [[maybe_unused]] unsigned svm = 0u;
+      [[maybe_unused]] unsigned last = survivor_count<kAppend>(acc);
 #pragma unroll
       for (int k = 0; k < kAhead; ++k) {
         const int cc = c + k * kChunk;
@@ -252,6 +424,17 @@ stats_epilogue_kernel(const Args a) {
             add_pair(acc, cur[k].at(e), cls.at(e), crow, a.threshold,
                      a.w_thresh);
         }
+        if constexpr (kAppend != 0) {
+          const unsigned now = survivor_count<kAppend>(acc);
+          if ((now >> 16) != (last >> 16)) {  // this lane met one (rare)
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              if (col + e >= lo && col + e < hi)
+                svm |= survives<kAppend>(cur[k].at(e), cls.at(e), crow,
+                                         a.threshold) << (k * kVec + e);
+          }
+          last = now;
+        }
         if (cc + kChunk == tile_end || cc + kChunk >= hi) {
           // a tile column span of this row ends: its hits to the slot
           const unsigned co = over_total(acc.co, acc.cpo);
@@ -268,6 +451,11 @@ stats_epilogue_kernel(const Args a) {
           tile_end += a.tile;
         }
       }
+      if constexpr (kAppend != 0) {
+        if (__ballot_sync(0xffffffffu, svm))  // one ballot a group
+          stage_survivors<kVec>(a, cur, svm, c, stage, staged, a.i_off + r,
+                                lane);
+      }
     }
 
     fold_window(acc);
@@ -277,6 +465,14 @@ stats_epilogue_kernel(const Args a) {
       if (s_hits[q]) atomicAdd(a.hits + base + q, s_hits[q]);
   }
 
+  // kAppend: the slots of the row's last staged survivors; the atomic goes
+  // out before the row's reduction, which covers its round trip
+  [[maybe_unused]] unsigned long long base = 0ull;
+  if constexpr (kAppend != 0) {
+    __syncwarp();
+    if (staged && lane == 0)
+      base = atomicAdd(a.cursor, static_cast<unsigned long long>(staged));
+  }
   const RowAcc part = {acc.cw, acc.cp, acc.co, acc.cm,
                        acc.tw - acc.cw, acc.tp - acc.cp, acc.to - acc.co,
                        acc.sm};
@@ -289,6 +485,11 @@ stats_epilogue_kernel(const Args a) {
       store_row(out, total);
     }
   }
+  if constexpr (kAppend != 0) {
+    if (staged)
+      store_stage(a, stage, staged, __shfl_sync(0xffffffffu, base, 0),
+                  a.i_off + r, lane);
+  }
 }
 
 int launch(Args a, bool accumulate, void* stream) {
@@ -297,19 +498,34 @@ int launch(Args a, bool accumulate, void* stream) {
                     reinterpret_cast<uintptr_t>(a.counts) % 16 == 0;
   const int chunk = vec4 ? 128 : 32;
   const int span = (a.j + chunk - 1) / chunk * chunk;
-  a.win = span < kWindow ? span : kWindow;
-  const size_t smem = (a.win + 2 * (a.win / a.tile + 2)) * sizeof(int);
+  const bool append = a.cursor != nullptr;
+  const int window = append ? kAppendWindow : kWindow;
+  a.win = span < window ? span : window;
+  const size_t smem =
+      (a.win + 2 * (a.win / a.tile + 2) + (append ? kWarps * 2 * kStage : 0)) *
+      sizeof(int);
   const dim3 grid(a.s / kWarps);
   const dim3 block(kWarps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4 && accumulate) {
-    stats_epilogue_kernel<4, true><<<grid, block, smem, s>>>(a);
+  if (append) {  // K1 with survivor buffers
+    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
+    if (vec4 && a.include_same) {
+      stats_epilogue_kernel<4, false, 2><<<grid, block, smem, s>>>(a);
+    } else if (vec4) {
+      stats_epilogue_kernel<4, false, 1><<<grid, block, smem, s>>>(a);
+    } else if (a.include_same) {
+      stats_epilogue_kernel<1, false, 2><<<grid, block, smem, s>>>(a);
+    } else {
+      stats_epilogue_kernel<1, false, 1><<<grid, block, smem, s>>>(a);
+    }
+  } else if (vec4 && accumulate) {
+    stats_epilogue_kernel<4, true, 0><<<grid, block, smem, s>>>(a);
   } else if (vec4) {
-    stats_epilogue_kernel<4, false><<<grid, block, smem, s>>>(a);
+    stats_epilogue_kernel<4, false, 0><<<grid, block, smem, s>>>(a);
   } else if (accumulate) {
-    stats_epilogue_kernel<1, true><<<grid, block, smem, s>>>(a);
+    stats_epilogue_kernel<1, true, 0><<<grid, block, smem, s>>>(a);
   } else {
-    stats_epilogue_kernel<1, false><<<grid, block, smem, s>>>(a);
+    stats_epilogue_kernel<1, false, 0><<<grid, block, smem, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -335,6 +551,10 @@ Args make_args(const void* counts, long long ld, int s, int j,
   a.hits = static_cast<unsigned*>(block_hits);
   a.hits_ld = hits_ld;
   a.win = 0;
+  a.include_same = 0;
+  a.pair_i = a.pair_j = a.pair_c = nullptr;
+  a.cursor = nullptr;
+  a.cap = 0;
   return a;
 }
 
@@ -371,4 +591,25 @@ extern "C" int ukc_stats_epilogue_traced_into(
                           i_off, j_off, n, threshold, w_thresh, row_stats,
                           block_hits, hits_ld),
                 true, stream);
+}
+
+// K1 into a strip that also appends its survivors (see the header): pair_i,
+// pair_j, pair_c int32 [cap] take (gi, gj, count) at the slots the int64
+// cursor hands out; the cursor advances by every survivor, stored or not.
+extern "C" int ukc_stats_epilogue_append_into(
+    const void* counts, long long ld, int s, int j, const void* classes_row,
+    const void* classes_col, int tile, int i_off, int j_off, int n,
+    int threshold, int w_thresh, void* row_stats, void* block_hits,
+    long long hits_ld, int include_same, void* pair_i, void* pair_j,
+    void* pair_c, void* cursor, long long cap, void* stream) {
+  Args a = make_args(counts, ld, s, j, classes_row, classes_col, tile, i_off,
+                     j_off, n, threshold, w_thresh, row_stats, block_hits,
+                     hits_ld);
+  a.include_same = include_same;
+  a.pair_i = static_cast<int*>(pair_i);
+  a.pair_j = static_cast<int*>(pair_j);
+  a.pair_c = static_cast<int*>(pair_c);
+  a.cursor = static_cast<unsigned long long*>(cursor);
+  a.cap = cap;
+  return launch(a, false, stream);
 }

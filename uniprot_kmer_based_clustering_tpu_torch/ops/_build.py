@@ -41,10 +41,14 @@ _L = ctypes.c_longlong
 # classes_col, tile, i_off, j_off, n, threshold, w_thresh, row_stats,
 # block_hits, hits_ld, stream
 _STATS_INTO = [_P, _L, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P]
+# K1 with survivor buffers: before the stream, include_same, pair_i,
+# pair_j, pair_c, cursor, cap
+_STATS_APPEND = _STATS_INTO[:-1] + [_I, _P, _P, _P, _P, _L, _P]
 # C signature of every exported entry point (all return int: cudaError_t)
 _SIGNATURES = {
     "ukc_stats_epilogue_into": _STATS_INTO,
     "ukc_stats_epilogue_traced_into": _STATS_INTO,
+    "ukc_stats_epilogue_append_into": _STATS_APPEND,
     "ukc_popcount_sweep": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "ukc_tri_mxu_sweep": [
         _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,

@@ -15,9 +15,11 @@ strips):
 - strips: stationary strip s meets only its column suffix j ≥ s·strip,
   and each strip's counts block goes through the K1 epilogue
   (``ops.stats.stats_from_counts_into``: one launch that stores the
-  strip's rows and adds its tile hits into the sweep's buffers). Without
-  contraction chunking the bit matrix is unpacked once per sweep and
-  sliced per strip.
+  strip's rows and adds its tile hits into the sweep's buffers). Asked
+  for with ``append``, K1 also appends every strip's survivors to one
+  set of pair buffers, so that extraction recomputes nothing.
+  Without contraction chunking the bit matrix is unpacked once per sweep
+  and sliced per strip.
 - scan: equal [bs, bs] block pairs of the upper triangle, one Python
   loop step each (the JAX package's ``lax.scan``), with the K2 epilogue
   (``ops.stats.stats_from_counts_traced_into``: one launch that merges
@@ -25,10 +27,10 @@ strips):
   windows (the stationary one is reused while the row stays the same).
   Neither loop copies from the host or synchronises: ``sweep_mxu_async``
   only queues them, and its ``finalize`` (which ``sweep_mxu`` calls at
-  once) ends the sweep in the copies of its two outputs to the host, as
-  the JAX package's pair of the same names does. With ``fused_k`` each step
-  also keeps its surviving pairs as per-sub-tile ``torch.topk``
-  candidates (:class:`FusedCandidates`), for
+  once) ends the sweep in the copies of its two outputs (and of the pair
+  cursor) to the host, as the JAX package's pair of the same names does.
+  With ``fused_k`` each step also keeps its surviving pairs as
+  per-sub-tile ``torch.topk`` candidates (:class:`FusedCandidates`), for
   ``similarity.pairwise.extract_pairs_fused``.
 
 The kernels run on CUDA tensors; CPU tensors take their plain versions.
@@ -37,7 +39,7 @@ The kernels run on CUDA tensors; CPU tensors take their plain versions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -52,6 +54,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (  # noqa: F401
     stats_from_counts_into,
     stats_from_counts_traced_into,
     stats_tiles,
+    survivor_mask,
 )
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
@@ -116,6 +119,21 @@ class FusedCandidates:
     block: int
     k: int
     include_same: bool
+
+
+class SweepResult(NamedTuple):
+    """What :func:`sweep_mxu` returns when asked to ``append``: its
+    three usual outputs, the fused candidates (None unless asked for and
+    kept by the scan), and the pair buffers K1 appended to — (bi, bj,
+    bc, cursor), int32 slots on the device and the int64 cursor on the
+    host, which counts every survivor K1 found, stored or not — or None
+    off the strip schedule with K1."""
+
+    row_stats: np.ndarray
+    tile_hits: np.ndarray
+    tiles: tuple
+    fused: Optional[FusedCandidates]
+    pairs: Optional[tuple]
 
 
 def bucket_pow2(kmax: int, floor: int, cap: int) -> int:
@@ -214,24 +232,6 @@ def accumulate_pair_block(row_stats, block_hits, rs, bh, i0: int, j0: int,
     bi, bj = i0 // block, j0 // block
     block_hits[bi : bi + bh.shape[0], bj : bj + bh.shape[1]] += bh
     return row_stats, block_hits
-
-
-def survivor_mask(counts, ca, cb, i0: int, j0: int, *, n: int,
-                  threshold: int, include_same: bool):
-    """The survivor mask of one counts block at global offset (i0, j0):
-    valid (gi < gj < n) pairs over threshold, cross-class only unless
-    ``include_same``. It equals the plain epilogue's ``over_c`` (or
-    ``over_c | over_s``): the fused scan computes it from the counts under
-    either epilogue, and two-pass extraction masks its recomputed tiles
-    with it."""
-    dev = counts.device
-    gi = i0 + torch.arange(counts.shape[0], dtype=torch.int64, device=dev)
-    gj = j0 + torch.arange(counts.shape[1], dtype=torch.int64, device=dev)
-    mask = (gi[:, None] < gj[None, :]) & (gj[None, :] < n)
-    mask &= counts > threshold
-    if not include_same:
-        mask &= ca[:, None] != cb[None, :]
-    return mask
 
 
 def auto_strip(n_pad: int, block: int, budget_bytes: int = 2 << 30) -> int:
@@ -382,10 +382,12 @@ def _scan_sweep(words, classes, weights, pairs_ij, *, bs: int, n: int,
 
 def _strip_sweep(words, classes, weights, *, strip: int, n: int,
                  threshold: int, block: int, w_thresh: int, word_chunk: int,
-                 stats_engine: str):
+                 stats_engine: str, pairs=None, pairs_same: bool = False):
     """The strip schedule: row_stats int32 [N_pad, 8] and block_hits
     int32 [nb, nb, 2] on the device. ``stats_engine`` "pallas" runs K1,
-    "xla" the plain epilogue over each strip's whole suffix block."""
+    "xla" the plain epilogue over each strip's whole suffix block. With
+    ``pairs`` (K1 only) every strip's K1 appends its survivors to them,
+    same-class ones too with ``pairs_same``."""
     n_pad = words.shape[0]
     nb = n_pad // block
     dev = words.device
@@ -412,6 +414,7 @@ def _strip_sweep(words, classes, weights, *, strip: int, n: int,
                 counts, ca, cb, row_stats[i0 : i0 + strip],
                 block_hits[gb:, gb:], i_off=i0, j_off=i0, n=n,
                 threshold=threshold, w_thresh=w_thresh, tile=block,
+                pairs=pairs, include_same=pairs_same,
             )
         else:
             rs, bh, _, _ = pair_block_stats(
@@ -452,6 +455,7 @@ def sweep_mxu_async(
     schedule: str = "auto",
     fused_k: Optional[int] = 0,
     fused_same: bool = False,
+    append: bool = False,
 ):
     """Dispatch the full sweep; return ``(handles, finalize)``.
 
@@ -512,7 +516,13 @@ def sweep_mxu_async(
 
     common = dict(n=n, threshold=threshold, block=block, w_thresh=w_thresh,
                   word_chunk=word_chunk, stats_engine=engine)
-    cands = None
+    cands = pairs = None
+    if append and schedule == "strips" and engine == "pallas":
+        from uniprot_kmer_based_clustering_tpu_torch.similarity import (
+            pairwise,
+        )
+
+        pairs = pairwise._new_pair_buffers(pairwise._EPILOGUE_PAIR_CAP, dev)
     if schedule == "scan":
         row_stats, block_hits, ys = _scan_sweep(
             words, classes, weights, pairs_ij, bs=strip, fused_k=fused_k,
@@ -525,7 +535,8 @@ def sweep_mxu_async(
             )
     else:
         row_stats, block_hits = _strip_sweep(
-            words, classes, weights, strip=strip, **common,
+            words, classes, weights, strip=strip, pairs=pairs,
+            pairs_same=fused_same, **common,
         )
     stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
@@ -540,6 +551,11 @@ def sweep_mxu_async(
                 block_hits.cpu().numpy()[ti, tj],
                 (ti, tj, block),
             )
+            if append:
+                # the cursor comes over with the statistics
+                return SweepResult(*out, fused=cands, pairs=None
+                                   if pairs is None
+                                   else pairs[:3] + (pairs[3].cpu(),))
         return out + (cands,) if fused_requested else out
 
     return (row_stats, block_hits, cands), finalize
@@ -560,6 +576,7 @@ def sweep_mxu(
     schedule: str = "auto",
     fused_k: Optional[int] = 0,
     fused_same: bool = False,
+    append: bool = False,
 ):
     """Full upper-triangle sweep as int8 GEMMs + a statistics epilogue:
     :func:`sweep_mxu_async` and its ``finalize``.
@@ -585,11 +602,18 @@ def sweep_mxu(
     ``fused_k`` is non-0 a 4th element follows: a :class:`FusedCandidates`
     on the device, or None when the schedule resolved to strips or the
     budget holds no candidate buffers (two-pass extraction then).
+
+    ``append`` asks K1 for the survivors (``fused_same`` gates them as
+    it gates the fused candidates) and returns a :class:`SweepResult`
+    instead: on the strip schedule with K1, every strip's launch appends
+    them to one set of pair buffers (``similarity.pairwise.
+    _new_pair_buffers``, ``_EPILOGUE_PAIR_CAP`` slots).
     """
     handles, finalize = sweep_mxu_async(
         words, classes, n, threshold, strip=strip, block=block,
         weights=weights, w_thresh=w_thresh, word_chunk=word_chunk,
         hbm_budget_bytes=hbm_budget_bytes, stats_engine=stats_engine,
         schedule=schedule, fused_k=fused_k, fused_same=fused_same,
+        append=append,
     )
     return finalize(handles)

@@ -12,7 +12,9 @@ sweep's own buffers:
 
 - :func:`stats_from_counts_into` (K1, once per strip of the strip
   schedule) stores the strip's rows of ``row_stats`` and adds its tile
-  hits into a ``block_hits`` view;
+  hits into a ``block_hits`` view; handed pair buffers, it also appends
+  the block's survivors (:func:`survivor_mask`) to them behind their
+  device cursor;
 - :func:`stats_from_counts_traced_into` (K2, once per step of the
   block-pair scan) merges the block's rows into the scan's accumulators
   (lanes %4==3 by max, the rest by sum) and adds its hits.
@@ -27,9 +29,10 @@ its plain version (``..._reference``), built from
 JAX package's contracts (fresh outputs; K1's tile hits listed for the
 tiles not wholly below the pair diagonal) as thin layers over the two
 entries. The plain epilogue primitives :func:`stack_row_stats`,
-:func:`pair_block_stats` and :func:`merge_row_stats_at` (``ops/bitmul.py``
-in the JAX package) live here because the references are built from
-them; ``ops.bitmul`` re-exports them.
+:func:`pair_block_stats`, :func:`merge_row_stats_at` and
+:func:`survivor_mask` (``ops/bitmul.py`` in the JAX package) live here
+because the references are built from them; ``ops.bitmul`` re-exports
+them.
 """
 
 from __future__ import annotations
@@ -178,6 +181,51 @@ def pair_block_stats(counts, ca, cb, i0: int, j0: int, *, n: int,
     return rs, bh, over_c, over_s
 
 
+def survivor_mask(counts, ca, cb, i0: int, j0: int, *, n: int,
+                  threshold: int, include_same: bool):
+    """The survivor mask of one counts block at global offset (i0, j0):
+    valid (gi < gj < n) pairs over threshold, cross-class only unless
+    ``include_same``. It equals the plain epilogue's ``over_c`` (or
+    ``over_c | over_s``): the fused scan computes it from the counts under
+    either epilogue, K1 appends what it marks, and two-pass extraction
+    masks its recomputed tiles with it."""
+    dev = counts.device
+    gi = i0 + torch.arange(counts.shape[0], dtype=torch.int64, device=dev)
+    gj = j0 + torch.arange(counts.shape[1], dtype=torch.int64, device=dev)
+    mask = (gi[:, None] < gj[None, :]) & (gj[None, :] < n)
+    mask &= counts > threshold
+    if not include_same:
+        mask &= ca[:, None] != cb[None, :]
+    return mask
+
+
+def append_survivors_reference(counts, classes_row, classes_col, pairs, *,
+                               i_off: int, j_off: int, n: int,
+                               threshold: int, include_same: bool):
+    """Plain form of K1's survivor append: the (gi, gj, count) of every
+    survivor of :func:`survivor_mask` into ``pairs`` = (bi, bj, bc,
+    cursor), at the slots from the cursor on; slots past the buffers'
+    length are not stored, but the cursor advances by every survivor, as
+    the kernel's does. Returns ``pairs``."""
+    bi, bj, bc, cursor = pairs
+    dev = counts.device
+    ca = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
+    cb = torch.as_tensor(classes_col, dtype=torch.int32, device=dev)
+    r, c = torch.nonzero(
+        survivor_mask(counts, ca, cb, i_off, j_off, n=n, threshold=threshold,
+                      include_same=include_same),
+        as_tuple=True,
+    )
+    start = int(cursor)
+    room = max(0, min(r.numel(), bi.numel() - start))
+    r, c, found = r[:room], c[:room], r.numel()
+    bi[start : start + room] = i_off + r
+    bj[start : start + room] = j_off + c
+    bc[start : start + room] = counts[r, c]
+    cursor += found
+    return pairs
+
+
 def stats_from_counts_traced_reference(counts, classes_row, classes_col,
                                        i_off: int, j_off: int, *, n: int,
                                        threshold: int, w_thresh: int = 1,
@@ -221,16 +269,24 @@ def stats_from_counts_reference(counts, classes_row, classes_col, *,
 def stats_from_counts_into_reference(counts, classes_row, classes_col,
                                      row_stats, block_hits, *, i_off: int,
                                      j_off: int, n: int, threshold: int,
-                                     w_thresh: int = 1, tile: int = 512):
+                                     w_thresh: int = 1, tile: int = 512,
+                                     pairs=None, include_same: bool = False):
     """Plain K1 into a strip: ``row_stats`` [S, 8] ← the block's row
     stats; ``block_hits[:S/tile, :J/tile] +=`` its tile hits (the tiles
-    wholly below the diagonal add 0). Returns (row_stats, block_hits)."""
+    wholly below the diagonal add 0); with ``pairs`` its survivors
+    appended by :func:`append_survivors_reference`. Returns (row_stats,
+    block_hits)."""
     rs, bh = stats_from_counts_traced_reference(
         counts, classes_row, classes_col, i_off, j_off, n=n,
         threshold=threshold, w_thresh=w_thresh, tile=tile,
     )
     row_stats.copy_(rs)
     block_hits[: bh.shape[0], : bh.shape[1]] += bh
+    if pairs is not None:
+        append_survivors_reference(
+            counts, classes_row, classes_col, pairs, i_off=i_off,
+            j_off=j_off, n=n, threshold=threshold, include_same=include_same,
+        )
     return row_stats, block_hits
 
 
@@ -277,6 +333,24 @@ def _check_outputs(counts, row_stats, block_hits, tile: int):
         )
 
 
+def _check_pairs(counts, pairs):
+    """Pair buffers as K1 appends to them (``similarity.pairwise.
+    _new_pair_buffers``): three contiguous int32 [cap] and an int64
+    scalar cursor, on the counts' device."""
+    dev = counts.device
+    *bufs, cursor = pairs
+    cap = bufs[0].shape
+    if (len(bufs) != 3 or cursor.dtype != torch.int64 or cursor.dim()
+            or cursor.device != dev
+            or any(b.dtype != torch.int32 or b.dim() != 1 or b.shape != cap
+                   or not b.is_contiguous() or b.device != dev
+                   for b in bufs)):
+        raise ValueError(
+            f"pairs must be three contiguous int32 [cap] buffers and an "
+            f"int64 scalar cursor on {dev}"
+        )
+
+
 def _cuda_inputs(counts, classes_row, classes_col, tile: int):
     """Check what the CUDA epilogue takes; the class vectors as
     contiguous int32 on the counts' device."""
@@ -297,9 +371,9 @@ def _cuda_inputs(counts, classes_row, classes_col, tile: int):
 
 def _launch(name: str, counts, classes_row, classes_col, row_stats,
             block_hits, i_off: int, j_off: int, n: int, threshold: int,
-            w_thresh: int, tile: int):
+            w_thresh: int, tile: int, append=()):
     """One launch of a ``csrc/stats_epilogue.cu`` entry on the current
-    stream."""
+    stream; ``append`` are the append entry's extra arguments."""
     crow, ccol = _cuda_inputs(counts, classes_row, classes_col, tile)
     s, j = counts.shape
     dev = counts.device
@@ -309,7 +383,8 @@ def _launch(name: str, counts, classes_row, classes_col, row_stats,
             counts.data_ptr(), j, s, j, crow.data_ptr(), ccol.data_ptr(),
             tile, int(i_off), int(j_off), int(n), int(threshold),
             int(w_thresh), row_stats.data_ptr(), block_hits.data_ptr(),
-            block_hits.stride(0), torch.cuda.current_stream(dev).cuda_stream,
+            block_hits.stride(0), *append,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(err, name)
 
@@ -324,7 +399,8 @@ def _device_route(counts):
 def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
                            block_hits, *, i_off: int, j_off: int, n: int,
                            threshold: int, w_thresh: int = 1,
-                           tile: int = 512):
+                           tile: int = 512, pairs=None,
+                           include_same: bool = False):
     """K1 into a strip: the statistics of the counts block [S, J] at
     global offset (i_off, j_off), written into the caller's buffers.
 
@@ -333,22 +409,37 @@ def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
     zero-fill is needed. The tile hits are ADDED into ``block_hits``, an
     int32 view [≥ S/tile, ≥ J/tile, 2] with strides (*, 2, 1) (e.g. the
     sweep's dense [nb, nb, 2] from tile (i_off/tile, j_off/tile) on).
-    Raises ``ValueError`` where a tile row keeps no tile, as the tile walk
-    does. CPU tensors take :func:`stats_from_counts_into_reference`; CUDA
+    With ``pairs`` (bi, bj, bc, cursor: ``similarity.pairwise.
+    _new_pair_buffers``) the block's survivors (:func:`survivor_mask`,
+    same-class ones too with ``include_same``) are appended as
+    (gi, gj, count) behind the cursor, which advances by each of them
+    even past the buffers' capacity. Raises
+    ``ValueError`` where a tile row keeps no tile, as the tile walk does.
+    CPU tensors take :func:`stats_from_counts_into_reference`; CUDA
     tensors launch the kernel, counted in
     ``stats_from_counts_into.launches``. Returns (row_stats, block_hits).
     """
     cuda = _device_route(counts)
     _check_kept(*counts.shape, i_off, j_off, tile)
     _check_outputs(counts, row_stats, block_hits, tile)
+    if pairs is not None:
+        _check_pairs(counts, pairs)
     kw = dict(n=n, threshold=threshold, w_thresh=w_thresh, tile=tile)
     if not cuda:
         return stats_from_counts_into_reference(
             counts, classes_row, classes_col, row_stats, block_hits,
-            i_off=i_off, j_off=j_off, **kw,
+            i_off=i_off, j_off=j_off, pairs=pairs,
+            include_same=include_same, **kw,
         )
-    _launch("ukc_stats_epilogue_into", counts, classes_row, classes_col,
-            row_stats, block_hits, i_off, j_off, **kw)
+    if pairs is None:
+        _launch("ukc_stats_epilogue_into", counts, classes_row,
+                classes_col, row_stats, block_hits, i_off, j_off, **kw)
+    else:
+        append = (int(include_same), *(t.data_ptr() for t in pairs),
+                  pairs[0].numel())
+        _launch("ukc_stats_epilogue_append_into", counts, classes_row,
+                classes_col, row_stats, block_hits, i_off, j_off,
+                append=append, **kw)
     stats_from_counts_into.launches += 1
     return row_stats, block_hits
 

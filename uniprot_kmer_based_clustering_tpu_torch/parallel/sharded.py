@@ -135,7 +135,7 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
     _new_pair_buffers,
-    _sort_pairs,
+    _sorted_pairs,
 )
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
@@ -851,7 +851,7 @@ def _gather_pairs(mesh: Mesh, bufs, cap: int, trace: dict):
             return None, total
         parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
                  for f in range(3)]
-        arr = _sort_pairs(*(gather_to_first(p, mesh) for p in parts))
+        arr = _sorted_pairs(*(gather_to_first(p, mesh) for p in parts))
         return arr.cpu().numpy(), total
 
 

@@ -4,11 +4,19 @@ Counterpart of the JAX package's ``similarity/pairwise.py`` for the
 engines ``auto``, ``mxu``, ``popcount``, ``xla``, ``native`` and
 ``stream``.
 
-- Two-pass extraction (:func:`extract_pairs`): pass 1 is the sweep,
-  which reports exact per-tile hit counts; pass 2 recomputes only the hit
-  tiles (a run of adjacent hit tiles in one tile row as one product),
-  compacts the survivors with ``torch.nonzero``, sorts them on the device
-  by ``i·N_pad + j`` and copies the pair list to the host once.
+- Extraction from the epilogue (:func:`extract_pairs` with
+  ``appended``; ``extract`` ``auto`` or ``fused`` on the strip
+  schedule): the sweep's K1 epilogue appended every survivor to device
+  pair buffers (:func:`_new_pair_buffers`, ``_EPILOGUE_PAIR_CAP`` slots)
+  as it read the counts; extraction checks their cursor against the
+  sweep's exact tile hits, then sorts and fetches them once. Survivors
+  beyond the capacity take pass 2 below instead.
+- Two-pass extraction (:func:`extract_pairs`; ``extract="two_pass"``,
+  the scan schedule's ``auto`` and the popcount engines): pass 1 is the
+  sweep, which reports exact per-tile hit counts; pass 2 recomputes only
+  the hit tiles (a run of adjacent hit tiles in one tile row as one
+  product), compacts the survivors with ``torch.nonzero``, sorts them on
+  the device by (i, j) and copies the pair list to the host once.
 - Fused extraction (:func:`extract_pairs_fused`, ``extract="fused"`` on
   the scan schedule): the sweep kept each sub-tile's survivors; they are
   compacted and sorted the same way, and the sub-tiles whose exact hit
@@ -61,13 +69,15 @@ from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 #: ``hit_tiles``, ``extract_products`` (pass-2 ``int8_gemm`` calls, one a
 #: run of adjacent hit tiles), ``extract_syncs`` (every host wait of
 #: extraction: a ``nonzero`` a product or a boolean-mask compaction, and
-#: the final fetch) and ``pairs``. Times are the spans' (``utils.timing``).
+#: the final fetch), ``epilogue_pairs`` (the survivors K1 appended, 0 off
+#: the epilogue route) and ``pairs``. Times are the spans'
+#: (``utils.timing``).
 last_trace: dict = {}
 
 
 def _new_trace() -> dict:
     return dict(upload_bytes=0, hit_tiles=0, extract_products=0,
-                extract_syncs=0, pairs=0)
+                extract_syncs=0, epilogue_pairs=0, pairs=0)
 
 
 @dataclasses.dataclass
@@ -145,6 +155,12 @@ class PairwiseResult:
 _IMAX = np.int32(np.iinfo(np.int32).max)
 
 
+#: Slots of the pair buffers K1 appends to on the strip schedule
+#: (786,432 bytes): over 100 times the pairs of the 10,619-protein AMR
+#: corpus. More survivors than this take two-pass extraction.
+_EPILOGUE_PAIR_CAP = 1 << 16
+
+
 def _new_pair_buffers(vcap: int, device):
     """Fresh global pair buffers on ``device``: (bi, bj, bc, cursor) with
     sentinel slots (bi = bj = INT32_MAX, bc = -1) and an int64 cursor of
@@ -217,11 +233,12 @@ def packed_pair(v) -> tuple:
     )
 
 
-def _sort_pairs(bi, bj, bc):
-    """Device sort of the buffers by (i, j) -> int32 [len, 3]; sentinel
-    slots sort to the tail."""
-    order = torch.argsort((bi.to(torch.int64) << 32) | bj.to(torch.int64))
-    return torch.stack([bi[order], bj[order], bc[order]], dim=1)
+def _sorted_pairs(gi, gj, cnt):
+    """Device sort of (i, j, count) by (i, j) -> int32 [M, 3]; sentinel
+    slots of pair buffers sort to the tail."""
+    order = torch.argsort((gi.to(torch.int64) << 32) | gj.to(torch.int64))
+    return torch.stack(
+        [x[order].to(torch.int32) for x in (gi, gj, cnt)], dim=1)
 
 
 def _fetch_sorted_pairs(bi, bj, bc, total: int, pair_format: str,
@@ -235,7 +252,7 @@ def _fetch_sorted_pairs(bi, bj, bc, total: int, pair_format: str,
         arr = _pack_sort_fetch(bi, bj, bc, total)
         if arr is not None:
             return arr
-    return _sort_pairs(bi[:total], bj[:total], bc[:total]).cpu().numpy()
+    return _sorted_pairs(bi[:total], bj[:total], bc[:total]).cpu().numpy()
 
 
 def _vcap_bucket(total: int, space: Optional[int] = None) -> int:
@@ -295,12 +312,39 @@ def _window_rows(n_pad: int, tile: int, k_bits: int) -> int:
     return best
 
 
-def _sorted_pairs(gi, gj, cnt, n_pad: int):
-    """Device sort of (i, j, count) by i·N_pad + j → int32 [M, 3]."""
-    key, order = torch.sort(gi.to(torch.int64) * n_pad + gj)
-    return torch.stack(
-        [key // n_pad, key % n_pad, cnt[order].to(torch.int64)], dim=1
-    ).to(torch.int32)
+def _hit_tiles(tile_hits, cross_amr_only: bool):
+    """The rows of ``tile_hits`` whose tile holds a survivor, and the
+    exact number of survivors: the cross lane, plus the same-class lane
+    with the AMR gate off."""
+    tile_hits = np.asarray(tile_hits)
+    hits = tile_hits[:, 0].astype(np.int64)
+    if not cross_amr_only:
+        hits += tile_hits[:, 1]
+    hit = np.nonzero(hits)[0]
+    return hit, int(hits[hit].sum())
+
+
+def _pass2_plan(words, classes, weights, hti, htj, tile: int):
+    """Pass 2's operands and schedule: the classes padded to N_pad with
+    −1 and the weights on the words' device, the unpack window's rows
+    and the windows a side, the hit tiles' (ti, tj) and the window pair
+    each falls in (window-row major)."""
+    dev = words.device
+    n_pad = words.shape[0]
+    classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
+    if classes.shape[0] < n_pad:
+        classes = torch.cat([
+            classes,
+            torch.full((n_pad - classes.shape[0],), -1, dtype=torch.int32,
+                       device=dev),
+        ])
+    if weights is not None:
+        weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
+    window = _window_rows(n_pad, tile, words.shape[1] * 32)
+    nwin = n_pad // window
+    hti, htj = hti.astype(np.int64), htj.astype(np.int64)
+    group = (hti * tile // window) * nwin + htj * tile // window
+    return classes, weights, window, nwin, hti, htj, group
 
 
 def extract_pairs(
@@ -313,51 +357,44 @@ def extract_pairs(
     cross_amr_only: bool = True,
     weights=None,
     trace: Optional[dict] = None,
+    appended=None,
 ) -> np.ndarray:
-    """Pass-2 exact pair recovery from the tiles that reported hits.
+    """Exact pair recovery from the tiles that reported hits.
 
     ``words`` int32 [N_pad, W] and ``classes`` (int32, padded to N_pad
     with −1 or length n) on the sweep's device; ``tiles`` is the
     (ti, tj, tile) enumeration the sweep returned with ``tile_hits``.
-    With ``weights`` (int8 [W*32]) the recovered values are the weighted
-    scores. The bit matrix is unpacked in row windows of at most
-    ``_UNPACK_WINDOW_BYTES`` (the whole matrix when it fits: 2.6 GB for
-    the 10,619-protein corpus). Returns int32 [M, 3] (i, j, count)
-    sorted by (i, j); raises when the compacted count disagrees with the
-    sweep's promise. ``trace`` (a :data:`last_trace` dict) gains the hit
-    tiles, the products and the host syncs.
+    With ``appended`` (``sweep_mxu(..., append=True).pairs``: (bi, bj,
+    bc, cursor), the cursor on the host) the survivors the
+    sweep's K1 appended are sorted and fetched once when they fit the
+    buffers, and nothing is recomputed; the cursor counts every survivor,
+    so more than the buffers hold shows, and pass 2 runs instead.
+    Pass 2 recomputes the hit tiles: with ``weights`` (int8 [W*32]) the
+    recovered values are the weighted scores; the bit matrix is unpacked
+    in row windows of at most ``_UNPACK_WINDOW_BYTES`` (the whole matrix
+    when it fits: 2.6 GB for the 10,619-protein corpus). Returns int32
+    [M, 3] (i, j, count) sorted by (i, j); raises when the compacted
+    count disagrees with the sweep's promise. ``trace`` (a
+    :data:`last_trace` dict) gains the hit tiles, the survivors K1
+    appended, the products and the host syncs.
     """
     trace = _new_trace() if trace is None else trace
     with span("extract.plan"):
         ti, tj, tile = tiles
-        tile_hits = np.asarray(tile_hits)
-        want = tile_hits[:, 0] > 0
-        hits_per_tile = tile_hits[:, 0].astype(np.int64)
-        if not cross_amr_only:
-            want |= tile_hits[:, 1] > 0
-            hits_per_tile = hits_per_tile + tile_hits[:, 1]
-        hit_tiles = np.nonzero(want)[0]
+        hit_tiles, total = _hit_tiles(tile_hits, cross_amr_only)
         trace["hit_tiles"] += len(hit_tiles)
-        if len(hit_tiles) == 0:
+        found = 0 if appended is None else int(appended[3])
+        trace["epilogue_pairs"] += found
+        fetch = appended is not None and found <= appended[0].numel()
+        if not total and not (fetch and found):
             return np.zeros((0, 3), dtype=np.int32)
-        total = int(hits_per_tile[hit_tiles].sum())
-
-        dev = words.device
-        n_pad = words.shape[0]
-        classes = torch.as_tensor(classes, dtype=torch.int32, device=dev)
-        if classes.shape[0] < n_pad:
-            classes = torch.cat([
-                classes,
-                torch.full((n_pad - classes.shape[0],), -1,
-                           dtype=torch.int32, device=dev),
-            ])
-        if weights is not None:
-            weights = torch.as_tensor(weights, dtype=torch.int8, device=dev)
-        window = _window_rows(n_pad, tile, words.shape[1] * 32)
-        nwin = n_pad // window
-        hti = ti[hit_tiles].astype(np.int64)
-        htj = tj[hit_tiles].astype(np.int64)
-        group = (hti * tile // window) * nwin + htj * tile // window
+        if not fetch:
+            classes, weights, window, nwin, hti, htj, group = _pass2_plan(
+                words, classes, weights, ti[hit_tiles], tj[hit_tiles], tile)
+    if fetch:
+        with span("extract.fetch"):
+            trace["extract_syncs"] += 1
+            return _finalize_pairs(appended, total)
 
     keys, vals = [], []
     a = b = None
@@ -411,16 +448,16 @@ def extract_pairs(
             )
         gj = torch.cat([k[1] for k in keys])
         trace["extract_syncs"] += 1
-        return _sorted_pairs(gi, gj, torch.cat(vals), n_pad).cpu().numpy()
+        return _sorted_pairs(gi, gj, torch.cat(vals)).cpu().numpy()
 
 
-def _compact_fused(bi, bj, bc, keep, n_pad: int):
+def _compact_fused(bi, bj, bc, keep):
     """Compact the fused sweep's candidate buffers ([P, nsub, k], score
     −1 in unused slots), dropping the sub-tiles whose ``keep`` flag is
     False. Returns (pairs int32 [M, 3] sorted by (i, j) on the device,
     M)."""
     m = (bc >= 0) & keep[:, :, None]
-    pairs = _sorted_pairs(bi[m], bj[m], bc[m], n_pad)
+    pairs = _sorted_pairs(bi[m], bj[m], bc[m])
     return pairs, pairs.shape[0]
 
 
@@ -479,7 +516,7 @@ def extract_pairs_fused(
         trace["upload_bytes"] += keep.nbytes
         pairs, count = _compact_fused(
             fused.bi, fused.bj, fused.bc,
-            torch.from_numpy(keep).to(fused.bc.device), n_pad,
+            torch.from_numpy(keep).to(fused.bc.device),
         )
         if count != total_kept:
             raise AssertionError(
@@ -648,11 +685,12 @@ def pairwise_similarity(
     MXU and stream engines carry as a column scale and the native engine
     only through its sparse sweep; every other engine gives way to
     ``mxu``. ``extract="fused"`` makes the MXU scan sweep keep its
-    survivors (capacity ``config.extract_k``, 0 = auto); on the strip
-    schedule and the popcount engines it is two-pass, as in the JAX
-    package. ``engine="stream"`` keeps the matrix on the host
-    (:func:`_pairwise_stream`); ``extract="onepass"`` is its mode alone
-    and raises ``ValueError`` on any other engine.
+    survivors (capacity ``config.extract_k``, 0 = auto). On the strip
+    schedule ``auto`` and ``fused`` take the survivors K1 appended;
+    ``two_pass``, the scan's ``auto`` and the popcount engines recompute
+    the hit tiles (:func:`extract_pairs`). ``engine="stream"`` keeps the
+    matrix on the host (:func:`_pairwise_stream`); ``extract="onepass"``
+    is its mode alone and raises ``ValueError`` on any other engine.
     ``checkpoint_store``/``checkpoint_key`` turn on the one-pass stream
     sweep's group-boundary checkpoints.
     """
@@ -708,22 +746,24 @@ def pairwise_similarity(
         wts = None if weights is None else weights_to_torch(weights, device)
     trace["upload_bytes"] = sum(t.nbytes for t in (words, classes, wts)
                                 if t is not None)
-    fused = None
+    fused = appended = None
     with span("pairwise.sweep"):
         if engine == "mxu":
             strip = config.strip
             if strip is not None and n_pad % strip != 0:
                 strip = config.tile
             want_fused = config.extract == "fused"
+            # K1 hands over its survivors on the strip schedule
+            want_appended = config.extract in ("auto", "fused")
             out = sweep_mxu(
                 words, classes, n=n, threshold=threshold, strip=strip,
                 block=config.tile, weights=wts,
                 fused_k=(config.extract_k or None) if want_fused else 0,
-                fused_same=not config.cross_amr_only,
+                fused_same=not config.cross_amr_only, append=want_appended,
             )
             row_stats, tile_hits, tiles = out[:3]
-            if want_fused:
-                fused = out[3]
+            if want_appended:
+                fused, appended = out.fused, out.pairs
         else:
             row_stats, tile_hits, tiles = sweep(
                 words, classes, n=n, threshold=config.threshold,
@@ -740,7 +780,7 @@ def pairwise_similarity(
             pairs = extract_pairs(
                 words, classes, tile_hits, tiles, n=n, threshold=threshold,
                 cross_amr_only=config.cross_amr_only, weights=wts,
-                trace=trace,
+                trace=trace, appended=appended,
             )
     trace["pairs"] = len(pairs)
     global last_trace
