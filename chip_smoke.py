@@ -519,45 +519,6 @@ def write_fasta(path: str, n: int) -> None:
                     f"gene{i}\n{seq}\n")
 
 
-def scipy_oracle(index, class_ids, n: int, chunk: int = 4096):
-    """Independent pairwise stage: triu(B·Bᵀ, 1) from the incidence
-    lists, in row chunks, split by class. Returns (counters, cross pairs
-    over threshold as int64 [M, 3] sorted by (i, j))."""
-    import numpy as np
-    import scipy.sparse as sp
-
-    b = sp.csr_matrix(
-        (np.ones(index.nnz, np.int32),
-         (index.incidence_protein, index.incidence_rank)),
-        shape=(n, index.n_repeated),
-    )
-    bt = b.T.tocsr()
-    weight = pairs_any = over = 0
-    top = 0
-    kept = []
-    for r0 in range(0, n, chunk):
-        c = sp.triu(b[r0 : r0 + chunk] @ bt, k=1 + r0).tocoo()
-        i, j, v = c.row.astype(np.int64) + r0, c.col.astype(np.int64), c.data
-        cross = class_ids[i] != class_ids[j]
-        vc = v[cross]
-        weight += int(vc.sum())
-        pairs_any += int(cross.sum())
-        over += int((vc > THRESHOLD).sum())
-        top = max(top, int(vc.max()) if len(vc) else 0)
-        keep = cross & (v > THRESHOLD)
-        kept.append(np.stack([i[keep], j[keep], v[keep].astype(np.int64)],
-                             axis=1))
-    counters = {
-        "edges_after_amr_filter": weight,
-        "pairs_after_merge": pairs_any,
-        "pairs_over_threshold": over,
-        "max_shared_kmers": top,
-    }
-    pairs = np.concatenate(kept)
-    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
-    return counters, pairs
-
-
 def read_pairs_tsv(path: str):
     import numpy as np
 
@@ -611,7 +572,11 @@ def host_state(fasta: str):
 def oracle(state, label: str):
     table, index, _ = state
     t0 = time.perf_counter()
-    want, want_pairs = scipy_oracle(index, table.amr_class_ids, table.n)
+    from uniprot_kmer_based_clustering_tpu_torch.benches.common import (
+        index_oracle,
+    )
+
+    want, want_pairs = index_oracle(index, table.amr_class_ids, table.n)
     print(f"scipy oracle ({label}) {time.perf_counter() - t0:.3f} s: "
           f"{want}", flush=True)
     return want, want_pairs
@@ -1487,9 +1452,11 @@ def timing_phase(dev, state, want_pairs, stats):
     import torch
 
     from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        EPILOGUE_PAIR_CAP,
+        new_pair_buffers,
+    )
     from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        _EPILOGUE_PAIR_CAP,
-        _new_pair_buffers,
         _tile_runs,
         extract_pairs,
     )
@@ -1510,7 +1477,7 @@ def timing_phase(dev, state, want_pairs, stats):
 
     sweep_s, (rs, th, tiles) = best_seconds(sweep)
     # what the main path's sweep launches: every strip's K1 appends into
-    # _EPILOGUE_PAIR_CAP slots
+    # EPILOGUE_PAIR_CAP slots
     asweep_s, res = best_seconds(lambda: sweep(append=True))
     total = int(th[:, 0].sum())
     if (not np.array_equal(res.row_stats, rs)
@@ -1532,20 +1499,20 @@ def timing_phase(dev, state, want_pairs, stats):
             and np.array_equal(mpairs, want_pairs)):
         raise AssertionError("warm extraction differs from the run")
     pair_count = n * (n - 1) // 2
-    fits = total <= _EPILOGUE_PAIR_CAP
+    fits = total <= EPILOGUE_PAIR_CAP
     print(f"warm sweep_mxu {sweep_s:.6f} s (best of 3 after 2 warm-ups) "
           f"= {pair_count / sweep_s:.6e} pairs/s; with K1's append "
           f"{asweep_s:.6f} s; warm extract_pairs (pass 2) "
           f"{extract_s:.6f} s for {len(pairs)} pairs; the main path's "
           f"extraction of the appended buffers ({total} survivors, "
-          f"{_EPILOGUE_PAIR_CAP} slots: "
+          f"{EPILOGUE_PAIR_CAP} slots: "
           f"{'sort and fetch' if fits else 'pass 2'}) {mextract_s:.6f} s; "
           f"peak device memory {peak} bytes", flush=True)
 
     # per-layer device times of one sweep (CUDA events); K1's append
     # against its plain version on every strip: with room for every
     # survivor (the stored triples and the cursor equal the plain
-    # append's) and in the main path's _EPILOGUE_PAIR_CAP slots (the
+    # append's) and in the main path's EPILOGUE_PAIR_CAP slots (the
     # cursor counts every survivor, the stored slots are survivors, each
     # once)
     _, strip, ns = bitmul.resolve_schedule(n_pad, 512)
@@ -1561,11 +1528,11 @@ def timing_phase(dev, state, want_pairs, stats):
     app_rs, app_bh = sweep_buffers()
     ref_rs, ref_bh = sweep_buffers()
     junk = sweep_buffers()  # the timed calls' outputs
-    room = _new_pair_buffers(total + 7, dev)
-    short = _new_pair_buffers(_EPILOGUE_PAIR_CAP, dev)
-    ref = _new_pair_buffers(total + 7, dev)
+    room = new_pair_buffers(total + 7, dev)
+    short = new_pair_buffers(EPILOGUE_PAIR_CAP, dev)
+    ref = new_pair_buffers(total + 7, dev)
     # room for every survivor of the timed calls of the biggest strip
-    timed = _new_pair_buffers(24 * total, dev)
+    timed = new_pair_buffers(24 * total, dev)
     gemm_ms = epi_ms = app_ms = 0.0
     strip_survivors = []
     for si in range(ns):
@@ -1603,7 +1570,7 @@ def timing_phase(dev, state, want_pairs, stats):
 
     want = stored(ref, total)
     got = stored(room, total)
-    kept = stored(short, min(total, _EPILOGUE_PAIR_CAP))
+    kept = stored(short, min(total, EPILOGUE_PAIR_CAP))
     key = want[:, 0] * (1 << 32) + want[:, 1]
     kept_key = kept[:, 0] * (1 << 32) + kept[:, 1]
     at = np.minimum(np.searchsorted(key, kept_key), max(total - 1, 0))
@@ -1689,8 +1656,8 @@ def timing_phase(dev, state, want_pairs, stats):
     # ~170 calls epilogue_times makes), the bound adds their 12 bytes
     # each and the cursor's 8
     m0 = strip_survivors[0]
-    app = _new_pair_buffers(176 * m0 + 1, dev)
-    app_ref = _new_pair_buffers(48 * m0 + 1, dev)
+    app = new_pair_buffers(176 * m0 + 1, dev)
+    app_ref = new_pair_buffers(48 * m0 + 1, dev)
     rs_r, bh_r = rs.clone(), bh.clone()
     ta = epilogue_times(
         lambda: stats.stats_from_counts_into(counts, crow, ccol, rs, bh,
@@ -2581,6 +2548,9 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
         connected_components,
     )
     from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        append_window,
+    )
     from uniprot_kmer_based_clustering_tpu_torch.parallel import (
         count_substeps,
         doc_freq_psum,
@@ -2619,7 +2589,7 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
     # operand chunks, the counts and one chunk's partial counts, one
     # compaction window at 64 bytes a lane, and each shard's pair-buffer
     # slack of one window at 12 bytes a lane)
-    window = sharded.append_window(block30)
+    window = append_window(block30)
     step_bytes = (sharded.RING_UNPACK_BYTES + 2 * 4 * block30 * block30
                   + 64 * window + MESH_D * 12 * window)
     mem_limit = 2 * corpus + step_bytes
@@ -2902,6 +2872,9 @@ def layouts_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
 
     from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
     from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        append_window,
+    )
     from uniprot_kmer_based_clustering_tpu_torch.parallel import (
         count_kaxis_strips,
         count_substeps_2d,
@@ -2942,8 +2915,8 @@ def layouts_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
     # sub-step working set; the k-axis pass the column shards, the D
     # partial strips and their sum, one unpacked operand chunk, a strip's
     # masks (4 bytes a lane) and one compaction window (76 bytes a lane)
-    window = sharded.append_window(block30)
-    kwindow = sharded.append_window(n_pad30)
+    window = append_window(block30)
+    kwindow = append_window(n_pad30)
     limits = {
         "2d": 3 * corpus + sharded.RING_UNPACK_BYTES
         + 2 * 4 * block30 * block30 + 64 * window + d2 * 12 * window,
@@ -3231,10 +3204,12 @@ def _stream_mesh_run(dev, label, mesh, src, classes, n, want, want_pairs,
     import numpy as np
     import torch
 
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        pairs_as_array,
+    )
     from uniprot_kmer_based_clustering_tpu_torch.parallel import stream_mesh
     from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
         PairwiseResult,
-        pairs_as_array,
     )
 
     torch.cuda.synchronize()

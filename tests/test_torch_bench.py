@@ -40,6 +40,7 @@ from uniprot_kmer_based_clustering_tpu_torch.benches import headline
 from uniprot_kmer_based_clustering_tpu_torch.benches import scale
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul as tbm
+from uniprot_kmer_based_clustering_tpu_torch.ops import pairlist as tpair
 from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise as tpw
 from uniprot_kmer_based_clustering_tpu_torch.utils import artifact
 
@@ -341,10 +342,10 @@ def test_oracle_gate_matches_jax(fmt, tamper):
         pairs = pairs.copy()
         pairs[len(pairs) // 2, 2] += 1
     if fmt == "packed":
-        pairs = np.array([tpw.packed_key(i, j) | int(c)
+        pairs = np.array([tpair.packed_key(i, j) | int(c)
                           for i, j, c in pairs.tolist()], np.int64)
         assert np.array_equal(jpw.unpack_pairs(pairs),
-                              tpw.unpack_pairs(pairs))
+                              tpair.unpack_pairs(pairs))
     if tamper:
         with pytest.raises(AssertionError, match="oracle gate"):
             bench_scale.oracle_gate(idx, classes, pairs, n, 10, samples=2048)

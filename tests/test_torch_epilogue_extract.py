@@ -35,6 +35,7 @@ from uniprot_kmer_based_clustering_tpu.utils.blosum import rank_weights_int8
 from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul as tbm
 from uniprot_kmer_based_clustering_tpu_torch.ops import stats
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import pairs_as_array
 from uniprot_kmer_based_clustering_tpu_torch.parallel import mesh as tmesh
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
     _sharded_similarity,
@@ -145,7 +146,7 @@ def test_epilogue_route_matches_two_pass_and_jax(corpus, monkeypatch,
     m = len(two.pairs)
     assert m > 2
     if route == "overflow":
-        monkeypatch.setattr(tpw, "_EPILOGUE_PAIR_CAP", m // 2)
+        monkeypatch.setattr(tbm, "EPILOGUE_PAIR_CAP", m // 2)
     got, trace = _port(corpus, weighting, gate,
                        "fused" if route == "fused" else "auto")
     assert appends == [s * STRIPS["strip"] for s in range(N_STRIPS)]
@@ -154,7 +155,7 @@ def test_epilogue_route_matches_two_pass_and_jax(corpus, monkeypatch,
     assert trace["epilogue_pairs"] == m == trace["pairs"]
     assert trace["hit_tiles"] == two_trace["hit_tiles"] > 0
     if route == "overflow":
-        assert m > tpw._EPILOGUE_PAIR_CAP
+        assert m > tbm.EPILOGUE_PAIR_CAP
         assert trace["extract_products"] == two_trace["extract_products"]
         assert trace["extract_syncs"] == two_trace["extract_syncs"]
     else:
@@ -232,4 +233,4 @@ def test_only_the_strip_schedule_appends(corpus, appends, path):
             assert tpw.last_trace["epilogue_pairs"] == 0
     assert len(appends) == PATHS[path]
     assert len(want) > 0
-    assert np.array_equal(tpw.pairs_as_array(np.asarray(got)), want)
+    assert np.array_equal(pairs_as_array(np.asarray(got)), want)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
-from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, stats
+from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul, pairlist, stats
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
 from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise as tpw
 
@@ -287,7 +287,7 @@ def test_k1_appends_the_survivor_mask(cuda, launched, name, include_same,
     want = _pair_keys(i_off + r, j_off + c, counts[r, c])
     total = len(want)
     room = total + 7 if cap == "room" else total // 3
-    pairs = tpw._new_pair_buffers(room, cuda)
+    pairs = pairlist.new_pair_buffers(room, cuda)
     before = stats.stats_from_counts_into.launches
     stats.stats_from_counts_into(counts, ca, cb, got[0], got[1][1:, 2:],
                                  i_off=i_off, j_off=j_off, pairs=pairs,
@@ -380,7 +380,8 @@ def test_sweep_loops_do_not_synchronise(cuda, schedule):
         if schedule == "strips":
             return bitmul._strip_sweep(ww, cc, None, strip=512, **kw)
         if schedule == "appended":
-            bufs = tpw._new_pair_buffers(tpw._EPILOGUE_PAIR_CAP, ww.device)
+            bufs = pairlist.new_pair_buffers(pairlist.EPILOGUE_PAIR_CAP,
+                                             ww.device)
             return bitmul._strip_sweep(ww, cc, None, strip=512, pairs=bufs,
                                        **kw)
         return bitmul._scan_sweep(
@@ -826,7 +827,7 @@ def test_stream_extraction_gpu_matches_in_core(cuda, mode):
         assert stream.last_onepass_trace["overflow"] is False
         assert stats.stats_from_counts_traced_into.launches - before == 6
         assert np.array_equal(out[0], rs) and np.array_equal(out[1], th)
-        got = pairwise.pairs_as_array(out[3])
+        got = pairlist.pairs_as_array(out[3])
         assert out[3].ndim == (1 if extra else 2)
     elif mode == "fused":
         k = 1 << 15  # holds the diagonal tiles, truncates the others
@@ -879,7 +880,6 @@ def test_stream_loops_do_not_synchronise(cuda, loop):
     ring, the window waits on events, and nothing else synchronises up to
     the copies of the results to the host."""
     from uniprot_kmer_based_clustering_tpu_torch.ops import stream
-    from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise
 
     words, cls, inc_p, inc_r, _ = _stream_problem()
     bs, nbk, inflight = 512, 3, 1
@@ -898,7 +898,7 @@ def test_stream_loops_do_not_synchronise(cuda, loop):
         row_stats = torch.zeros((1536, 8), dtype=torch.int32, device=device)
         block_hits = torch.zeros((3, 3, 2), dtype=torch.int32, device=device)
         # room for every survivor (~221k) and one 512² window of slack
-        buffers = pairwise._new_pair_buffers(1 << 19, device)
+        buffers = pairlist.new_pair_buffers(1 << 19, device)
         cands = []
         if checked:
             torch.cuda.synchronize()
@@ -933,7 +933,7 @@ def test_stream_loops_do_not_synchronise(cuda, loop):
                 got[:, np.lexsort((got[1], got[0]))].copy()))
         elif loop.startswith("onepass"):
             count = int(buffers[3])
-            out.append(torch.from_numpy(pairwise._fetch_sorted_pairs(
+            out.append(torch.from_numpy(pairlist.fetch_sorted_pairs(
                 *buffers[:3], count, "arr3", 1536)))
         assert trace["steps"] == 6
         return out

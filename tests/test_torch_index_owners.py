@@ -3,9 +3,10 @@
 ``kmers.index.build_index`` takes each doc-freq-1 code's protein from
 the native ``ukc_index_build``, the scan that counts the doc freqs. Here the
 owners are held against a rescan of the raw window stream (what the port
-did before) and the whole index against the numpy build; the
-``last_build`` counter says which path ran; and the port's own copy of
-the C++ source gives the JAX package's library's index, plus the owners.
+did before) and the whole index against the numpy build; a patched
+``_owners_from_incidences`` shows which path gave the owners; and the
+port's own copy of the C++ source gives the JAX package's library's
+index, plus the owners.
 Tolerance: exact equality.
 """
 
@@ -101,16 +102,29 @@ def test_scan_owners_are_the_rescans_and_the_numpy_builds(toy_fasta, case):
         assert nat.unique_owner.tolist() == [0, 2]
 
 
-@pytest.mark.parametrize("engine,owners_from",
-                         [("auto", "scan"), ("numpy", "incidences")])
-def test_last_build_names_where_the_owners_came_from(toy_fasta, engine,
-                                                     owners_from):
+@pytest.mark.parametrize("engine", ["auto", "numpy"])
+def test_the_owners_come_from_the_scan_or_the_incidences(toy_fasta,
+                                                         monkeypatch, engine):
+    """Under ``auto`` the native scan gives the owners: the numpy build's
+    ``_owners_from_incidences``, patched to raise, is never reached. Under
+    ``numpy`` the owners are what that function takes from the deduped
+    incidences, called once."""
+    real, calls = tindex._owners_from_incidences, []
+
+    def owners(prot, code):
+        if engine == "auto":
+            raise AssertionError("the native build read the incidences")
+        calls.append(real(prot, code))
+        return calls[-1]
+
+    monkeypatch.setattr(tindex, "_owners_from_incidences", owners)
     k, codes, koff = _encoded(5, "all")(toy_fasta)
     index = tindex.build_index(codes, koff, k, engine=engine)
-    assert tindex.last_build == dict(
-        engine="native" if engine == "auto" else "numpy",
-        owners_from=owners_from, n_unique=index.n_unique)
     assert index.n_unique > 0
+    if engine == "numpy":
+        assert len(calls) == 1 and index.unique_owner is calls[0]
+    else:
+        assert calls == []
 
 
 @pytest.mark.parametrize("k", [5, 7])

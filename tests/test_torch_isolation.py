@@ -48,7 +48,9 @@ def _port_files():
 
 
 def _imported_modules(path):
-    """Every module name an import statement of the file names."""
+    """Every module name an import statement of the file names, at module
+    level or inside a function; ``from a import b`` names ``a`` and
+    ``a.b``."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     names = []
@@ -57,6 +59,7 @@ def _imported_modules(path):
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module)
+            names += [f"{node.module}.{a.name}" for a in node.names]
     return names
 
 
@@ -65,6 +68,29 @@ def _imported_modules(path):
 def test_no_file_of_the_port_imports_jax_or_the_jax_package(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN + ROOT_SCRIPTS]
+    assert bad == []
+
+
+# the port's layers above the device engines of ops/
+ABOVE_OPS = tuple(f"{PORT}.{m}" for m in ("similarity", "parallel",
+                                          "pipeline", "models", "benches",
+                                          "cli"))
+
+
+def _ops_files():
+    ops = os.path.join(REPO, PORT, "ops")
+    return sorted(os.path.join(ops, f) for f in os.listdir(ops)
+                  if f.endswith(".py"))
+
+
+@pytest.mark.parametrize(
+    "path", _ops_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_file_of_ops_imports_a_layer_above_it(path):
+    """``ops/`` is the bottom of the port's device stack: the pair list,
+    the sweeps and the kernels import nothing of the layers that call
+    them, neither at module level nor inside a function."""
+    bad = [m for m in _imported_modules(path)
+           if any(m == a or m.startswith(a + ".") for a in ABOVE_OPS)]
     assert bad == []
 
 

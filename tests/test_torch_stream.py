@@ -28,6 +28,7 @@ from uniprot_kmer_based_clustering_tpu_torch import cluster_fasta
 from uniprot_kmer_based_clustering_tpu_torch import pipeline as tpl
 from uniprot_kmer_based_clustering_tpu_torch import similarity as tsim
 from uniprot_kmer_based_clustering_tpu_torch.kmers import bitset as tbitset
+from uniprot_kmer_based_clustering_tpu_torch.ops import pairlist as tpair
 from uniprot_kmer_based_clustering_tpu_torch.ops import stream as ts
 from uniprot_kmer_based_clustering_tpu_torch.similarity import pairwise as tpw
 from uniprot_kmer_based_clustering_tpu_torch.utils import checkpoint as tckpt
@@ -636,56 +637,57 @@ def test_packed_fetch_count_fallback():
     """A stored count ≥ 2^16 cannot pack: the fetch falls back to the
     [M, 3] format (never corrupts), as the JAX package's does."""
     bi, bj = _t([3, 1]), _t([5, 2])
-    got = tpw._fetch_sorted_pairs(bi, bj, _t([1 << 16, 7]), 2, "packed",
-                                  n_rows=10)
+    got = tpair.fetch_sorted_pairs(bi, bj, _t([1 << 16, 7]), 2, "packed",
+                                   n_rows=10)
     assert got.ndim == 2 and got.dtype == np.int32
     assert np.array_equal(got, [[1, 2, 7], [3, 5, 1 << 16]])
-    got = tpw._fetch_sorted_pairs(bi, bj, _t([(1 << 16) - 1, 7]), 2,
-                                  "packed", n_rows=10)
+    got = tpair.fetch_sorted_pairs(bi, bj, _t([(1 << 16) - 1, 7]), 2,
+                                   "packed", n_rows=10)
     assert got.ndim == 1 and got.dtype == np.int64
-    assert np.array_equal(tpw.unpack_pairs(got),
+    assert np.array_equal(tpair.unpack_pairs(got),
                           [[1, 2, 7], [3, 5, (1 << 16) - 1]])
-    assert np.array_equal(jpw.unpack_pairs(got), tpw.unpack_pairs(got))
+    assert np.array_equal(jpw.unpack_pairs(got), tpair.unpack_pairs(got))
 
 
 def test_packed_fetch_row_limit():
     """Row indices ≥ 2^23 would set the int64 sign bit at the i field:
     the pack refuses such corpora by their row bound and stays exact right
     up to it."""
-    assert tpw._PACK_ROW_LIMIT == jpw._PACK_ROW_LIMIT == 1 << 23
-    hi = tpw._PACK_ROW_LIMIT - 2
+    assert tpair._PACK_ROW_LIMIT == jpw._PACK_ROW_LIMIT == 1 << 23
+    hi = tpair._PACK_ROW_LIMIT - 2
     bi, bj, bc = _t([hi, 1]), _t([hi + 1, 2]), _t([9, 7])
-    got = tpw._fetch_sorted_pairs(bi, bj, bc, 2, "packed",
-                                  n_rows=tpw._PACK_ROW_LIMIT)
+    got = tpair.fetch_sorted_pairs(bi, bj, bc, 2, "packed",
+                                   n_rows=tpair._PACK_ROW_LIMIT)
     assert got.ndim == 2
-    got = tpw._fetch_sorted_pairs(bi, bj, bc, 2, "packed",
-                                  n_rows=tpw._PACK_ROW_LIMIT - 1)
+    got = tpair.fetch_sorted_pairs(bi, bj, bc, 2, "packed",
+                                   n_rows=tpair._PACK_ROW_LIMIT - 1)
     assert got.ndim == 1 and np.all(got > 0)
-    assert np.array_equal(tpw.unpack_pairs(got),
+    assert np.array_equal(tpair.unpack_pairs(got),
                           [[1, 2, 7], [hi, hi + 1, 9]])
-    assert tpw.packed_pair(tpw.packed_key(hi, hi + 1) | 9) == (hi, hi + 1, 9)
+    assert (tpair.packed_pair(tpair.packed_key(hi, hi + 1) | 9)
+            == (hi, hi + 1, 9))
 
 
 @pytest.mark.parametrize("total,space", [
     (0, None), (1, None), (16384, None), (16385, None), ((1 << 17) - 1, None),
     (1 << 17, None), (5_000_000, None), (70000, 50000), (0, 0)])
 def test_vcap_bucket_is_the_jax_packages(total, space):
-    assert tpw._vcap_bucket(total, space) == jpw._vcap_bucket(total, space)
+    assert tpair.vcap_bucket(total, space) == jpw._vcap_bucket(total, space)
 
 
 def test_finalize_pairs_checks_the_cursor():
-    gbi, gbj, gbc, cursor = tpw._new_pair_buffers(8, "cpu")
+    gbi, gbj, gbc, cursor = tpair.new_pair_buffers(8, "cpu")
     assert cursor.dtype == torch.int64 and int(cursor) == 0
-    assert (gbi == tpw._IMAX).all() and (gbc == -1).all()
+    assert (gbi == tpair.IMAX).all() and (gbc == -1).all()
     gbi[:2], gbj[:2], gbc[:2] = _t([4, 1]), _t([9, 3]), _t([5, 6])
-    got = tpw._finalize_pairs((gbi, gbj, gbc, cursor + 2), 2)
+    got = tpair.finalize_pairs((gbi, gbj, gbc, cursor + 2), 2)
     assert np.array_equal(got, [[1, 3, 6], [4, 9, 5]])
     with pytest.raises(AssertionError, match="promised 3"):
-        tpw._finalize_pairs((gbi, gbj, gbc, cursor + 2), 3)
-    assert tpw._finalize_pairs((gbi, gbj, gbc, cursor + 2), 2, "packed",
-                               n_rows=16).ndim == 1
-    assert tpw._finalize_pairs((gbi, gbj, gbc, cursor + 2), 2,
-                               "packed").ndim == 2
+        tpair.finalize_pairs((gbi, gbj, gbc, cursor + 2), 3)
+    assert tpair.finalize_pairs((gbi, gbj, gbc, cursor + 2), 2, "packed",
+                                n_rows=16).ndim == 1
+    assert tpair.finalize_pairs((gbi, gbj, gbc, cursor + 2), 2,
+                                "packed").ndim == 2
 
 
 def test_sort_compact_append_contract():
@@ -697,14 +699,14 @@ def test_sort_compact_append_contract():
 
     rng = np.random.default_rng(3)
     window, vcap = 64, 128
-    tb = tpw._new_pair_buffers(vcap + window, "cpu")
+    tb = tpair.new_pair_buffers(vcap + window, "cpu")
     jb = jpw._new_pair_buffers(vcap + window)
     for _ in range(3):
         keep = rng.random((8, 8)) < 0.4
         gi, gj, c = (rng.integers(lo, 1000, (8, 8)).astype(np.int32)
                      for lo in (0, 0, 1))
-        tb = ts.sort_compact_append(*tb, torch.from_numpy(keep), _t(gi),
-                                    _t(gj), _t(c))
+        tb = tpair.sort_compact_append(*tb, torch.from_numpy(keep), _t(gi),
+                                       _t(gj), _t(c))
         jb = js.sort_compact_append(*jb, jnp.asarray(keep), jnp.asarray(gi),
                                     jnp.asarray(gj), jnp.asarray(c))
     n_kept = int(tb[3])
@@ -716,37 +718,59 @@ def test_sort_compact_append_contract():
     assert rows(tb, n_kept) == rows(jb, n_kept)
     for t, j in zip(tb[:3], jb[:3]):
         assert np.array_equal(t.numpy()[n_kept:], np.asarray(j)[n_kept:])
-    assert (tb[0].numpy()[n_kept:] == tpw._IMAX).all()
+    assert (tb[0].numpy()[n_kept:] == tpair.IMAX).all()
     assert (tb[2].numpy()[n_kept:] == -1).all()
 
     # zero survivors: cursor and buffers unchanged
     before = [b.clone() for b in tb[:3]]
     zero = torch.zeros((8, 8), dtype=torch.int32)
-    tb2 = ts.sort_compact_append(*tb, zero.bool(), zero, zero, zero)
+    tb2 = tpair.sort_compact_append(*tb, zero.bool(), zero, zero, zero)
     assert int(tb2[3]) == n_kept
     assert all(torch.equal(a, b) for a, b in zip(tb2[:3], before))
 
     # a full window at cursor = vcap lands in the slack
-    gbi, gbj, gbc, cur = tpw._new_pair_buffers(vcap + window, "cpu")
+    gbi, gbj, gbc, cur = tpair.new_pair_buffers(vcap + window, "cpu")
     full = torch.ones((8, 8), dtype=torch.int32)
-    gbi, gbj, gbc, cur = ts.sort_compact_append(
+    gbi, gbj, gbc, cur = tpair.sort_compact_append(
         gbi, gbj, gbc, cur + vcap, full.bool(), full * 7, full * 9, full * 3)
     assert int(cur) == vcap + window
     assert (gbi[vcap:] == 7).all() and (gbc[vcap:] == 3).all()
-    assert (gbi[:vcap] == tpw._IMAX).all()
+    assert (gbi[:vcap] == tpair.IMAX).all()
 
 
 def test_sort_compact_append_past_the_buffers():
     """In a run that overflows the cursor walks past the buffers: the
     writes go to the last slot (no index error), earlier rows stay, and
     the cursor keeps the exact count."""
-    gbi, gbj, gbc, cur = tpw._new_pair_buffers(16, "cpu")
+    gbi, gbj, gbc, cur = tpair.new_pair_buffers(16, "cpu")
     full = torch.ones((4, 4), dtype=torch.int32)
     for k in range(3):
-        gbi, gbj, gbc, cur = ts.sort_compact_append(
+        gbi, gbj, gbc, cur = tpair.sort_compact_append(
             gbi, gbj, gbc, cur, full.bool(), full * (k + 1), full, full)
     assert int(cur) == 48
     assert (gbi[:15] == 1).all()
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_append_rows_is_append_block_in_row_windows(monkeypatch,
+                                                    transposed):
+    """Row windows of at most ``APPEND_LANES`` lanes (one row when a row
+    is wider) append what one ``append_block`` of the whole block does,
+    within ``append_window``'s slack past the survivors."""
+    rng = np.random.default_rng(5)
+    keep = torch.from_numpy(rng.random((12, 10)) < 0.3)
+    counts = _t(rng.integers(1, 99, (12, 10)))
+    m = int(keep.sum())
+    whole = tpair.append_block(*tpair.new_pair_buffers(120, "cpu"), keep,
+                               counts, 40, 7, transposed=transposed)
+    for lanes in (25, 4):  # two rows a window; one row, wider than that
+        monkeypatch.setattr(tpair, "APPEND_LANES", lanes)
+        got = tpair.append_rows(
+            *tpair.new_pair_buffers(m + tpair.append_window(12), "cpu"),
+            keep, counts, 40, 7, transposed=transposed)
+        assert int(got[3]) == m
+        assert np.array_equal(tpair.finalize_pairs(got, m),
+                              tpair.finalize_pairs(whole, m))
 
 
 # -- the CSR block source ---------------------------------------------------------

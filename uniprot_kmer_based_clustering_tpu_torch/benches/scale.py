@@ -69,7 +69,7 @@ def oracle_gate(
     pairs checked; raises :class:`BenchFailure` (an AssertionError) on any
     mismatch.
     """
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
         packed_key,
         packed_pair,
     )

@@ -237,9 +237,11 @@ def dryrun_multichip(n_devices: int, *, device="cuda",
 
     # mesh-parallel ring extraction against the plain sweep's extraction
     from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import sweep_xla
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        unpack_pairs,
+    )
     from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
         extract_pairs,
-        unpack_pairs,
     )
 
     pr = sharded_extract_pairs(

@@ -31,14 +31,6 @@ import numpy as np
 
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
-#: How the most recent host :func:`build_index` ran, the
-#: ``similarity.pairwise.last_trace`` convention: ``engine`` ("native" or
-#: "numpy"), ``owners_from`` (where the unique codes' owners came from:
-#: "scan", the native scan that counts the doc freqs, or "incidences",
-#: the numpy build's deduped incidences) and ``n_unique``.
-last_build: dict = {}
-
-
 @dataclasses.dataclass
 class KmerIndex:
     """Doc-freq index over the k-mer universe of one dataset.
@@ -183,7 +175,6 @@ def build_index(
                 # code's protein as it passed the code's run
                 distinct, freq, inc_p, inc_r, _, owners = res
             repeated_mask = freq >= 2
-            _set_last_build("native", "scan", owners)
             return KmerIndex(
                 k=k,
                 codes=distinct,
@@ -206,15 +197,7 @@ def build_index(
         # docfreq-1 code has exactly one (protein, code) row
         index.unique_owner = _owners_from_incidences(owner_protein,
                                                      owner_code)
-    _set_last_build("numpy", "incidences", index.unique_owner)
     return index
-
-
-def _set_last_build(engine: str, owners_from: str,
-                    owners: np.ndarray) -> None:
-    global last_build
-    last_build = dict(engine=engine, owners_from=owners_from,
-                      n_unique=int(owners.shape[0]))
 
 
 def _build_index_numpy(codes: np.ndarray, kmer_offsets: np.ndarray,

@@ -44,6 +44,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    EPILOGUE_PAIR_CAP,
+    new_pair_buffers,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
 )
@@ -518,11 +522,7 @@ def sweep_mxu_async(
                   word_chunk=word_chunk, stats_engine=engine)
     cands = pairs = None
     if append and schedule == "strips" and engine == "pallas":
-        from uniprot_kmer_based_clustering_tpu_torch.similarity import (
-            pairwise,
-        )
-
-        pairs = pairwise._new_pair_buffers(pairwise._EPILOGUE_PAIR_CAP, dev)
+        pairs = new_pair_buffers(EPILOGUE_PAIR_CAP, dev)
     if schedule == "scan":
         row_stats, block_hits, ys = _scan_sweep(
             words, classes, weights, pairs_ij, bs=strip, fused_k=fused_k,
@@ -606,8 +606,8 @@ def sweep_mxu(
     ``append`` asks K1 for the survivors (``fused_same`` gates them as
     it gates the fused candidates) and returns a :class:`SweepResult`
     instead: on the strip schedule with K1, every strip's launch appends
-    them to one set of pair buffers (``similarity.pairwise.
-    _new_pair_buffers``, ``_EPILOGUE_PAIR_CAP`` slots).
+    them to one set of pair buffers (``ops.pairlist.new_pair_buffers``,
+    ``EPILOGUE_PAIR_CAP`` slots).
     """
     handles, finalize = sweep_mxu_async(
         words, classes, n, threshold, strip=strip, block=block,

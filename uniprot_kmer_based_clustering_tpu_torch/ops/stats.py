@@ -204,9 +204,9 @@ def append_survivors_reference(counts, classes_row, classes_col, pairs, *,
                                threshold: int, include_same: bool):
     """Plain form of K1's survivor append: the (gi, gj, count) of every
     survivor of :func:`survivor_mask` into ``pairs`` = (bi, bj, bc,
-    cursor), at the slots from the cursor on; slots past the buffers'
-    length are not stored, but the cursor advances by every survivor, as
-    the kernel's does. Returns ``pairs``."""
+    cursor; the format of ``ops.pairlist``), at the slots from the cursor
+    on; slots past the buffers' length are not stored, but the cursor
+    advances by every survivor, as the kernel's does. Returns ``pairs``."""
     bi, bj, bc, cursor = pairs
     dev = counts.device
     ca = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
@@ -334,8 +334,8 @@ def _check_outputs(counts, row_stats, block_hits, tile: int):
 
 
 def _check_pairs(counts, pairs):
-    """Pair buffers as K1 appends to them (``similarity.pairwise.
-    _new_pair_buffers``): three contiguous int32 [cap] and an int64
+    """Pair buffers as K1 appends to them (``ops.pairlist.
+    new_pair_buffers``): three contiguous int32 [cap] and an int64
     scalar cursor, on the counts' device."""
     dev = counts.device
     *bufs, cursor = pairs
@@ -409,8 +409,8 @@ def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
     zero-fill is needed. The tile hits are ADDED into ``block_hits``, an
     int32 view [≥ S/tile, ≥ J/tile, 2] with strides (*, 2, 1) (e.g. the
     sweep's dense [nb, nb, 2] from tile (i_off/tile, j_off/tile) on).
-    With ``pairs`` (bi, bj, bc, cursor: ``similarity.pairwise.
-    _new_pair_buffers``) the block's survivors (:func:`survivor_mask`,
+    With ``pairs`` (bi, bj, bc, cursor: ``ops.pairlist.
+    new_pair_buffers``) the block's survivors (:func:`survivor_mask`,
     same-class ones too with ``include_same``) are appended as
     (gi, gj, count) behind the cursor, which advances by each of them
     even past the buffers' capacity. Raises

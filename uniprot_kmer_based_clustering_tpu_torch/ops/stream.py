@@ -38,7 +38,7 @@ Three ways to the exact pair list:
   top-k survivors inside the in-flight window and
   :func:`extract_pairs_stream_fused` redoes the tiles that overflowed;
 * one pass: :func:`sweep_extract_stream` appends each step's survivors to
-  global pair buffers on the device (:func:`sort_compact_append`), checks
+  global pair buffers on the device (``ops.pairlist``), checks
   the capacity exactly, and can checkpoint at stationary-group boundaries.
 
 The blocking formulas (``bs``, ``g``, ``word_chunk``, the pair-buffer
@@ -69,6 +69,15 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     counts_window_pair,
     survivor_mask,
     topk_subtile_candidates,
+)
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    append_block,
+    finalize_pairs,
+    merge_pairs,
+    new_pair_buffers,
+    sort_compact_append,
+    tile_survivors,
+    vcap_bucket,
 )
 from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
@@ -639,79 +648,6 @@ def sweep_mxu_stream(
     return base + (cands,)
 
 
-def _survivors_first(keep):
-    """(the window's flat indices ordered survivors first, the survivor
-    count as a device scalar): a stable sort by the keep flag. Nothing is
-    sized by the data."""
-    k = keep.reshape(-1)
-    return torch.argsort((~k).to(torch.uint8), stable=True), k.sum()
-
-
-def _append_survivors(gbi, gbj, gbc, cursor, kept, gi_s, gj_s, c_s):
-    """Write one window, already ordered survivors first, at the cursor:
-    the first ``kept`` lanes carry the survivors, the rest sentinels. The
-    positions are ``cursor + arange(window)`` as an index write (the
-    cursor never leaves the device); a position past the buffers goes to
-    their last slot, which only happens in a run that has overflowed and
-    whose buffers are discarded."""
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        _IMAX,
-    )
-
-    lane = torch.arange(gi_s.shape[0], device=gi_s.device)
-    live = lane < kept
-    pos = torch.clamp(cursor + lane, max=gbi.shape[0] - 1)
-    gbi[pos] = torch.where(live, gi_s, int(_IMAX))
-    gbj[pos] = torch.where(live, gj_s, int(_IMAX))
-    gbc[pos] = torch.where(live, c_s, -1)
-    return gbi, gbj, gbc, cursor + kept
-
-
-def sort_compact_append(gbi, gbj, gbc, cursor, keep, gi, gj, counts):
-    """Append one window's survivors to the global pair buffers, in place,
-    with no host synchronisation.
-
-    ``keep`` (bool), ``gi``, ``gj`` and ``counts`` (int32) share one
-    shape, the window. The window is sorted by the keep flag (survivors
-    first; the order within a window is irrelevant, every consumer sorts
-    the whole list by (i, j)), its tail set to sentinels, and the whole
-    window written at ``cursor`` (an int64 scalar on the device). The
-    next append starts at ``cursor + kept`` and overwrites this one's
-    sentinel tail, so the buffers stay [real pairs][sentinels].
-
-    Buffers MUST carry at least one window of slack past the usable
-    capacity (``_new_pair_buffers(vcap + window)``), so that no write of
-    a run that fits is ever displaced. In a run that overflows the cursor
-    walks past the buffers; those buffers are discarded (the caller
-    decides overflow from the sweep's own exact int64 total, never from
-    the cursor).
-
-    Returns (gbi, gbj, gbc, cursor + kept).
-    """
-    order, kept = _survivors_first(keep)
-    return _append_survivors(
-        gbi, gbj, gbc, cursor, kept, gi.reshape(-1)[order],
-        gj.reshape(-1)[order], counts.reshape(-1)[order],
-    )
-
-
-def _append_block(gbi, gbj, gbc, cursor, keep, counts, i0: int, j0: int,
-                  *, transposed: bool = False):
-    """:func:`sort_compact_append` for a counts block at global offset
-    (i0, j0): the row and column of a survivor follow from its flat
-    index, so no index matrices are built. ``transposed`` writes each
-    pair as (column, row), for a block whose columns lie below its
-    rows."""
-    order, kept = _survivors_first(keep)
-    cols = keep.shape[1]
-    gi = (i0 + order // cols).to(torch.int32)
-    gj = (j0 + order % cols).to(torch.int32)
-    if transposed:
-        gi, gj = gj, gi
-    return _append_survivors(gbi, gbj, gbc, cursor, kept, gi, gj,
-                             counts.reshape(-1)[order])
-
-
 def _step_compact_body(state, wa, wb, ca, cb, weights, i0: int, j0: int, *,
                        n: int, threshold: int, block: int, w_thresh: int,
                        word_chunk: int, cross_amr_only: bool):
@@ -732,8 +668,8 @@ def _step_compact_body(state, wa, wb, ca, cb, weights, i0: int, j0: int, *,
     )
     em = survivor_mask(counts, ca, cb, i0, j0, n=n, threshold=threshold,
                        include_same=not cross_amr_only)
-    gbi, gbj, gbc, cursor = _append_block(gbi, gbj, gbc, cursor, em, counts,
-                                          i0, j0)
+    gbi, gbj, gbc, cursor = append_block(gbi, gbj, gbc, cursor, em, counts,
+                                         i0, j0)
     return row_stats, block_hits, gbi, gbj, gbc, cursor
 
 
@@ -814,7 +750,7 @@ def sweep_extract_stream(
     """ONE-PASS out-of-core sweep **and** exact pair extraction.
 
     Each step appends its survivors to global pair buffers on the device
-    (:func:`sort_compact_append`): statistics and the pair list come out
+    (``ops.pairlist.append_block``): statistics and the pair list come out
     of one streamed pass, and the host fetches one device-sorted array at
     the end. With ``block_source`` the row blocks are materialized on the
     device from the incidence lists and ``words_host`` may be None.
@@ -828,7 +764,7 @@ def sweep_extract_stream(
     every regime.
 
     ``pair_format="packed"`` fetches the pair list in the packed int64
-    layout (``similarity.pairwise.unpack_pairs`` decodes it) when row
+    layout (``ops.pairlist.unpack_pairs`` decodes it) when row
     indices and counts fit the pack, else [M, 3]; callers tell them apart
     by ``ndim``.
 
@@ -856,19 +792,12 @@ def sweep_extract_stream(
     ``fail_after_groups`` is the fault-injection seam: raise after that
     many groups completed in this run.
     """
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        _fetch_sorted_pairs,
-        _new_pair_buffers,
-        _vcap_bucket,
-        pairs_as_array,
-    )
-
     device = resolve_device(device)
     words_host, rows0, w_words = _source_geometry(words_host, block_source)
     if cap is None:
         # an eighth of the budget, never more than the pair space itself
         cap = max(1, min(int(hbm_budget_bytes // 8 // 12), n * (n - 1) // 2))
-        vcap = _vcap_bucket(int(cap))
+        vcap = vcap_bucket(int(cap))
     else:
         vcap = max(128, -(-int(cap) // 128) * 128)
     # the buffers AND the append's slack window come off the budget before
@@ -980,8 +909,8 @@ def sweep_extract_stream(
     feed = _BlockFeed(words_host, block_source, bs, device, inflight + 1,
                       trace)
     # + one [bs, bs] window of slack rows for the append
-    state = (row_stats, block_hits) + _new_pair_buffers(vcap + bs * bs,
-                                                        device)
+    state = (row_stats, block_hits) + new_pair_buffers(vcap + bs * bs,
+                                                       device)
     state = _onepass_loop(
         feed, window, cls_dev, wts, state, nbk=nbk, g=g, bs=bs,
         inflight=inflight, dispatch=dispatch, scan_chunk=scan_chunk,
@@ -998,9 +927,7 @@ def sweep_extract_stream(
     ti, tj = upper_triangle_tiles(n_pad, block)
     tile_hits = bh[ti, tj]
     tiles = (ti, tj, block)
-    hits_vec = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        hits_vec = hits_vec + tile_hits[:, 1]
+    hits_vec = tile_survivors(tile_hits, cross_amr_only)
     total = int(hits_vec.sum())
 
     # after a resume the cursor counts only the groups swept NOW; the
@@ -1034,14 +961,9 @@ def sweep_extract_stream(
         trace["overflow"] = True
         pairs = grouped(tile_hits)
     else:
-        if int(count) != total_now:
-            raise AssertionError(
-                f"one-pass compacted {int(count)} pairs, sweep stats "
-                f"promised {total_now}"
-            )
         t0 = time.perf_counter()
-        pairs = _fetch_sorted_pairs(gbi, gbj, gbc, total_now, pair_format,
-                                    n_pad)
+        pairs = finalize_pairs((gbi, gbj, gbc, count), total_now,
+                               pair_format, n_pad)
         trace["fetch_s"] += time.perf_counter() - t0
         trace["pair_format"] = "packed" if pairs.ndim == 1 else "arr3"
         if total_prior:
@@ -1049,15 +971,7 @@ def sweep_extract_stream(
             # exact tile hits, and the union put in canonical order
             masked = np.zeros_like(tile_hits)
             masked[prior_mask] = tile_hits[prior_mask]
-            prior_pairs = grouped(masked)
-            if pairs.ndim == 1 and prior_pairs.ndim == 1:
-                # packed values sort exactly like (i, j)
-                pairs = np.sort(np.concatenate([pairs, prior_pairs]))
-            else:
-                a = np.concatenate(
-                    [pairs_as_array(pairs), pairs_as_array(prior_pairs)]
-                )
-                pairs = a[np.lexsort((a[:, 1], a[:, 0]))]
+            pairs = merge_pairs(pairs, grouped(masked))
     if ckpt_on:
         # completed: a stale snapshot must not hijack the next run
         p = checkpoint_store.path(checkpoint_key)
@@ -1099,9 +1013,7 @@ def extract_pairs_stream_fused(
     k = cands.k
     cpairs = cands.pairs
     ti, tj, tile = tiles
-    h = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        h = h + tile_hits[:, 1]
+    h = tile_survivors(tile_hits, cross_amr_only)
     keep = h <= k  # tiles whose candidates are complete
 
     parts = []
@@ -1189,7 +1101,7 @@ def _extract_stream_scatter(buffers, wins, cwins, batch, weights, n: int,
     for ia, ja, gi0, gj0 in batch:
         counts, mask = _tile_survivors(wins, cwins, ia, ja, weights, gi0,
                                        gj0, n, threshold, cross_amr_only)
-        buffers = _append_block(*buffers, mask, counts, gi0, gj0)
+        buffers = append_block(*buffers, mask, counts, gi0, gj0)
     return buffers
 
 
@@ -1211,21 +1123,13 @@ def _extract_block_pair(buffers, wa, wb, ca, cb, weights, i0: int, j0: int,
     window recomputed at the sweep's own operand shape, its survivors
     restricted to the wanted sub-tiles (``sub_mask`` bool [bs/block,
     bs/block], on the device) and appended to the global buffers
-    (:func:`sort_compact_append`; the caller allocates one window of
+    (``ops.pairlist.append_block``; the caller allocates one window of
     slack). No host synchronisation. Returns the updated buffers."""
     counts = counts_window_pair(wa, wb, weights, word_chunk=word_chunk)
     mask = survivor_mask(counts, ca, cb, i0, j0, n=n, threshold=threshold,
                          include_same=not cross_amr_only)
     mask &= sub_mask.repeat_interleave(block, 0).repeat_interleave(block, 1)
-    return _append_block(*buffers, mask, counts, i0, j0)
-
-
-def _wanted_tiles(tile_hits, cross_amr_only: bool):
-    """(want bool [nT], hits per tile int64 [nT]) for the gate."""
-    hits = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        hits = hits + tile_hits[:, 1]
-    return hits > 0, hits
+    return append_block(*buffers, mask, counts, i0, j0)
 
 
 def extract_pairs_stream_grouped(
@@ -1259,22 +1163,17 @@ def extract_pairs_stream_grouped(
     nobody needs are never uploaded. Bit-identical to every other
     extraction path.
     """
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        _finalize_pairs,
-        _new_pair_buffers,
-        _vcap_bucket,
-    )
-
     device = resolve_device(device)
     ti, tj, tile = tiles
     words_host, rows0, w_words = _source_geometry(words_host, block_source)
     tile_hits = np.asarray(tile_hits)
-    want, hits_per_tile = _wanted_tiles(tile_hits, cross_amr_only)
+    hits_per_tile = tile_survivors(tile_hits, cross_amr_only)
+    want = hits_per_tile > 0
     if not want.any():
         return np.zeros((0, 3), dtype=np.int32)
     total = int(hits_per_tile[want].sum())
 
-    vcap = _vcap_bucket(total)
+    vcap = vcap_bucket(total)
     # the pair buffers and the append's slack window stay resident for
     # the whole pass: they come off the budget before the blocks are sized
     slack = int(bs) ** 2 if bs else 4096 * 4096
@@ -1321,7 +1220,7 @@ def extract_pairs_stream_grouped(
                       trace)
     window = _Window(device, trace)
     # + one [bs, bs] window of slack rows for the append
-    buffers = _new_pair_buffers(vcap + bs * bs, device)
+    buffers = new_pair_buffers(vcap + bs * bs, device)
     for s0, g_here in _groups(nbk, g):
         for jb, ibs in _group_steps(s0, g_here, nbk, need):
             wb = (feed.stationary(jb) if jb < s0 + g_here
@@ -1343,7 +1242,7 @@ def extract_pairs_stream_grouped(
         feed.end_group()
     window.drain(0)
     t0 = time.perf_counter()
-    out = _finalize_pairs(buffers, total, pair_format, n_pad)
+    out = finalize_pairs(buffers, total, pair_format, n_pad)
     trace["finalize_s"] += time.perf_counter() - t0
     global last_grouped_trace
     last_grouped_trace = trace
@@ -1366,10 +1265,10 @@ def extract_pairs_stream_auto(
     grouped pass (:func:`extract_pairs_stream_grouped`) when the windows'
     upload bound exceeds one full pass over the matrix
     (:func:`_prefer_grouped`)."""
-    want, _ = _wanted_tiles(np.asarray(tile_hits), cross_amr_only)
+    hit = tile_survivors(tile_hits, cross_amr_only) > 0
     fn = (
         extract_pairs_stream_grouped
-        if _prefer_grouped(int(want.sum()), tiles[2], words_host)
+        if _prefer_grouped(int(hit.sum()), tiles[2], words_host)
         else extract_pairs_stream
     )
     return fn(
@@ -1402,18 +1301,12 @@ def extract_pairs_stream(
     (:func:`_extract_stream_scatter`). With ``weights`` the second
     operand's window is scaled.
     """
-    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-        _finalize_pairs,
-        _new_pair_buffers,
-        _vcap_bucket,
-    )
-
     device = resolve_device(device)
     ti, tj, tile = tiles
     words_host = np.ascontiguousarray(words_host)
     tile_hits = np.asarray(tile_hits)
-    want, hits_per_tile = _wanted_tiles(tile_hits, cross_amr_only)
-    hit_tiles = np.nonzero(want)[0]
+    hits_per_tile = tile_survivors(tile_hits, cross_amr_only)
+    hit_tiles = np.nonzero(hits_per_tile)[0]
     if len(hit_tiles) == 0:
         return np.zeros((0, 3), dtype=np.int32)
     # the sweep's tile enumeration may cover rows beyond the matrix
@@ -1445,7 +1338,7 @@ def extract_pairs_stream(
     # slack for the largest window appended: a batch's top-k candidates,
     # or one dense tile
     slack = max(batch * kmax, tile * tile if len(dense) else 0)
-    buffers = _new_pair_buffers(_vcap_bucket(total) + slack, device)
+    buffers = new_pair_buffers(vcap_bucket(total) + slack, device)
 
     def stack(gsel):
         """One batch's distinct row windows on the device, and its tiles
@@ -1482,7 +1375,7 @@ def extract_pairs_stream(
         window.drain(inflight)
     window.drain(0)
     t0 = time.perf_counter()
-    out = _finalize_pairs(buffers, total)
+    out = finalize_pairs(buffers, total)
     trace["finalize_s"] += time.perf_counter() - t0
     global last_extract_trace
     last_extract_trace = trace

@@ -110,6 +110,15 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     survivor_mask,
     topk_subtile_candidates,
 )
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    APPEND_LANES,
+    append_rows,
+    append_window,
+    new_pair_buffers,
+    sort_compact_append,
+    sorted_pairs,
+    tile_survivors,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
 )
@@ -118,9 +127,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.ops.stream import (
     _BIT,
-    _append_block,
     _materialize_block,
-    sort_compact_append,
     split_incidence_blocks,
 )
 from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
@@ -133,10 +140,6 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
     shard_rows,
     sum_to_first,
 )
-from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-    _new_pair_buffers,
-    _sorted_pairs,
-)
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 #: ``n`` of every K1 launch and survivor mask of the rings (see module doc)
@@ -148,10 +151,6 @@ RING_UNPACK_BYTES = 2 << 30
 #: bytes of the D partial int32 counts strips of a k-axis step and their
 #: sum, at most (the strip height S follows from it)
 KAXIS_STRIP_BYTES = 2 << 30
-
-# lanes of one append window (its sort temporaries and each shard's
-# buffer slack scale with it)
-_APPEND_LANES = 1 << 22
 
 #: Counts of the most recent sweep, extraction or fused pass on a mesh,
 #: over this rank's shards, in every layout (the
@@ -587,19 +586,10 @@ def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
     return _Staged(words_s, classes_s, weights_s, n_pad, trace)
 
 
-def append_window(block: int) -> int:
-    """Lanes of the largest append of a pass whose products are at most
-    ``block`` columns wide: a compaction window is at most
-    ``_APPEND_LANES`` lanes (or one row), never more than a block pair.
-    Each pair buffer carries this much slack past ``cap``
-    (``ops.stream.sort_compact_append``)."""
-    return min(block * block, max(block, _APPEND_LANES))
-
-
 def _compact(bufs, keep, counts, sub: SubStep, *, block_tile: int, k: int):
     """Append one sub-step's survivors to a shard's pair buffers (JAX
-    ``_compact_step``) with ``ops.stream``'s sort-based append, in
-    windows of at most :func:`append_window` lanes. A wrapped sub-step
+    ``_compact_step``) with ``ops.pairlist``'s sort-based append, in
+    windows of at most ``append_window`` lanes. A wrapped sub-step
     (moving rows below the stationary ones) writes its pairs transposed,
     so every pair is (min, max). ``k`` > 0 selects up to ``k`` per
     ``block_tile``² sub-tile with ``torch.topk`` and drops a sub-tile with
@@ -607,10 +597,9 @@ def _compact(bufs, keep, counts, sub: SubStep, *, block_tile: int, k: int):
     against the exact tile hits); ``k`` = 0 appends the whole mask, in
     row windows."""
     transposed = sub.gj0 < sub.gi0
-    rows, cols = keep.shape
     if k > 0:
         m = keep.to(torch.int32)
-        qj = cols // block_tile
+        qj = keep.shape[1] // block_tile
         sub_hits = m.reshape(-1, block_tile, qj, block_tile).sum(dim=(1, 3))
         gi, gj, cnt = topk_subtile_candidates(
             m, counts, sub.gi0, sub.gj0, tile=block_tile, k=k,
@@ -619,17 +608,13 @@ def _compact(bufs, keep, counts, sub: SubStep, *, block_tile: int, k: int):
             gi, gj = gj, gi
         hit = ((cnt >= 0) & (sub_hits.reshape(-1, 1) <= k)).reshape(-1)
         gi, gj, cnt = gi.reshape(-1), gj.reshape(-1), cnt.reshape(-1)
-        for a in range(0, hit.numel(), _APPEND_LANES):
-            b = a + _APPEND_LANES
+        for a in range(0, hit.numel(), APPEND_LANES):
+            b = a + APPEND_LANES
             bufs = sort_compact_append(*bufs, hit[a:b], gi[a:b], gj[a:b],
                                        cnt[a:b])
         return bufs
-    step = max(1, _APPEND_LANES // cols)
-    for a in range(0, rows, step):
-        bufs = _append_block(*bufs, keep[a : a + step],
-                             counts[a : a + step], sub.gi0 + a, sub.gj0,
-                             transposed=transposed)
-    return bufs
+    return append_rows(*bufs, keep, counts, sub.gi0, sub.gj0,
+                       transposed=transposed)
 
 
 def _substep_outputs(counts, ca, cb, sub: SubStep, i_off: int, j_off: int,
@@ -722,7 +707,7 @@ def _new_outputs(mesh: Mesh, rows: int, nb: int, *, stats: bool, cap: int,
         hits = [dev and torch.zeros((nb, nb, 2), dtype=torch.int32,
                                     device=dev) for dev in devs]
     if cap:
-        bufs = [dev and _new_pair_buffers(cap + window, dev) for dev in devs]
+        bufs = [dev and new_pair_buffers(cap + window, dev) for dev in devs]
     return row_stats, hits, bufs
 
 
@@ -851,7 +836,7 @@ def _gather_pairs(mesh: Mesh, bufs, cap: int, trace: dict):
             return None, total
         parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
                  for f in range(3)]
-        arr = _sorted_pairs(*(gather_to_first(p, mesh) for p in parts))
+        arr = sorted_pairs(*(gather_to_first(p, mesh) for p in parts))
         return arr.cpu().numpy(), total
 
 
@@ -889,9 +874,7 @@ def survivor_total(tile_hits, cross_amr_only: bool,
     """The pairs a sweep's tile hits promise extraction (the cross-class
     lane, and the same-class one unless ``cross_amr_only``);
     ``trace["hit_tiles"]`` becomes the tiles holding any of them."""
-    per_tile = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        per_tile = per_tile + tile_hits[:, 1]
+    per_tile = tile_survivors(tile_hits, cross_amr_only)
     if trace is not None:
         trace["hit_tiles"] = int(np.count_nonzero(per_tile))
     return int(per_tile.sum())

@@ -59,6 +59,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    fetch_sorted_pairs,
+    merge_pairs,
+    new_pair_buffers,
+    tile_survivors,
+    vcap_bucket,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import (
     upper_triangle_tiles,
 )
@@ -84,12 +91,6 @@ from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
     lane_merge_to_first,
     mesh_layout,
     sum_to_first,
-)
-from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
-    _fetch_sorted_pairs,
-    _new_pair_buffers,
-    _vcap_bucket,
-    pairs_as_array,
 )
 
 #: Phase breakdown of the most recent :func:`sweep_extract_stream_mesh`
@@ -223,7 +224,7 @@ def sweep_extract_stream_mesh(
     if cap is None:
         cap_dev = max(1, min(int(hbm_budget_bytes // 8 // 12),
                              n * (n - 1) // 2))
-        vcap = _vcap_bucket(cap_dev)
+        vcap = vcap_bucket(cap_dev)
     else:
         vcap = max(128, -(-int(cap) // 128) * 128)
     slack = int(bs) ** 2 if bs else 4096 * 4096
@@ -287,7 +288,7 @@ def sweep_extract_stream_mesh(
         sh.state = (
             torch.zeros((n_pad, 8), dtype=torch.int32, device=sh.device),
             torch.zeros((nb, nb, 2), dtype=torch.int32, device=sh.device),
-        ) + _new_pair_buffers(vcap_l, sh.device)
+        ) + new_pair_buffers(vcap_l, sh.device)
     if prior_groups and shards[0] is not None:
         # a restored snapshot seeds the first shard's accumulators, as in
         # the single-device engine: the merges below then carry it
@@ -426,9 +427,7 @@ def sweep_extract_stream_mesh(
     ti, tj = upper_triangle_tiles(n_pad, block)
     tile_hits = bh[ti, tj]
     tiles = (ti, tj, block)
-    hits = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        hits = hits + tile_hits[:, 1]
+    hits = tile_survivors(tile_hits, cross_amr_only)
     total = int(hits.sum())
 
     # each shard's expected survivor count from the exact tile hits:
@@ -501,14 +500,7 @@ def sweep_extract_stream_mesh(
             # tile hits, and the union in canonical order
             masked = np.zeros_like(tile_hits)
             masked[prior_mask] = tile_hits[prior_mask]
-            prior_pairs = grouped(masked)
-            if pairs.ndim == 1 and prior_pairs.ndim == 1:
-                pairs = np.sort(np.concatenate([pairs, prior_pairs]))
-            else:
-                a = np.concatenate(
-                    [pairs_as_array(pairs), pairs_as_array(prior_pairs)]
-                )
-                pairs = a[np.lexsort((a[:, 1], a[:, 0]))]
+            pairs = merge_pairs(pairs, grouped(masked))
     if ckpt_on:
         checkpoint_store.remove(checkpoint_key)
     global last_mesh_trace
@@ -520,7 +512,7 @@ def _fetch_mesh_pairs(mesh: Mesh, states, cursors, total: int,
                       pair_format: str, n_rows: int) -> np.ndarray:
     """Each shard's live pair prefix ``[0, cursor_k)`` gathered to the
     first shard's device (exactly ``total`` lanes), sorted there by
-    (i, j) and fetched once (``similarity.pairwise._fetch_sorted_pairs``:
+    (i, j) and fetched once (``ops.pairlist.fetch_sorted_pairs``:
     packed int64 when it fits and was asked for, else [M, 3]); across
     processes every rank gathers, sorts and fetches the same list."""
     bi, bj, bc = (
@@ -528,4 +520,4 @@ def _fetch_mesh_pairs(mesh: Mesh, states, cursors, total: int,
                          for st, c in zip(states, cursors)], mesh)
         for f in (2, 3, 4)
     )
-    return _fetch_sorted_pairs(bi, bj, bc, total, pair_format, n_rows)
+    return fetch_sorted_pairs(bi, bj, bc, total, pair_format, n_rows)

@@ -2,37 +2,32 @@
 
 Counterpart of the JAX package's ``similarity/pairwise.py`` for the
 engines ``auto``, ``mxu``, ``popcount``, ``xla``, ``native`` and
-``stream``.
+``stream``. Every route ends in the device pair list of
+``ops/pairlist.py`` or, for the fused scan, in its (i, j) sort.
 
 - Extraction from the epilogue (:func:`extract_pairs` with
   ``appended``; ``extract`` ``auto`` or ``fused`` on the strip
   schedule): the sweep's K1 epilogue appended every survivor to device
-  pair buffers (:func:`_new_pair_buffers`, ``_EPILOGUE_PAIR_CAP`` slots)
-  as it read the counts; extraction checks their cursor against the
-  sweep's exact tile hits, then sorts and fetches them once. Survivors
-  beyond the capacity take pass 2 below instead.
+  pair buffers (``EPILOGUE_PAIR_CAP`` slots) as it read the counts;
+  extraction checks their cursor against the sweep's exact tile hits,
+  then sorts and fetches them once. Survivors beyond the capacity take
+  pass 2 below instead.
 - Two-pass extraction (:func:`extract_pairs`; ``extract="two_pass"``,
   the scan schedule's ``auto`` and the popcount engines): pass 1 is the
   sweep, which reports exact per-tile hit counts; pass 2 recomputes only
   the hit tiles (a run of adjacent hit tiles in one tile row as one
-  product), compacts the survivors with ``torch.nonzero``, sorts them on
-  the device by (i, j) and copies the pair list to the host once.
+  product), appends each product's survivors to pair buffers behind a
+  cursor that stays on the device, and ends in the same fetch.
 - Fused extraction (:func:`extract_pairs_fused`, ``extract="fused"`` on
   the scan schedule): the sweep kept each sub-tile's survivors; they are
-  compacted and sorted the same way, and the sub-tiles whose exact hit
+  compacted and sorted on the device, and the sub-tiles whose exact hit
   count exceeded the capacity are redone by two-pass.
 - ``engine="stream"`` (``ops/stream.py``) keeps the packed matrix on the
-  host and streams row blocks through the device; its extractors append
-  survivors to global pair buffers on the device (:func:`_new_pair_buffers`,
-  sized by :func:`_vcap_bucket`) behind a cursor that stays on the device,
-  and :func:`_finalize_pairs` sorts and fetches them once, as int32
-  [M, 3] or in the packed ``i:24 | j:24 | count:16`` int64 format
-  (:func:`unpack_pairs`, :func:`pairs_as_array`, :func:`packed_key`,
-  :func:`packed_pair`).
+  host and streams row blocks through the device, appending to the same
+  pair list.
 
-The in-core extractors size their own output with ``nonzero``; the TPU
-compaction workarounds of the in-core path (superblock coalescing, top_k
-selection in pass 2) are not carried over.
+The TPU compaction workarounds of the in-core path (superblock
+coalescing, top_k selection in pass 2) are not carried over.
 """
 
 from __future__ import annotations
@@ -54,6 +49,18 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     sweep_mxu,
     unpack_words_to_int8,
 )
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    append_rows,
+    append_window,
+    check_cursor,
+    merge_pairs,
+    new_pair_buffers,
+    tile_survivors,
+    vcap_bucket,
+)
+from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+    sorted_pairs as _sorted_pairs,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.popcount import sweep
 from uniprot_kmer_based_clustering_tpu_torch.state import (
     bitset_to_torch,
@@ -68,8 +75,8 @@ from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 #: classes, weights and the fused keep mask sent to the device),
 #: ``hit_tiles``, ``extract_products`` (pass-2 ``int8_gemm`` calls, one a
 #: run of adjacent hit tiles), ``extract_syncs`` (every host wait of
-#: extraction: a ``nonzero`` a product or a boolean-mask compaction, and
-#: the final fetch), ``epilogue_pairs`` (the survivors K1 appended, 0 off
+#: extraction: a boolean-mask compaction of the fused scan, and the
+#: fetch), ``epilogue_pairs`` (the survivors K1 appended, 0 off
 #: the epilogue route) and ``pairs``. Times are the spans'
 #: (``utils.timing``).
 last_trace: dict = {}
@@ -148,141 +155,12 @@ class PairwiseResult:
         }
 
 
-# Sentinel of unused slots in the global pair buffers: it sorts past
-# every real row index, so the occupied prefix of the sorted buffers is
-# the pair list. The count lane uses -1 (a surviving pair's score is
-# > threshold >= 0).
-_IMAX = np.int32(np.iinfo(np.int32).max)
-
-
-#: Slots of the pair buffers K1 appends to on the strip schedule
-#: (786,432 bytes): over 100 times the pairs of the 10,619-protein AMR
-#: corpus. More survivors than this take two-pass extraction.
-_EPILOGUE_PAIR_CAP = 1 << 16
-
-
-def _new_pair_buffers(vcap: int, device):
-    """Fresh global pair buffers on ``device``: (bi, bj, bc, cursor) with
-    sentinel slots (bi = bj = INT32_MAX, bc = -1) and an int64 cursor of
-    0 that stays on the device."""
-    return (
-        torch.full((vcap,), int(_IMAX), dtype=torch.int32, device=device),
-        torch.full((vcap,), int(_IMAX), dtype=torch.int32, device=device),
-        torch.full((vcap,), -1, dtype=torch.int32, device=device),
-        torch.zeros((), dtype=torch.int64, device=device),
-    )
-
-
-# Packed pair list: one int64 a pair, i(24) | j(24) | count(16). Sorting
-# the packed value is the canonical (i, j) sort, because a pair occurs
-# once and so the count bits never decide an order. Valid when every row
-# index is < 2^23 (the i field sits in bits 40-63 of a signed int64) and
-# every count < 2^16; the fetch checks both and falls back to [M, 3].
-_PACK_I_SHIFT = 40
-_PACK_J_SHIFT = 16
-_PACK_FIELD_MASK = (1 << 24) - 1
-_PACK_ROW_LIMIT = 1 << 23
-_PACK_COUNT_LIMIT = 1 << 16
-
-
-def _pack_sort_fetch(bi, bj, bc, total: int):
-    """The first ``total`` buffer slots packed to int64, sorted on the
-    device and copied to the host; None when a count reaches 2^16 (the
-    pack would corrupt it: callers fall back to [M, 3])."""
-    bc = bc[:total].to(torch.int64)
-    if total and int(bc.max()) >= _PACK_COUNT_LIMIT:
-        return None
-    packed = (
-        (bi[:total].to(torch.int64) << _PACK_I_SHIFT)
-        | (bj[:total].to(torch.int64) << _PACK_J_SHIFT)
-        | bc
-    )
-    return torch.sort(packed).values.cpu().numpy()
-
-
-def unpack_pairs(packed: np.ndarray) -> np.ndarray:
-    """Decode a packed int64 pair list to the canonical [M, 3] int32
-    matrix."""
-    out = np.empty((len(packed), 3), np.int32)
-    out[:, 0] = packed >> _PACK_I_SHIFT
-    out[:, 1] = (packed >> _PACK_J_SHIFT) & _PACK_FIELD_MASK
-    out[:, 2] = packed & (_PACK_COUNT_LIMIT - 1)
-    return out
-
-
-def pairs_as_array(pairs: np.ndarray) -> np.ndarray:
-    """Canonical [M, 3] int32 view of either pair-list format (packed
-    int64 [M] or already [M, 3])."""
-    return unpack_pairs(pairs) if pairs.ndim == 1 else pairs
-
-
-def packed_key(i: int, j: int) -> int:
-    """Packed value of pair (i, j) with count 0: the ``searchsorted``
-    lower bound of the pair in a sorted packed list (a stored pair's
-    value lies in [key, key + 2^16))."""
-    return (int(i) << _PACK_I_SHIFT) | (int(j) << _PACK_J_SHIFT)
-
-
-def packed_pair(v) -> tuple:
-    """Decode one packed int64 to (i, j, count)."""
-    v = int(v)
-    return (
-        v >> _PACK_I_SHIFT,
-        (v >> _PACK_J_SHIFT) & _PACK_FIELD_MASK,
-        v & (_PACK_COUNT_LIMIT - 1),
-    )
-
-
-def _sorted_pairs(gi, gj, cnt):
-    """Device sort of (i, j, count) by (i, j) -> int32 [M, 3]; sentinel
-    slots of pair buffers sort to the tail."""
-    order = torch.argsort((gi.to(torch.int64) << 32) | gj.to(torch.int64))
-    return torch.stack(
-        [x[order].to(torch.int32) for x in (gi, gj, cnt)], dim=1)
-
-
-def _fetch_sorted_pairs(bi, bj, bc, total: int, pair_format: str,
-                        n_rows: int) -> np.ndarray:
-    """Sort and fetch the pair list from compacted global buffers whose
-    first ``total`` slots are the survivors (the appends keep them a
-    prefix). ``pair_format="packed"`` fetches the packed int64 layout when
-    the ranges fit (row indices bounded by ``n_rows``, counts checked on
-    the device), else int32 [M, 3]."""
-    if pair_format == "packed" and n_rows < _PACK_ROW_LIMIT:
-        arr = _pack_sort_fetch(bi, bj, bc, total)
-        if arr is not None:
-            return arr
-    return _sorted_pairs(bi[:total], bj[:total], bc[:total]).cpu().numpy()
-
-
-def _vcap_bucket(total: int, space: Optional[int] = None) -> int:
-    """Bucketed pair-buffer capacity for an exact survivor count, the JAX
-    package's rule (it enters the stream engine's budget, so both packages
-    block alike). ``space`` caps the bucket at the candidate space."""
-    g = 1 << 17 if total >= 1 << 17 else 1 << 14
-    vcap = max(1, (total + g - 1) // g * g)
-    if space is not None:
-        vcap = max(1, min(space, vcap))
-    return vcap
-
-
-def _finalize_pairs(buffers, expected_total: int, pair_format: str = "arr3",
-                    n_rows: int = 0) -> np.ndarray:
-    """Read the cursor (the one synchronisation), raise when the compacted
-    count disagrees with the sweep's exact tile hits (a capacity fault
-    must never truncate), then sort and fetch exactly ``expected_total``
-    rows. ``pair_format="packed"`` needs ``n_rows``, the row-index bound."""
+def _fetch(buffers, total: int) -> np.ndarray:
+    """The in-core fetch: the cursor check, then the (i, j) sort of the
+    first ``total`` slots on the device and one copy to the host."""
     bi, bj, bc, cursor = buffers
-    count = int(cursor)
-    if count != expected_total:
-        raise AssertionError(
-            f"extraction compacted {count} pairs, sweep stats promised "
-            f"{expected_total}"
-        )
-    if not n_rows:
-        pair_format = "arr3"
-    return _fetch_sorted_pairs(bi, bj, bc, expected_total, pair_format,
-                               n_rows)
+    check_cursor(cursor, total)
+    return _sorted_pairs(bi[:total], bj[:total], bc[:total]).cpu().numpy()
 
 
 def _tile_runs(ti: np.ndarray, tj: np.ndarray):
@@ -310,18 +188,6 @@ def _window_rows(n_pad: int, tile: int, k_bits: int) -> int:
         if n_pad % rows == 0 and rows * k_bits <= _UNPACK_WINDOW_BYTES:
             best = rows
     return best
-
-
-def _hit_tiles(tile_hits, cross_amr_only: bool):
-    """The rows of ``tile_hits`` whose tile holds a survivor, and the
-    exact number of survivors: the cross lane, plus the same-class lane
-    with the AMR gate off."""
-    tile_hits = np.asarray(tile_hits)
-    hits = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        hits += tile_hits[:, 1]
-    hit = np.nonzero(hits)[0]
-    return hit, int(hits[hit].sum())
 
 
 def _pass2_plan(words, classes, weights, hti, htj, tile: int):
@@ -369,7 +235,9 @@ def extract_pairs(
     sweep's K1 appended are sorted and fetched once when they fit the
     buffers, and nothing is recomputed; the cursor counts every survivor,
     so more than the buffers hold shows, and pass 2 runs instead.
-    Pass 2 recomputes the hit tiles: with ``weights`` (int8 [W*32]) the
+    Pass 2 recomputes the hit tiles and appends each product's survivors
+    to fresh pair buffers (``ops.pairlist.append_rows``), with no host
+    wait before the fetch: with ``weights`` (int8 [W*32]) the
     recovered values are the weighted scores; the bit matrix is unpacked
     in row windows of at most ``_UNPACK_WINDOW_BYTES`` (the whole matrix
     when it fits: 2.6 GB for the 10,619-protein corpus). Returns int32
@@ -381,7 +249,9 @@ def extract_pairs(
     trace = _new_trace() if trace is None else trace
     with span("extract.plan"):
         ti, tj, tile = tiles
-        hit_tiles, total = _hit_tiles(tile_hits, cross_amr_only)
+        hits = tile_survivors(tile_hits, cross_amr_only)
+        hit_tiles = np.nonzero(hits)[0]
+        total = int(hits.sum())
         trace["hit_tiles"] += len(hit_tiles)
         found = 0 if appended is None else int(appended[3])
         trace["epilogue_pairs"] += found
@@ -391,12 +261,15 @@ def extract_pairs(
         if not fetch:
             classes, weights, window, nwin, hti, htj, group = _pass2_plan(
                 words, classes, weights, ti[hit_tiles], tj[hit_tiles], tile)
+            # a product is at most N_pad columns wide
+            buffers = new_pair_buffers(
+                vcap_bucket(total) + append_window(words.shape[0]),
+                words.device)
     if fetch:
         with span("extract.fetch"):
             trace["extract_syncs"] += 1
-            return _finalize_pairs(appended, total)
+            return _fetch(appended, total)
 
-    keys, vals = [], []
     a = b = None
     a_win = b_win = None
     for g in np.unique(group):  # window-row major
@@ -433,22 +306,12 @@ def extract_pairs(
                     classes[j0 : j0 + width], i0, j0, n=n,
                     threshold=threshold, include_same=not cross_amr_only,
                 )
-                r, c = torch.nonzero(mask, as_tuple=True)
-                keys.append((i0 + r, j0 + c))
-                vals.append(counts[r, c])
+                buffers = append_rows(*buffers, mask, counts, i0, j0)
                 trace["extract_products"] += 1
-                trace["extract_syncs"] += 1
     del a, b
     with span("extract.fetch"):
-        gi = torch.cat([k[0] for k in keys])
-        if gi.numel() != total:
-            raise AssertionError(
-                f"extraction compacted {gi.numel()} pairs, sweep stats "
-                f"promised {total}"
-            )
-        gj = torch.cat([k[1] for k in keys])
         trace["extract_syncs"] += 1
-        return _sorted_pairs(gi, gj, torch.cat(vals)).cpu().numpy()
+        return _fetch(buffers, total)
 
 
 def _compact_fused(bi, bj, bc, keep):
@@ -496,9 +359,7 @@ def extract_pairs_fused(
     nb = n_pad // fused.block
 
     tile_hits = np.asarray(tile_hits)
-    h = tile_hits[:, 0].astype(np.int64)
-    if not cross_amr_only:
-        h = h + tile_hits[:, 1]
+    h = tile_survivors(tile_hits, cross_amr_only)
     hm = np.zeros((nb, nb), np.int64)
     hm[ti, tj] = h
     s_axis = np.arange(nbs)
@@ -551,8 +412,7 @@ def extract_pairs_fused(
         return np.zeros((0, 3), dtype=np.int32)
     if len(parts) == 1:
         return parts[0]  # each part arrives sorted by (i, j)
-    pairs = np.concatenate(parts, axis=0)
-    return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    return merge_pairs(*parts)
 
 
 def _pairwise_native(bitset, classes, config, threshold, index=None,
