@@ -104,7 +104,9 @@ csrc`` with nvcc (one process per source, in parallel), then:
    shards all sit on this one card (``make_mesh(devices=[dev] * D)``;
    their launches share one stream, so a ring's time is the sum over its
    shards, not a scaling figure):
-   a. ``run_pipeline(mesh=D4)`` at 30,000 proteins two-pass and with
+   a. ``run_pipeline(mesh=D4)`` at 30,000 proteins with the default
+      extraction (K1 appends on every sub-step; at 30,000 the survivors
+      pass a card's slots, so the second pass runs) and with
       ``extract="fused"``, counters reset before each: K1 once a ring
       sub-step (``parallel.count_substeps``) and no other kernel; pairs
       and parity counters equal to the oracle, component labels equal to
@@ -124,7 +126,23 @@ csrc`` with nvcc (one process per source, in parallel), then:
       D = 1's and to ``sweep_mxu``'s (its rows too at D = 1), extraction
       and the fused pass equal to the oracle, ``doc_freq_psum`` equal to
       the host doc-freqs;
-   e. ``cli run --devices <cards + 1>`` must exit nonzero with JAX's
+   e. K1's survivor append as ``extract="auto"``'s sweep launches it, on
+      the 10,619 D = 4 ring's diagonal strip, plain block pair and
+      wrapped block pair (fake offsets, stored from the
+      sub-step's pair origin, transposed where wrapped), with room for
+      every survivor: stored triples, cursor and untouched slots equal
+      to ``ops.stats.append_survivors_reference``, every pair (min, max)
+      and in the oracle's list with its count, row stats and tile hits
+      equal to K1 without the append; kernel-only and back-to-back times
+      beside K1 without the append, and the needed-bytes bound with 12 B
+      a survivor;
+   f. ``run_pipeline`` at 2,000 proteins (36,380 survivors, within one
+      card's ``EPILOGUE_PAIR_CAP`` slots) on flat D = 4, 2 × 2 and k
+      axis D = 4 with the default extraction: pairs and parity counters
+      equal to the oracle, K1 once a sub-step or strip and no other
+      kernel, and ``parallel.sharded.last_trace`` showing no second pass
+      and ``epilogue_pairs`` = ``pairs``;
+   g. ``cli run --devices <cards + 1>`` must exit nonzero with JAX's
       "requested N devices, only M available" and write nothing; with
       more than one card visible, the 10,619 ring also runs on two
       distinct cards.
@@ -133,8 +151,8 @@ csrc`` with nvcc (one process per source, in parallel), then:
    (``make_mesh_2d(H, C, devices=[dev] * H·C)``, ``make_mesh(devices=
    [dev] * D, axis="k")``):
    a. ``run_pipeline`` at 30,000 proteins on 2 × 2 and on a D = 4 k
-      mesh, two-pass and fused, counters reset before each: K1 once a
-      2-D sub-step (``parallel.count_substeps_2d``) or k-axis strip
+      mesh, auto (as in phase 9) and fused, counters reset before each:
+      K1 once a 2-D sub-step (``parallel.count_substeps_2d``) or k-axis strip
       (``parallel.count_kaxis_strips``) and no other kernel; pairs and
       parity counters equal to the oracle, labels to the union-find's,
       stage seconds, peak device memory under each layout's gate;
@@ -2512,6 +2530,189 @@ def _k1_ring_block(dev, label, words, classes, n, sub, wc, real=False):
     return t
 
 
+def _pair_keys(rows):
+    import numpy as np
+
+    rows = np.asarray(rows, np.int64)
+    return rows[:, 0] * (1 << 32) + rows[:, 1]
+
+
+def _k1_ring_append(dev, label, words, classes, n, sub, wc, want_pairs):
+    """K1's survivor append on one ring sub-step's counts, as the mesh's
+    sweep launches it under ``extract="auto"``: at the ring's fake
+    offsets, storing from the sub-step's pair origin (gi0, gj0),
+    transposed on a wrapped block pair. With room for every survivor it
+    must store what ``append_survivors_reference`` stores (cursor,
+    triples, untouched slots), every pair (min, max) and in the oracle's
+    list ``want_pairs`` with its count, and leave the row stats and tile
+    hits of K1 without the append. Then, in turns, the kernel-only (L2
+    cold; the cursor reset before each launch) and back-to-back times of
+    K1 without and with the append, and the needed-bytes bound of the
+    append's launch (K1's, plus 12 B a survivor and the cursor's 8)."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch.ops import stats
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        new_pair_buffers,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    counts = _ring_counts(words, sub, wc)
+    ca = classes[sub.gi0 : sub.gi0 + sub.rows]
+    cb = classes[sub.gj0 : sub.gj0 + sub.cols]
+    i_off, j_off = sharded.fake_offsets(sub)
+    kw = dict(i_off=i_off, j_off=j_off, n=sharded.FAKE_N,
+              threshold=THRESHOLD)
+    app = dict(include_same=False, pair_origin=(sub.gi0, sub.gj0),
+               transposed=sub.transposed)
+    nbi, nbj = sub.rows // 128, sub.cols // 128
+
+    def fresh():
+        return (torch.empty((sub.rows, 8), dtype=torch.int32, device=dev),
+                torch.zeros((nbi, nbj, 2), dtype=torch.int32, device=dev))
+
+    m = int(stats.survivor_mask(counts, ca, cb, i_off, j_off,
+                                n=sharded.FAKE_N, threshold=THRESHOLD,
+                                include_same=False).sum())
+    ref = new_pair_buffers(m + 7, dev)
+    stats.append_survivors_reference(counts, ca, cb, ref, **kw, **app)
+    room = new_pair_buffers(m + 7, dev)
+    rs, bh = fresh()
+    stats.stats_from_counts_into(counts, ca, cb, rs, bh, tile=128,
+                                 pairs=room, **kw, **app)
+    rs0, bh0 = fresh()
+    stats.stats_from_counts_into(counts, ca, cb, rs0, bh0, tile=128, **kw)
+    torch.cuda.synchronize()
+    want = _sorted_pair_rows(*(t[:m] for t in ref[:3]))
+    got = _sorted_pair_rows(*(t[:m] for t in room[:3]))
+    oracle_keys = _pair_keys(want_pairs)
+    at = np.minimum(np.searchsorted(oracle_keys, _pair_keys(got)),
+                    max(len(want_pairs) - 1, 0))
+    checks = {
+        "survivors": m > 0,
+        "cursor = survivors": int(room[3]) == int(ref[3]) == m,
+        "stored = plain append": np.array_equal(got, want),
+        "unused slots untouched": bool((room[2][m:] == -1).all()),
+        "(min, max)": bool((got[:, 0] < got[:, 1]).all()),
+        "in the oracle's list": bool(
+            np.array_equal(oracle_keys[at], _pair_keys(got))
+            and np.array_equal(np.asarray(want_pairs)[at, 2], got[:, 2])),
+        "row stats and tile hits = K1 without the append": (
+            torch.equal(rs, rs0) and torch.equal(bh, bh0)),
+    }
+    out_rs, out_bh = fresh()
+    timed = new_pair_buffers(24 * m + 1, dev)
+
+    def plain_k1():
+        stats.stats_from_counts_into(counts, ca, cb, out_rs, out_bh,
+                                     tile=128, **kw)
+
+    def append_k1():
+        stats.stats_from_counts_into(counts, ca, cb, out_rs, out_bh,
+                                     tile=128, pairs=timed, **kw, **app)
+
+    def reset():
+        timed[3].zero_()
+
+    plain_ms = kernel_only_ms(plain_k1)
+    ms = kernel_only_ms(append_k1, prepare=reset)
+    plain_call_ms = cuda_ms(plain_k1)
+    reset()
+    call_ms = cuda_ms(append_k1)  # 23 calls: room for every survivor
+    out_ints = sub.rows * 8 + nbi * nbj * 2
+    plain_bound = epilogue_bound_ms(sub.rows, sub.cols, i_off, j_off,
+                                    sharded.FAKE_N, out_ints)
+    bound = epilogue_bound_ms(sub.rows, sub.cols, i_off, j_off,
+                              sharded.FAKE_N, out_ints + 3 * m + 2)
+    print(f"K1's append on the {label} (rows {sub.gi0}.., columns "
+          f"{sub.gj0}.., [{sub.rows}, {sub.cols}], offsets ({i_off}, "
+          f"{j_off}), origin ({sub.gi0}, {sub.gj0}), transposed "
+          f"{sub.transposed}; {m} survivors): {checks}; kernel-only "
+          f"{ms:.4f} ms (L2 cold), bound {bound:.4f} ms (needed bytes), "
+          f"share {bound / ms:.3f}; back-to-back call {call_ms:.4f} ms; "
+          f"without the append kernel-only {plain_ms:.4f} ms, bound "
+          f"{plain_bound:.4f} ms, call {plain_call_ms:.4f} ms "
+          f"({ms / plain_ms:.3f}x)", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"K1's append on the {label} disagrees")
+    return dict(survivors=m, ms=ms, call_ms=call_ms, bound_ms=bound,
+                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                plain_bound_ms=plain_bound)
+
+
+N_FIT = 2000  # a corpus whose survivors fit one card's appended slots
+
+
+def _appended_mesh_runs(dev, tmp):
+    """``run_pipeline`` with the default extraction at ``N_FIT`` proteins
+    on flat D = 4, 2 × 2 and k axis D = 4 meshes of this card: the one
+    pass's appended pairs, with no second pass, against the oracle."""
+    import numpy as np
+    import torch
+
+    from uniprot_kmer_based_clustering_tpu_torch import PipelineConfig
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        EPILOGUE_PAIR_CAP,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        count_kaxis_strips,
+        count_substeps,
+        count_substeps_2d,
+        make_mesh,
+        make_mesh_2d,
+        pad_for_mesh,
+        sharded,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import run_pipeline
+
+    fasta = os.path.join(tmp, f"synth{N_FIT}.fasta")
+    write_fasta(fasta, N_FIT)
+    state = host_state(fasta)
+    want, want_pairs = oracle(state, f"{N_FIT}")
+    if len(want_pairs) > EPILOGUE_PAIR_CAP:
+        raise AssertionError(f"{len(want_pairs)} survivors at {N_FIT} "
+                             f"pass a card's {EPILOGUE_PAIR_CAP} slots")
+    n_pad = pad_for_mesh(state[2].n_pad, 4, 128)
+    meshes = {
+        "flat D=4": (make_mesh(devices=[dev] * 4),
+                     count_substeps(4, n_pad)),
+        "2d 2x2": (make_mesh_2d(2, 2, devices=[dev] * 4),
+                   count_substeps_2d(2, 2, n_pad)),
+        "kaxis D=4": (make_mesh(devices=[dev] * 4, axis="k"),
+                      count_kaxis_strips(4, n_pad)),
+    }
+    out = {}
+    for name, (mesh, steps) in meshes.items():
+        fns = reset_counters()
+        t0 = time.perf_counter()
+        res = run_pipeline(fasta, PipelineConfig(), mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in fns.items()}
+        trace = dict(sharded.last_trace)
+        got = {k: res.parity_report()[k] for k in want}
+        checks = {
+            "pairs = oracle": np.array_equal(res.pairwise.pairs,
+                                             want_pairs),
+            "parity = oracle": got == want,
+            "launches": launches == {"K1": steps, "K2": 0, "K3": 0,
+                                     "K4": 0},
+            "one pass": trace["substeps"] == steps,
+            "second_passes 0": trace["second_passes"] == 0,
+            "epilogue_pairs = pairs": (trace["epilogue_pairs"]
+                                       == trace["pairs"]
+                                       == len(want_pairs)),
+        }
+        print(f"run_pipeline(mesh={name}) auto at {N_FIT} proteins: "
+              f"{wall:.3f} s; launches {launches}; trace {trace}; checks "
+              f"{checks}", flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"auto at {N_FIT} on {name}: {checks}")
+        out[name] = dict(wall=wall, trace=trace)
+    return out
+
+
 def _doc_freq_inputs(dev, table, multiple):
     """Window codes and validity [N', L-4] of the corpus on the card, rows
     padded to a multiple of ``multiple`` with invalid windows."""
@@ -2602,7 +2803,7 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
     want_launches = {"K1": steps30, "K2": 0, "K3": 0, "K4": 0}
     runs = {}
     for name, cfg in (
-        ("two-pass", PipelineConfig()),
+        ("auto", PipelineConfig()),
         ("fused", PipelineConfig(extract="fused")),
     ):
         fns = reset_counters()
@@ -2808,9 +3009,32 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
         if not all(checks.values()):
             raise AssertionError(f"10,619 ring at D={d}: {checks}")
         del ws, cs, fused
-    del words10, classes10, codes, valid
+    del codes, valid
 
-    # c. no fallback: --devices 2 where the machine has fewer cards
+    # K1's append on the 10,619 four-shard ring's own sub-steps, as
+    # extract="auto" launches it
+    n_pad4 = pad_for_mesh(bitset10.n_pad, MESH_D, 128)
+    block4 = n_pad4 // MESH_D
+    words4 = torch.zeros((n_pad4, words10.shape[1]), dtype=words10.dtype,
+                         device=dev)
+    words4[: words10.shape[0]] = words10
+    classes4 = classes_to_torch(table10.amr_class_ids, n_pad4, dev)
+    del words10, classes10
+    wc4 = sharded.ring_word_chunk(block4, bitset10.w_pad)
+    appends = {}
+    for label, (s, d) in (
+        ("diagonal strip", (0, 1)),
+        ("plain block pair", (1, 0)),
+        ("wrapped block pair", (1, MESH_D - 1)),
+    ):
+        sub = sharded.ring_substeps(s, MESH_D, d, block4, 128)[0]
+        appends[label] = _k1_ring_append(
+            dev, f"10,619 D={MESH_D} ring's {label}", words4, classes4,
+            n10, sub, wc4, pairs10)
+    del words4, classes4
+    fit = _appended_mesh_runs(dev, tmp)
+
+    # no fallback: --devices 2 where the machine has fewer cards
     out = os.path.join(tmp, "mesh_refused")
     proc = subprocess.run(
         [sys.executable, "-m", f"{PKG}.cli", "run", run30["fasta10"],
@@ -2842,7 +3066,8 @@ def mesh_phase(dev, tmp, state10, pairs10, run30, state30, pairs30, scan_s,
           f"other kernel; {phase_s:.3f} s", flush=True)
     return dict(launches=ring_launches, k1=k1, k1_strip=k1_strip, runs=runs,
                 sweep_s=sweep_s, ext_s=ext_s, fused_s=fused_s,
-                phase_s=phase_s, labels30=labels30)
+                phase_s=phase_s, labels30=labels30, appends=appends,
+                fit=fit)
 
 MESH_2D = (2, 2)  # the 30k 2-D ring: two hosts of two chips, all on one card
 KAXIS_D = 4  # column shards of the 30k k-axis pass, all on one card
@@ -2935,7 +3160,7 @@ def layouts_phase(dev, tmp, state10, pairs10, run30, state30, pairs30,
     runs = {}
     for layout, mesh in meshes.items():
         want_launches = {"K1": steps[layout], "K2": 0, "K3": 0, "K4": 0}
-        for name, cfg in (("two-pass", PipelineConfig()),
+        for name, cfg in (("auto", PipelineConfig()),
                           ("fused", PipelineConfig(extract="fused"))):
             fns = reset_counters()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -4335,8 +4560,8 @@ def smoke() -> int:
                  stream_steps=smesh["launches"]["pipeline"]),
             pairs30, mesh["labels30"],
             {"single 30k": run30["cli30_s"],
-             "flat": mesh["runs"]["two-pass"]["wall"],
-             "2d": lay["runs"]["2d two-pass"]["wall"],
+             "flat": mesh["runs"]["auto"]["wall"],
+             "2d": lay["runs"]["2d auto"]["wall"],
              "stream": smesh["mesh_s"]["pipeline"]}, smi)
         lines = bench_runs(smi)
         bench = benches_phase(lines, run30["want10"], run30["want"],
@@ -4394,6 +4619,10 @@ def smoke() -> int:
             "ring_strip_ms": mesh["k1_strip"]["ms"],
             "ring_strip_plain_ms": mesh["k1_strip"]["plain_ms"],
             "ring_strip_bound_ms": mesh["k1_strip"]["bound_ms"],
+            "ring_append": {k: {f: v[f] for f in ("survivors", "ms",
+                                                  "call_ms", "bound_ms",
+                                                  "plain_ms")}
+                            for k, v in mesh["appends"].items()},
             "stream_mesh_launches": 0,
             "distributed_launches": {c: v["K1"] for c, v
                                      in dph["launches"].items()},

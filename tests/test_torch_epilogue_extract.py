@@ -6,10 +6,11 @@ rows, tile 16.
 
 The route's ``PairwiseResult`` equals ``extract="two_pass"``'s and the
 JAX package's, pair for pair and counter for counter, within the
-buffers' capacity and beyond it (two-pass then); and no other path asks
-K1 for survivors: the scan, the plain epilogue, the popcount engines,
-the stream engine and every mesh layout run K1 and K2 without the
-append.
+buffers' capacity and beyond it (two-pass then); K1 appends on the
+strip schedule and on every mesh layout's sweep (once a sub-step or
+strip; ``tests/test_torch_sharded.py`` holds that route), and no other
+path asks it for survivors: the scan, the plain epilogue, the popcount
+engines and the stream engine run K1 and K2 without the append.
 
 Tolerance: exact equality of the (i, j, count) pair list in (i, j) order
 and of every PairwiseResult field.
@@ -37,6 +38,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops import bitmul as tbm
 from uniprot_kmer_based_clustering_tpu_torch.ops import stats
 from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import pairs_as_array
 from uniprot_kmer_based_clustering_tpu_torch.parallel import mesh as tmesh
+from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded as tsh
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
     _sharded_similarity,
 )
@@ -180,8 +182,11 @@ def _strip_pairs(corpus, **kw):
                              appended=out.pairs)
 
 
+# the mesh's rows: 320 padded to four 128-row tiles
+MESH_N_PAD = tmesh.pad_for_mesh(N_STRIPS * STRIPS["strip"], 4, 128)
 PATHS = {
-    # path: K1 launches that append
+    # path: K1 launches that append (the strip schedule and the mesh
+    # sweeps append; every other path appends nothing)
     "strips": N_STRIPS,
     "word_chunk": N_STRIPS,
     "two_pass": 0,
@@ -190,17 +195,21 @@ PATHS = {
     "popcount": 0,
     "xla": 0,
     "stream": 0,
-    "flat": 0,
-    "2d": 0,
-    "kaxis": 0,
+    # one a sub-step or strip of the mesh's sweep
+    "flat": tsh.count_substeps(4, MESH_N_PAD),
+    "2d": tsh.count_substeps_2d(2, 2, MESH_N_PAD),
+    "kaxis": tsh.count_kaxis_strips(4, MESH_N_PAD),
 }
 
 
 @pytest.mark.parametrize("path", list(PATHS))
 def test_only_the_strip_schedule_appends(corpus, appends, path):
-    """K1 appends on the strip schedule (contraction chunks too, which
-    end in K1) and nowhere else: ``appends`` records every block whose
-    survivors were appended. Each path gives the strip route's pairs."""
+    """K1 appends on the single card's strip schedule (contraction chunks
+    too, which end in K1) and on every mesh layout's sweep, once a strip,
+    sub-step or k-axis strip, and on no other path of the single card:
+    ``appends`` records every block whose survivors were appended. Each
+    path gives the strip route's pairs. (The name is older than the
+    mesh's appends.)"""
     table, index, bitset, _ = corpus
     want = _port(corpus, "none", True, "auto")[0].pairs
     del appends[:]

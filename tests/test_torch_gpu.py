@@ -1317,6 +1317,108 @@ def test_k1_on_a_wrapped_ring_block_matches_reference(cuda):
     assert int(rs[:, 0].sum()) > 0
 
 
+def _ring_substep(shape):
+    """A sub-step of a D = 4 ring over 512 rows (128-row blocks; rows
+    384.. hold proteins): the diagonal strip of the last device, its
+    wrapped block pair (step 1, moving rows 0..), or the first device's
+    plain block pair (step 1)."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    step, dev = {"diagonal": (0, 3), "wrapped": (1, 3),
+                 "plain": (1, 0)}[shape]
+    sub = sharded.ring_substeps(step, 4, dev, 128, 128)[0]
+    assert sub.transposed == (shape == "wrapped")
+    assert sub.triangle == (shape == "diagonal")
+    return sub
+
+
+@pytest.mark.parametrize("include_same", [False, True])
+@pytest.mark.parametrize("shape", ["diagonal", "wrapped", "plain", "strip"])
+def test_k1_appends_at_a_pair_origin(cuda, launched, shape, include_same):
+    """K1's append at a pair origin, plain and transposed, stores what
+    ``append_survivors_reference`` stores: on the ring's diagonal,
+    wrapped and plain sub-steps (fake offsets, n = 2^30, the sub-step's
+    global (gi0, gj0); every pair (min, max)), and on a strip, whose own
+    offsets as the origin store what the launch without one stores."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import sharded
+
+    if shape == "strip":
+        counts, ca, cb, rs, bh, i_off, j_off, kw = _into_case(
+            cuda, "strip6", signed=include_same)
+        origins = [None, (i_off, j_off)]
+        transposed = False
+    else:
+        bs, classes, n = _ring_problem(512)
+        sub = _ring_substep(shape)
+        words = torch.from_numpy(bs.words.view(np.int32)).to(cuda)
+        cls = torch.from_numpy(classes).to(cuda)
+        counts = bitmul.counts_window_pair(
+            words[sub.gi0 : sub.gi0 + sub.rows],
+            words[sub.gj0 : sub.gj0 + sub.cols])
+        ca = cls[sub.gi0 : sub.gi0 + sub.rows]
+        cb = cls[sub.gj0 : sub.gj0 + sub.cols]
+        i_off, j_off = sharded.fake_offsets(sub)
+        kw = dict(n=sharded.FAKE_N, threshold=3, w_thresh=1, tile=128)
+        rs = torch.empty((sub.rows, 8), dtype=torch.int32, device=cuda)
+        bh = torch.zeros((sub.rows // 128 + 1, sub.cols // 128 + 2, 2),
+                         dtype=torch.int32, device=cuda)
+        origins = [(sub.gi0, sub.gj0)]
+        transposed = sub.transposed
+    stored = []
+    for origin in origins:
+        want = pairlist.new_pair_buffers(counts.numel(), cuda)
+        stats.append_survivors_reference(
+            counts, ca, cb, want, i_off=i_off, j_off=j_off, n=kw["n"],
+            threshold=kw["threshold"], include_same=include_same,
+            pair_origin=origin, transposed=transposed)
+        m = int(want[3])
+        got = pairlist.new_pair_buffers(m + 7, cuda)
+        stats.stats_from_counts_into(
+            counts, ca, cb, rs, bh[1:, 2:], i_off=i_off, j_off=j_off,
+            pairs=got, include_same=include_same, pair_origin=origin,
+            transposed=transposed, **kw)
+        torch.cuda.synchronize()
+        assert m > 0 and int(got[3]) == m
+        keys = _pair_keys(*(b[:m] for b in got[:3]))
+        assert np.array_equal(keys, _pair_keys(*(b[:m] for b in want[:3])))
+        assert bool((got[2][m:] == -1).all())
+        if shape != "strip":
+            assert (keys[:, 0] < keys[:, 1]).all()
+        stored.append(keys)
+    assert np.array_equal(stored[0], stored[-1])
+    assert launched == ["ukc_stats_epilogue_append_into"] * len(origins)
+
+
+@pytest.mark.parametrize("layout", ["flat", "2d", "kaxis"])
+def test_appended_ring_on_a_shared_card_matches_one_card(cuda, synth_fasta,
+                                                         launched, layout):
+    """``extract="auto"`` on four shards of one card (flat, 2 × 2, k
+    axis): K1 appends on every sub-step or strip of the one pass (the
+    append entry and nothing else), no second pass runs, and the pair
+    list, counters and clusters equal the one-card pipeline's."""
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        make_mesh,
+        make_mesh_2d,
+        sharded,
+    )
+
+    cfg = PipelineConfig(engine="mxu")
+    one = run_pipeline(synth_fasta, cfg, device=cuda)
+    mesh = (make_mesh_2d(2, 2, devices=[cuda] * 4) if layout == "2d"
+            else make_mesh(devices=[cuda] * 4,
+                           axis="k" if layout == "kaxis" else "p"))
+    del launched[:]
+    got = run_pipeline(synth_fasta, cfg, mesh=mesh)
+    trace = dict(sharded.last_trace)
+    assert launched == ["ukc_stats_epilogue_append_into"] * trace["substeps"]
+    assert trace["second_passes"] == 0
+    assert trace["epilogue_pairs"] == trace["pairs"] == len(
+        one.pairwise.pairs) > 0
+    assert got.parity_report() == one.parity_report()
+    assert np.array_equal(got.pairwise.pairs, one.pairwise.pairs)
+    assert np.array_equal(got.cluster_labels, one.cluster_labels)
+
+
 def test_ring_on_the_card_refuses_tiles_k1_cannot_take(cuda):
     from uniprot_kmer_based_clustering_tpu_torch.parallel import (
         make_mesh,

@@ -143,15 +143,21 @@ def _shifts(parent, n):
     return [("ukc.ring.shift", parent)] * n
 
 
-@pytest.mark.parametrize("extract", ["auto", "fused"])
+@pytest.mark.parametrize("extract", ["auto", "two_pass", "fused"])
 def test_the_ring_spans_nest_as_the_call_tree(job, extract):
     _, spans = _spans(lambda: _on_mesh(job, "flat", extract=extract))
     # D = 4: three ring steps, so two shifts of the words and two of the
-    # classes a pass
+    # classes a pass; auto's extraction is the gather of what K1 appended
+    # during the sweep, two_pass's a second pass
     if extract == "fused":
         want = ([("ukc.ring.stage", None), ("ukc.ring.fused", None)]
                 + _shifts("ukc.ring.fused", 4)
                 + [("ukc.ring.gather", "ukc.ring.fused")])
+    elif extract == "auto":
+        want = ([("ukc.ring.stage", None), ("ukc.ring.sweep", None)]
+                + _shifts("ukc.ring.sweep", 4)
+                + [("ukc.ring.extract", None),
+                   ("ukc.ring.gather", "ukc.ring.extract")])
     else:
         want = ([("ukc.ring.stage", None), ("ukc.ring.sweep", None)]
                 + _shifts("ukc.ring.sweep", 4)
@@ -193,7 +199,7 @@ def _substeps(layout, mesh, n_pad):
     return tsh.count_kaxis_strips(mesh.size, n_pad)
 
 
-@pytest.mark.parametrize("extract", ["auto", "fused"])
+@pytest.mark.parametrize("extract", ["auto", "two_pass", "fused"])
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_last_trace_is_its_closed_forms(job, layout, extract):
     _, pre, ref = job
@@ -203,7 +209,8 @@ def test_last_trace_is_its_closed_forms(job, layout, extract):
     n_pad, w_pad = pre.bitset.n_pad, pre.bitset.w_pad
     assert n_pad == TILE == tmesh.pad_for_mesh(n_pad, 4, 128)
     words, classes = n_pad * w_pad * 4, n_pad * 4
-    passes = 1 if extract == "fused" else 2
+    # auto takes K1's appends: one pass, as fused
+    passes = 2 if extract == "two_pass" else 1
     # the k axis holds the classes whole on every shard
     staged = words + classes * (4 if layout == "kaxis" else 1)
     # every shift moves all four shards' words and classes
@@ -211,7 +218,9 @@ def test_last_trace_is_its_closed_forms(job, layout, extract):
     tiles = {(i // 128, j // 128) for i, j, _ in ref["pairs"]}
     assert t == {"stage_bytes": staged, "shift_bytes": shifted,
                  "substeps": passes * _substeps(layout, mesh, n_pad),
-                 "hit_tiles": len(tiles), "pairs": len(r.pairs)}
+                 "hit_tiles": len(tiles), "pairs": len(r.pairs),
+                 "epilogue_pairs": len(r.pairs) if extract == "auto" else 0,
+                 "second_passes": passes - 1}
     assert len(tiles) > 1
 
 
@@ -231,4 +240,5 @@ def test_last_trace_is_replaced_by_each_call(job):
     assert t == {"stage_bytes": n_pad * w_pad * 4 + n_pad * 4,
                  "shift_bytes": 2 * (n_pad * w_pad * 4 + n_pad * 4),
                  "substeps": tsh.count_substeps(4, n_pad),
-                 "hit_tiles": 0, "pairs": 0}
+                 "hit_tiles": 0, "pairs": 0, "epilogue_pairs": 0,
+                 "second_passes": 0}

@@ -67,10 +67,11 @@ def _jax_sweep(d, weighted=False):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_extract(d):
+def _jax_extract(d, cross_amr_only=True):
     bs, classes, n = _problem(_n_pad(d))
     return jpar.sharded_extract_pairs(
-        jpar.make_mesh(d), bs.words, classes, n, THR, block_tile=128
+        jpar.make_mesh(d), bs.words, classes, n, THR, block_tile=128,
+        cross_amr_only=cross_amr_only,
     )
 
 
@@ -192,6 +193,160 @@ def test_fused_ring_all_pairs_matches_jax():
     _same_sweep(got[:3], want[:3])
     assert np.array_equal(got[3], want[3])
     assert len(got[3]) > len(_jax_extract(2))
+
+
+# What extract="auto" runs on each layout: (layout, D or (H, C))
+AUTO_MESHES = [("flat", 1), ("flat", 2), ("flat", 4), ("2d", (2, 2)),
+               ("kaxis", 4)]
+
+
+def _layout_mesh(layout, shape):
+    if layout == "2d":
+        return tmesh.make_mesh_2d(*shape, device="cpu")
+    return tmesh.make_mesh(shape, axis="k" if layout == "kaxis" else "p",
+                           device="cpu")
+
+
+def _appended_route(layout, shape, gate):
+    """The pipeline's ``extract="auto"`` on a mesh: the layout's sweep
+    with K1's appends, then :func:`sharded_extract_pairs` with what K1
+    appended, checked against the sweep's exact total. Returns (pairs,
+    the job's trace, the buffers K1 appended to)."""
+    bs, classes, n = _problem(1024)
+    mesh = _layout_mesh(layout, shape)
+    sweep = {"flat": tsh.sharded_pairwise_similarity,
+             "2d": tsh.sharded_pairwise_similarity_2d,
+             "kaxis": tsh.sharded_pairwise_similarity_kaxis}[layout]
+    trace = tsh.new_trace()
+    bufs = tsh.new_sweep_pairs(mesh)
+    _, th, _ = sweep(mesh, bs.words, classes, n, THR, trace=trace,
+                     pairs=bufs, cross_amr_only=gate)
+    total = tsh.survivor_total(th, gate, trace)
+    pairs = tsh.sharded_extract_pairs(
+        mesh, bs.words, classes, n, THR, cross_amr_only=gate,
+        cap=max(1 << 18, total), expected_total=total, trace=trace,
+        appended=bufs)
+    return pairs, trace, bufs
+
+
+def _single_device_pairs(gate):
+    """The single-device two-pass extractor on the same problem."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import sweep_mxu
+    from uniprot_kmer_based_clustering_tpu_torch.similarity.pairwise import (
+        extract_pairs,
+    )
+
+    bs, classes, n = _problem(1024)
+    words = torch.from_numpy(bs.words.view(np.int32))
+    _, th, tiles = sweep_mxu(words, classes, n, THR, block=128)
+    return extract_pairs(words, classes, th, tiles, n, THR,
+                         cross_amr_only=gate)
+
+
+@pytest.mark.parametrize("gate", [True, False], ids=["cross", "all"])
+@pytest.mark.parametrize("layout,shape", AUTO_MESHES, ids=str)
+def test_appended_extraction_matches_two_pass_one_device_and_jax(
+        layout, shape, gate):
+    """extract="auto" on every layout takes the survivors K1 appended on
+    the sweep's sub-steps (cross-class, kAppend 1; every class, 2): one
+    pass, no second, and the pair list of the second pass, of the
+    single-device extractor and of the JAX ring."""
+    bs, classes, n = _problem(1024)
+    pairs, trace, _ = _appended_route(layout, shape, gate)
+    want = _jax_extract(4, gate)
+    assert len(want) > 1000
+    assert np.array_equal(pairs, want)
+    two = tsh.sharded_extract_pairs(_layout_mesh(layout, shape), bs.words,
+                                    classes, n, THR, cross_amr_only=gate)
+    assert np.array_equal(two, want)
+    assert np.array_equal(_single_device_pairs(gate), want)
+    assert trace["epilogue_pairs"] == trace["pairs"] == len(want)
+    assert trace["second_passes"] == 0
+    mesh = _layout_mesh(layout, shape)
+    assert trace["substeps"] == (
+        tsh.count_substeps(mesh.size, 1024) if layout == "flat"
+        else tsh.count_substeps_2d(*shape, 1024) if layout == "2d"
+        else tsh.count_kaxis_strips(shape, 1024))
+
+
+@pytest.mark.parametrize("gate", [True, False], ids=["cross", "all"])
+def test_k1_appends_a_ring_substep_at_its_pair_origin(gate):
+    """On every sub-step of the last of four devices (a diagonal strip,
+    block pairs, wrapped ones among them, and split halves), K1's plain
+    version at the ring's fake offsets, handed the sub-step's pair
+    origin, stores exactly the survivors of the plain mask at the real
+    indices, each as (min, max): a wrapped block pair transposed."""
+    from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
+        counts_window_pair,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
+        new_pair_buffers,
+    )
+
+    bs, classes, n = _problem(1024)
+    words = torch.from_numpy(bs.words.view(np.int32))
+    cls = torch.from_numpy(classes)
+    subs = [s for step in tsh.ring_schedule(4, 256, 128) for s in step[3]]
+    assert any(s.transposed for s in subs)
+    assert any(s.triangle for s in subs)
+    for s in subs:
+        ia = np.arange(s.gi0, s.gi0 + s.rows)
+        ja = np.arange(s.gj0, s.gj0 + s.cols)
+        counts = counts_window_pair(words[ia], words[ja])
+        i_off, j_off = tsh.fake_offsets(s)
+        bufs = new_pair_buffers(s.rows * s.cols, "cpu")
+        tstats.stats_from_counts_into(
+            counts, cls[ia], cls[ja],
+            torch.empty((s.rows, 8), dtype=torch.int32),
+            torch.zeros((s.rows // 128, s.cols // 128, 2), dtype=torch.int32),
+            i_off=i_off, j_off=j_off, n=tsh.FAKE_N, threshold=THR, tile=128,
+            pairs=bufs, include_same=not gate, pair_origin=(s.gi0, s.gj0),
+            transposed=s.transposed)
+        gi, gj = torch.from_numpy(ia)[:, None], torch.from_numpy(ja)[None]
+        keep = (gi < n) & (gj < n) & (counts > THR)
+        if s.triangle:
+            keep &= gi < gj
+        if gate:
+            keep &= cls[ia][:, None] != cls[ja][None, :]
+        r, c = torch.nonzero(keep, as_tuple=True)
+        lo = torch.minimum(gi[r, 0], gj[0, c])
+        hi = torch.maximum(gi[r, 0], gj[0, c])
+        want = np.stack([lo.numpy(), hi.numpy(), counts[r, c].numpy()], 1)
+        m = int(bufs[3])
+        got = np.stack([b[:m].numpy() for b in bufs[:3]], 1)
+        assert m == len(want)
+        assert np.array_equal(got[np.lexsort((got[:, 1], got[:, 0]))],
+                              want[np.lexsort((want[:, 1], want[:, 0]))])
+        assert (got[:, 0] < got[:, 1]).all()
+
+
+@pytest.mark.parametrize("layout,shape", AUTO_MESHES[2:], ids=str)
+def test_appended_extraction_past_a_cards_slots_takes_the_second_pass(
+        layout, shape, monkeypatch):
+    """With fewer slots a card than its survivors, the cursors still
+    count them all, the second pass runs once, sized from the sweep's
+    exact total, and the pair list does not change."""
+    monkeypatch.setattr(tsh, "EPILOGUE_PAIR_CAP", 64)
+    pairs, trace, bufs = _appended_route(layout, shape, True)
+    assert all(b is None or b[0].numel() == 64 for b in bufs)
+    assert np.array_equal(pairs, _jax_extract(4))
+    assert trace["second_passes"] == 1
+    assert trace["epilogue_pairs"] == trace["pairs"] == len(pairs) > 64
+
+
+def test_appended_extraction_raises_when_the_cursors_disagree():
+    """Within the slots, a cursor sum other than the sweep's exact total
+    raises: the list is never truncated or padded."""
+    bs, classes, n = _problem(1024)
+    mesh = _layout_mesh("flat", 4)
+    bufs = tsh.new_sweep_pairs(mesh)
+    _, th, _ = tsh.sharded_pairwise_similarity(mesh, bs.words, classes, n,
+                                               THR, pairs=bufs)
+    total = tsh.survivor_total(th, True)
+    bufs[1][3].sub_(1)
+    with pytest.raises(AssertionError, match="sweep stats promised"):
+        tsh.sharded_extract_pairs(mesh, bs.words, classes, n, THR,
+                                  expected_total=total, appended=bufs)
 
 
 def _csr_case():

@@ -83,7 +83,11 @@ class PipelineConfig:
                                     #   the survivors the K1 epilogue
                                     #   appended during the sweep, with
                                     #   two_pass beyond their capacity;
-                                    #   auto elsewhere = two_pass.
+                                    #   so does auto on every mesh layout
+                                    #   (two_pass where a card's survivors
+                                    #   pass its capacity); auto on the
+                                    #   scan and the popcount engines =
+                                    #   two_pass.
                                     #   Bit-identical outputs.
     extract_k: int = 0              # extraction capacity knob; the meaning
                                     #   depends on `extract` (the two differ

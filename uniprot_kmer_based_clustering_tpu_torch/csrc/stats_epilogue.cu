@@ -85,6 +85,13 @@
 //     element slot of such a group, took 1.4 to 1.8 times on the strips
 //     that hold those rows; marking survivors on every count cost 12-17%
 //     on the strips that hold few.
+//   * where a survivor is stored: the mask offsets (i_off, j_off, n) decide
+//     only which lanes count. The pair stored for local (r, c) is
+//     (pi0 + r, pj0 + c), or (pj0 + c, pi0 + r) when transposed, from the
+//     pair origin (pi0, pj0) the caller passes: a strip passes its own
+//     offsets; a ring sub-step, launched at fake offsets, passes the real
+//     global position of its block pair, transposed where the moving rows
+//     lie below the stationary ones, so every pair is stored (min, max).
 //   * capacity and exactness: only slots below cap are stored, but the
 //     cursor counts every survivor, so an overflow shows exactly. The
 //     caller compares the cursor with the sweep's own tile hits, the exact
@@ -122,8 +129,10 @@ struct Args {
   unsigned* hits;     // hit (ti, tj, lane) at ti * hits_ld + tj * 2 + lane
   long long hits_ld;
   int win;            // columns staged a window, a multiple of the chunk
-  // survivor append (kAppend): buffers [cap] and their slot cursor
+  // survivor append (kAppend): buffers [cap] and their slot cursor; the
+  // pair origin and orientation of what is stored
   int include_same;
+  int pi0, pj0, transposed;
   int* pair_i;
   int* pair_j;
   int* pair_c;
@@ -255,20 +264,26 @@ __device__ __forceinline__ void load_group(Lanes<kVec> (&g)[kAhead],
   }
 }
 
+// Store survivor (gi, gj, x) at slot, as (gj, gi, x) when transposed; a
+// slot at or past cap is not stored.
+__device__ __forceinline__ void store_pair(const Args& a,
+                                           unsigned long long slot, int gi,
+                                           int gj, int x) {
+  if (slot < static_cast<unsigned long long>(a.cap)) {
+    a.pair_i[slot] = a.transposed ? gj : gi;
+    a.pair_j[slot] = a.transposed ? gi : gj;
+    a.pair_c[slot] = x;
+  }
+}
+
 // Store a warp's staged survivors at the slots from base on, those below
 // cap. Every lane of the warp calls.
 __device__ __forceinline__ void store_stage(const Args& a, const int* stage,
                                             unsigned staged,
                                             unsigned long long base, int gi,
                                             int lane) {
-  for (unsigned q = lane; q < staged; q += 32) {
-    const unsigned long long slot = base + q;
-    if (slot < static_cast<unsigned long long>(a.cap)) {
-      a.pair_i[slot] = gi;
-      a.pair_j[slot] = stage[2 * q];
-      a.pair_c[slot] = stage[2 * q + 1];
-    }
-  }
+  for (unsigned q = lane; q < staged; q += 32)
+    store_pair(a, base + q, gi, stage[2 * q], stage[2 * q + 1]);
 }
 
 // Append a warp's staged survivors: one atomicAdd on the cursor for their
@@ -298,7 +313,8 @@ __device__ __forceinline__ int pick(const Lanes<kVec> (&x)[kAhead], int q) {
 
 // Stage the survivors of a group of kAhead chunks that holds some: bit
 // k * kVec + e of the lane's svm marks its count x[k].at(e), at local column
-// c + k * 32 * kVec + lane * kVec + e of row gi. A group with more than a
+// c + k * 32 * kVec + lane * kVec + e, stored at column pj0 + that of pair
+// row gi. A group with more than a
 // stage holds takes its slots at once and stores them straight into the
 // buffers. Every lane of the warp calls.
 template <int kVec>
@@ -323,7 +339,7 @@ __device__ __forceinline__ void stage_survivors(
     total = __shfl_sync(all, upto, 31);
     at = upto - mine;
   }
-  const int gj = a.j_off + c + lane * kVec;
+  const int gj = a.pj0 + c + lane * kVec;
   if (staged + total > kStage) flush_stage(a, stage, staged, gi, lane);
   if (total > kStage) {
     unsigned long long base = 0ull;
@@ -332,11 +348,8 @@ __device__ __forceinline__ void stage_survivors(
     base = __shfl_sync(all, base, 0) + at;
     for (unsigned bits = svm; bits; bits &= bits - 1u, ++base) {
       const int q = __ffs(bits) - 1;
-      if (base < static_cast<unsigned long long>(a.cap)) {
-        a.pair_i[base] = gi;
-        a.pair_j[base] = gj + q / kVec * 32 * kVec + q % kVec;
-        a.pair_c[base] = pick<kVec>(x, q);
-      }
+      store_pair(a, base, gi, gj + q / kVec * 32 * kVec + q % kVec,
+                 pick<kVec>(x, q));
     }
     __syncwarp();
     return;
@@ -453,7 +466,7 @@ stats_epilogue_kernel(const Args a) {
       }
       if constexpr (kAppend != 0) {
         if (__ballot_sync(0xffffffffu, svm))  // one ballot a group
-          stage_survivors<kVec>(a, cur, svm, c, stage, staged, a.i_off + r,
+          stage_survivors<kVec>(a, cur, svm, c, stage, staged, a.pi0 + r,
                                 lane);
       }
     }
@@ -488,7 +501,7 @@ stats_epilogue_kernel(const Args a) {
   if constexpr (kAppend != 0) {
     if (staged)
       store_stage(a, stage, staged, __shfl_sync(0xffffffffu, base, 0),
-                  a.i_off + r, lane);
+                  a.pi0 + r, lane);
   }
 }
 
@@ -552,6 +565,7 @@ Args make_args(const void* counts, long long ld, int s, int j,
   a.hits_ld = hits_ld;
   a.win = 0;
   a.include_same = 0;
+  a.pi0 = a.pj0 = a.transposed = 0;
   a.pair_i = a.pair_j = a.pair_c = nullptr;
   a.cursor = nullptr;
   a.cap = 0;
@@ -594,14 +608,17 @@ extern "C" int ukc_stats_epilogue_traced_into(
 }
 
 // K1 into a strip that also appends its survivors (see the header): pair_i,
-// pair_j, pair_c int32 [cap] take (gi, gj, count) at the slots the int64
-// cursor hands out; the cursor advances by every survivor, stored or not.
+// pair_j, pair_c int32 [cap] take (pi0 + r, pj0 + c, count) for the
+// survivor at local (r, c), (pj0 + c, pi0 + r, count) when transposed is
+// nonzero, at the slots the int64 cursor hands out; the cursor advances by
+// every survivor, stored or not.
 extern "C" int ukc_stats_epilogue_append_into(
     const void* counts, long long ld, int s, int j, const void* classes_row,
     const void* classes_col, int tile, int i_off, int j_off, int n,
     int threshold, int w_thresh, void* row_stats, void* block_hits,
     long long hits_ld, int include_same, void* pair_i, void* pair_j,
-    void* pair_c, void* cursor, long long cap, void* stream) {
+    void* pair_c, void* cursor, long long cap, int pi0, int pj0,
+    int transposed, void* stream) {
   Args a = make_args(counts, ld, s, j, classes_row, classes_col, tile, i_off,
                      j_off, n, threshold, w_thresh, row_stats, block_hits,
                      hits_ld);
@@ -611,5 +628,8 @@ extern "C" int ukc_stats_epilogue_append_into(
   a.pair_c = static_cast<int*>(pair_c);
   a.cursor = static_cast<unsigned long long*>(cursor);
   a.cap = cap;
+  a.pi0 = pi0;
+  a.pj0 = pj0;
+  a.transposed = transposed;
   return launch(a, false, stream);
 }

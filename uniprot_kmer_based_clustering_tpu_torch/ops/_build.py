@@ -42,8 +42,8 @@ _L = ctypes.c_longlong
 # block_hits, hits_ld, stream
 _STATS_INTO = [_P, _L, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _L, _P]
 # K1 with survivor buffers: before the stream, include_same, pair_i,
-# pair_j, pair_c, cursor, cap
-_STATS_APPEND = _STATS_INTO[:-1] + [_I, _P, _P, _P, _P, _L, _P]
+# pair_j, pair_c, cursor, cap, and the pair origin pi0, pj0, transposed
+_STATS_APPEND = _STATS_INTO[:-1] + [_I, _P, _P, _P, _P, _L, _I, _I, _I, _P]
 # C signature of every exported entry point (all return int: cudaError_t)
 _SIGNATURES = {
     "ukc_stats_epilogue_into": _STATS_INTO,

@@ -40,9 +40,10 @@ import torch
 #: Sentinel of the i and j slots no pair occupies.
 IMAX = np.int32(np.iinfo(np.int32).max)
 
-#: Slots of the pair buffers K1 appends to on the strip schedule
-#: (786,432 bytes): over 100 times the pairs of the 10,619-protein AMR
-#: corpus. More survivors than this take two-pass extraction.
+#: Slots of the pair buffers K1 appends to on the strip schedule, and on
+#: each card of a mesh's appending sweep (786,432 bytes): over 100 times
+#: the pairs of the 10,619-protein AMR corpus. More survivors than this
+#: (on one card) take two-pass extraction.
 EPILOGUE_PAIR_CAP = 1 << 16
 
 #: Lanes of one windowed append (its sort temporaries and the buffers'

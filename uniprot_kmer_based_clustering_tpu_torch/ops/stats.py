@@ -201,13 +201,18 @@ def survivor_mask(counts, ca, cb, i0: int, j0: int, *, n: int,
 
 def append_survivors_reference(counts, classes_row, classes_col, pairs, *,
                                i_off: int, j_off: int, n: int,
-                               threshold: int, include_same: bool):
-    """Plain form of K1's survivor append: the (gi, gj, count) of every
-    survivor of :func:`survivor_mask` into ``pairs`` = (bi, bj, bc,
-    cursor; the format of ``ops.pairlist``), at the slots from the cursor
-    on; slots past the buffers' length are not stored, but the cursor
-    advances by every survivor, as the kernel's does. Returns ``pairs``."""
+                               threshold: int, include_same: bool,
+                               pair_origin=None, transposed: bool = False):
+    """Plain form of K1's survivor append: every survivor of
+    :func:`survivor_mask` at the mask offsets (i_off, j_off, n) into
+    ``pairs`` = (bi, bj, bc, cursor; the format of ``ops.pairlist``), at
+    the slots from the cursor on; slots past the buffers' length are not
+    stored, but the cursor advances by every survivor, as the kernel's
+    does. The survivor at local (r, c) is stored as (pi0 + r, pj0 + c,
+    count) from ``pair_origin`` = (pi0, pj0) (None: the offsets), as
+    (pj0 + c, pi0 + r, count) when ``transposed``. Returns ``pairs``."""
     bi, bj, bc, cursor = pairs
+    pi0, pj0 = (i_off, j_off) if pair_origin is None else pair_origin
     dev = counts.device
     ca = torch.as_tensor(classes_row, dtype=torch.int32, device=dev)
     cb = torch.as_tensor(classes_col, dtype=torch.int32, device=dev)
@@ -219,8 +224,11 @@ def append_survivors_reference(counts, classes_row, classes_col, pairs, *,
     start = int(cursor)
     room = max(0, min(r.numel(), bi.numel() - start))
     r, c, found = r[:room], c[:room], r.numel()
-    bi[start : start + room] = i_off + r
-    bj[start : start + room] = j_off + c
+    gi, gj = pi0 + r, pj0 + c
+    if transposed:
+        gi, gj = gj, gi
+    bi[start : start + room] = gi
+    bj[start : start + room] = gj
     bc[start : start + room] = counts[r, c]
     cursor += found
     return pairs
@@ -270,12 +278,14 @@ def stats_from_counts_into_reference(counts, classes_row, classes_col,
                                      row_stats, block_hits, *, i_off: int,
                                      j_off: int, n: int, threshold: int,
                                      w_thresh: int = 1, tile: int = 512,
-                                     pairs=None, include_same: bool = False):
+                                     pairs=None, include_same: bool = False,
+                                     pair_origin=None,
+                                     transposed: bool = False):
     """Plain K1 into a strip: ``row_stats`` [S, 8] ← the block's row
     stats; ``block_hits[:S/tile, :J/tile] +=`` its tile hits (the tiles
     wholly below the diagonal add 0); with ``pairs`` its survivors
-    appended by :func:`append_survivors_reference`. Returns (row_stats,
-    block_hits)."""
+    appended by :func:`append_survivors_reference` at ``pair_origin``,
+    ``transposed``. Returns (row_stats, block_hits)."""
     rs, bh = stats_from_counts_traced_reference(
         counts, classes_row, classes_col, i_off, j_off, n=n,
         threshold=threshold, w_thresh=w_thresh, tile=tile,
@@ -286,6 +296,7 @@ def stats_from_counts_into_reference(counts, classes_row, classes_col,
         append_survivors_reference(
             counts, classes_row, classes_col, pairs, i_off=i_off,
             j_off=j_off, n=n, threshold=threshold, include_same=include_same,
+            pair_origin=pair_origin, transposed=transposed,
         )
     return row_stats, block_hits
 
@@ -400,7 +411,8 @@ def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
                            block_hits, *, i_off: int, j_off: int, n: int,
                            threshold: int, w_thresh: int = 1,
                            tile: int = 512, pairs=None,
-                           include_same: bool = False):
+                           include_same: bool = False, pair_origin=None,
+                           transposed: bool = False):
     """K1 into a strip: the statistics of the counts block [S, J] at
     global offset (i_off, j_off), written into the caller's buffers.
 
@@ -411,9 +423,15 @@ def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
     sweep's dense [nb, nb, 2] from tile (i_off/tile, j_off/tile) on).
     With ``pairs`` (bi, bj, bc, cursor: ``ops.pairlist.
     new_pair_buffers``) the block's survivors (:func:`survivor_mask`,
-    same-class ones too with ``include_same``) are appended as
-    (gi, gj, count) behind the cursor, which advances by each of them
-    even past the buffers' capacity. Raises
+    same-class ones too with ``include_same``) are appended behind the
+    cursor, which advances by each of them even past the buffers'
+    capacity. The offsets decide only which lanes survive; the survivor
+    at local (r, c) is stored as (pi0 + r, pj0 + c, count) from
+    ``pair_origin`` = (pi0, pj0) (None: the offsets, as the strip sweep
+    stores), or as (pj0 + c, pi0 + r, count) when ``transposed`` (a ring
+    sub-step, launched at fake offsets, stores at its block pair's real
+    position, transposed where its moving rows lie below its stationary
+    ones). Raises
     ``ValueError`` where a tile row keeps no tile, as the tile walk does.
     CPU tensors take :func:`stats_from_counts_into_reference`; CUDA
     tensors launch the kernel, counted in
@@ -429,14 +447,16 @@ def stats_from_counts_into(counts, classes_row, classes_col, row_stats,
         return stats_from_counts_into_reference(
             counts, classes_row, classes_col, row_stats, block_hits,
             i_off=i_off, j_off=j_off, pairs=pairs,
-            include_same=include_same, **kw,
+            include_same=include_same, pair_origin=pair_origin,
+            transposed=transposed, **kw,
         )
     if pairs is None:
         _launch("ukc_stats_epilogue_into", counts, classes_row,
                 classes_col, row_stats, block_hits, i_off, j_off, **kw)
     else:
+        pi0, pj0 = (i_off, j_off) if pair_origin is None else pair_origin
         append = (int(include_same), *(t.data_ptr() for t in pairs),
-                  pairs[0].numel())
+                  pairs[0].numel(), int(pi0), int(pj0), int(transposed))
         _launch("ukc_stats_epilogue_append_into", counts, classes_row,
                 classes_col, row_stats, block_hits, i_off, j_off,
                 append=append, **kw)

@@ -48,11 +48,17 @@ diagonal strips' in-block triangle, ``(0, rows)`` makes every pair of a
 block pair valid, and ``n = 2^30`` lifts the bound. Rows at and past the
 real ``n`` must therefore be all-zero (the pipeline pads them so, and the
 staging checks it): they then add 0 to every lane and never pass a gate.
-The extraction masks its survivors with the same offsets
-(``ops.bitmul.survivor_mask``) and appends them at their real global
-indices, transposed on a wrapped block so every pair is (min, max),
-with the stream engine's append behind a cursor that stays on the
-device.
+A survivor is stored at its real global indices, transposed on a wrapped
+block so every pair is (min, max), into its card's pair buffers
+(``ops.pairlist``) behind a cursor that stays on the device. An
+appending sweep (:func:`sharded_sweep_async` given ``pairs`` from
+:func:`new_sweep_pairs`, what ``extract="auto"`` runs) has K1 itself
+append the survivors it reads, at the sub-step's pair origin
+``(gi0, gj0)``, so extraction is one gather
+(:func:`sharded_extract_pairs` with ``appended``); the second pass of
+two-pass extraction, and the fused pass, mask them with the same
+offsets (``ops.bitmul.survivor_mask``) and compact them
+(``ops.pairlist.append_rows``).
 
 **The k-axis layout** (JAX ``make_kaxis_sweep``) shards the packed
 matrix's columns, the k-mer universe: device d holds ``[N_pad, W/D]``
@@ -87,7 +93,7 @@ each rank sorts the same pair list. A check that reads only local shards
 is agreed over the ranks, so that all raise together.
 
 **Tracing.** Every pass counts into a :data:`last_trace` dict, and
-``_gather_pairs`` is the span ``ukc.ring.gather`` (``utils.timing``;
+:func:`_gather_pairs` is the span ``ukc.ring.gather`` (``utils.timing``;
 ``ring_shift`` is ``ukc.ring.shift``).
 
 The JAX package builds each pass as a memoised ``make_ring_*`` /
@@ -112,8 +118,10 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
 )
 from uniprot_kmer_based_clustering_tpu_torch.ops.pairlist import (
     APPEND_LANES,
+    EPILOGUE_PAIR_CAP,
     append_rows,
     append_window,
+    check_cursor,
     new_pair_buffers,
     sort_compact_append,
     sorted_pairs,
@@ -160,8 +168,11 @@ KAXIS_STRIP_BYTES = 2 << 30
 #: (the moving words and classes of every ring shift; 0 on the k axis),
 #: ``substeps`` (products: ring sub-steps, or k-axis strips, of every
 #: pass), ``hit_tiles`` (tiles holding a survivor, set by
-#: :func:`survivor_total`) and ``pairs`` (the survivors of the last
-#: gather). A
+#: :func:`survivor_total`), ``pairs`` (the survivors of the last
+#: gather), ``epilogue_pairs`` (the survivors K1 appended during an
+#: appending sweep, summed over the cards; 0 off that route) and
+#: ``second_passes`` (the runs of the schedule for extraction alone, by
+#: :func:`sharded_extract_pairs`). A
 #: caller that hands one :func:`new_trace` dict to its staging and its
 #: passes, as ``pipeline._sharded_similarity`` does, reads the whole
 #: job here. Times are the spans'.
@@ -170,7 +181,14 @@ last_trace: dict = {}
 
 def new_trace() -> dict:
     return dict(stage_bytes=0, shift_bytes=0, substeps=0, hit_tiles=0,
-                pairs=0)
+                pairs=0, epilogue_pairs=0, second_passes=0)
+
+
+def _begin_trace(trace: Optional[dict]) -> dict:
+    """``trace`` (a fresh one when None), made :data:`last_trace`."""
+    global last_trace
+    last_trace = trace = new_trace() if trace is None else trace
+    return trace
 
 
 def _nbytes(shards) -> int:
@@ -193,6 +211,13 @@ class SubStep:
     gi0: int
     gj0: int
     triangle: bool
+
+    @property
+    def transposed(self) -> bool:
+        """A wrapped block pair (moving rows below the stationary ones):
+        its pairs are stored as (column, row), so every pair is
+        (min, max)."""
+        return self.gj0 < self.gi0
 
 
 def diag_strip_bounds(nbl: int, max_strips: int = 8):
@@ -548,8 +573,7 @@ def _stage_inputs(mesh: Mesh, words, classes, weights, n: int,
                   block_tile: int, trace: Optional[dict]) -> _Staged:
     """Staged shards and weights, and the checks every wrapper makes;
     ``trace`` (a fresh one when None) becomes :data:`last_trace`."""
-    global last_trace
-    last_trace = trace = new_trace() if trace is None else trace
+    trace = _begin_trace(trace)
     if block_tile % 32 and any(d.type == "cuda" for d in mesh.devices):
         raise ValueError(
             f"block_tile {block_tile}: on CUDA the mesh layouts take "
@@ -596,7 +620,7 @@ def _compact(bufs, keep, counts, sub: SubStep, *, block_tile: int, k: int):
     more survivors WHOLE, never truncated (the caller sees the shortfall
     against the exact tile hits); ``k`` = 0 appends the whole mask, in
     row windows."""
-    transposed = sub.gj0 < sub.gi0
+    transposed = sub.transposed
     if k > 0:
         m = keep.to(torch.int32)
         qj = keep.shape[1] // block_tile
@@ -619,13 +643,16 @@ def _compact(bufs, keep, counts, sub: SubStep, *, block_tile: int, k: int):
 
 def _substep_outputs(counts, ca, cb, sub: SubStep, i_off: int, j_off: int,
                      n: int, *, threshold: int, block_tile: int, row_stats,
-                     hits, bufs, k: int, cross_amr_only: bool):
+                     hits, bufs, k: int, cross_amr_only: bool, append: bool):
     """What one sub-step's counts feed, the loop body every layout
     shares: with ``row_stats`` one K1 launch at (i_off, j_off, n) (a
     diagonal sub-step stores its rows, which it is the first to reach;
     the others merge theirs) adding its tile hits into ``hits`` at the
-    sub-step's global tiles; with ``bufs`` the survivors, masked at the
-    same offsets, compacted into them. Returns ``bufs``."""
+    sub-step's global tiles; with ``bufs`` the survivors of the same
+    mask, appended by that launch itself under ``append`` (stored from
+    the sub-step's pair origin ``(gi0, gj0)``, transposed on a wrapped
+    block pair), else compacted into them by :func:`_compact`. Returns
+    ``bufs``."""
     if row_stats is not None:
         r0, r1 = sub.r0, sub.r0 + sub.rows
         out = row_stats[r0:r1] if sub.triangle else torch.empty(
@@ -634,11 +661,13 @@ def _substep_outputs(counts, ca, cb, sub: SubStep, i_off: int, j_off: int,
             counts, ca, cb, out,
             hits[sub.gi0 // block_tile:, sub.gj0 // block_tile:],
             i_off=i_off, j_off=j_off, n=n, threshold=threshold,
-            tile=block_tile,
+            tile=block_tile, pairs=bufs if append else None,
+            include_same=not cross_amr_only, pair_origin=(sub.gi0, sub.gj0),
+            transposed=sub.transposed,
         )
         if not sub.triangle:
             merge_row_stats_at(row_stats, out, r0)
-    if bufs is not None:
+    if bufs is not None and not append:
         keep = survivor_mask(
             counts, ca, cb, i_off, j_off, n=n, threshold=threshold,
             include_same=not cross_amr_only,
@@ -696,8 +725,8 @@ def _new_outputs(mesh: Mesh, rows: int, nb: int, *, stats: bool, cap: int,
                  window: int, owners: int):
     """The accumulators of a pass on the first ``owners`` devices (this
     rank's among them; None at the others): row_stats [rows, 8] and hits
-    [nb, nb, 2] with ``stats``, pair buffers of ``cap`` plus one
-    ``window`` of slack with ``cap``; None where unused."""
+    [nb, nb, 2] with ``stats``, pair buffers of ``cap`` plus ``window``
+    slots of slack with ``cap``; None where unused."""
     devs = [dev if d in mesh.local else None
             for d, dev in enumerate(mesh.devices[:owners])]
     row_stats = hits = bufs = None
@@ -713,18 +742,21 @@ def _new_outputs(mesh: Mesh, rows: int, nb: int, *, stats: bool, cap: int,
 
 def _ring_pass(mesh: Mesh, st: _Staged, *, threshold: int,
                block_tile: int, stats: bool, cap: int = 0, k: int = 0,
-               cross_amr_only: bool = True):
+               cross_amr_only: bool = True, pairs=None):
     """One pass of a ring (flat or 2-D) over staged shards. Each sub-step
     multiplies its stationary rows by the moving rows its shard holds and
     feeds :func:`_substep_outputs` at the ring's fake offsets; a rank runs
-    its own shards' sub-steps. Returns (row_stats [block, 8] per shard,
-    hits [nb, nb, 2] per shard, pair buffers per shard); the unused ones
-    are None, as are other ranks' shards."""
+    its own shards' sub-steps. With ``pairs`` (:func:`new_sweep_pairs`)
+    K1 appends into them, in place of ``cap`` buffers and compaction.
+    Returns (row_stats [block, 8] per shard, hits [nb, nb, 2] per shard,
+    pair buffers per shard); the unused ones are None, as are other
+    ranks' shards."""
     block, w_words = st.words[mesh.local[0]].shape
     wc = ring_word_chunk(block, w_words)
     row_stats, hits, bufs = _new_outputs(
         mesh, block, st.n_pad // block_tile, stats=stats, cap=cap,
         window=append_window(block), owners=mesh.size)
+    bufs = bufs if pairs is None else pairs
     for moving_w, moving_c, step in _ring_steps(mesh, st.words, st.classes,
                                                 block, block_tile, st.trace):
         for d in mesh.local:
@@ -745,6 +777,7 @@ def _ring_pass(mesh: Mesh, st: _Staged, *, threshold: int,
                     hits=None if hits is None else hits[d],
                     bufs=None if bufs is None else bufs[d], k=k,
                     cross_amr_only=cross_amr_only,
+                    append=pairs is not None,
                 )
                 if bufs is not None:
                     bufs[d] = out
@@ -754,18 +787,20 @@ def _ring_pass(mesh: Mesh, st: _Staged, *, threshold: int,
 
 def _kaxis_pass(mesh: Mesh, st: _Staged, *, n: int, threshold: int,
                 block_tile: int, stats: bool, cap: int = 0, k: int = 0,
-                cross_amr_only: bool = True):
+                cross_amr_only: bool = True, pairs=None):
     """One k-axis pass (module doc) over staged column shards: each strip's
     partial counts on every device, summed on the first
     (:func:`sum_to_first`), then :func:`_substep_outputs` at the strip's
-    real offsets and ``n``. The outputs live on the first device only
-    (across processes: the sum reaches every rank, and only the first
-    shard's rank runs the outputs). Returns ([row_stats [N_pad, 8]],
-    [hits [nb, nb, 2]], [pair buffers]), the unused ones None."""
+    real offsets and ``n`` (its pair origin too). The outputs live on the
+    first device only (across processes: the sum reaches every rank, and
+    only the first shard's rank runs the outputs); ``pairs`` as for
+    :func:`_ring_pass`. Returns ([row_stats [N_pad, 8]], [hits [nb, nb,
+    2]], [pair buffers]), the unused ones None."""
     n_pad, ws = st.words[mesh.local[0]].shape
     row_stats, hits, bufs = _new_outputs(
         mesh, n_pad, n_pad // block_tile, stats=stats, cap=cap,
         window=append_window(n_pad), owners=1)
+    bufs = bufs if pairs is None else pairs
     cls = st.classes[mesh.local[0]]
     first = mesh.local[0] == 0
     for sub in kaxis_strips(mesh.size, n_pad, block_tile):
@@ -790,7 +825,7 @@ def _kaxis_pass(mesh: Mesh, st: _Staged, *, n: int, threshold: int,
             row_stats=None if row_stats is None else row_stats[0],
             hits=None if hits is None else hits[0],
             bufs=None if bufs is None else bufs[0], k=k,
-            cross_amr_only=cross_amr_only,
+            cross_amr_only=cross_amr_only, append=pairs is not None,
         )
         if bufs is not None:
             bufs[0] = out
@@ -804,6 +839,17 @@ def _pass(mesh: Mesh, st: _Staged, *, n: int, **kw):
     if mesh_layout(mesh) == "kaxis":
         return _kaxis_pass(mesh, st, n=n, **kw)
     return _ring_pass(mesh, st, **kw)
+
+
+def new_sweep_pairs(mesh: Mesh) -> list:
+    """Pair buffers for an appending sweep (the ``pairs`` of
+    :func:`sharded_sweep_async` and the wrappers): :data:`ops.pairlist.
+    EPILOGUE_PAIR_CAP` slots on each card that owns a pass's outputs
+    (every ring shard; the first card on the k axis), with no slack (the
+    kernel stores only below its slots); None at other ranks' cards."""
+    owners = 1 if mesh_layout(mesh) == "kaxis" else mesh.size
+    return _new_outputs(mesh, 0, 0, stats=False, cap=EPILOGUE_PAIR_CAP,
+                        window=0, owners=owners)[2]
 
 
 def _finalize_sweep(mesh: Mesh, row_stats, hits, n_pad: int,
@@ -821,18 +867,19 @@ def _finalize_sweep(mesh: Mesh, row_stats, hits, n_pad: int,
     return rs, tile_hits, (ti, tj, block_tile)
 
 
-def _gather_pairs(mesh: Mesh, bufs, cap: int, trace: dict):
+def _gather_pairs(mesh: Mesh, bufs, cap: int, trace: dict,
+                  per_card: bool = False):
     """Every owner's occupied buffer prefix, concatenated on the first
     device, sorted by (i, j) and fetched: (pairs int32 [M, 3] or None when
-    the pass overflowed ``cap``, the survivor total M). One host read of
-    the cursors. Every rank returns the same; ``trace["pairs"]`` becomes
-    M."""
+    the survivors passed ``cap``, in all or with ``per_card`` on one
+    owner, the survivor total M). One host read of the cursors. Every
+    rank returns the same; ``trace["pairs"]`` becomes M."""
     with span("ring.gather"):
         cursors = gather_to_first([b and b[3].reshape(1) for b in bufs],
                                   mesh)
         counts = [int(c) for c in cursors.cpu()]
         total = trace["pairs"] = sum(counts)
-        if total > cap:
+        if (max(counts) if per_card else total) > cap:
             return None, total
         parts = [[b and b[f][:c] for b, c in zip(bufs, counts)]
                  for f in range(3)]
@@ -857,15 +904,15 @@ def _pairs_from_buffers(arr, m: int, cap: int,
 
 
 def _sweep(mesh: Mesh, layout: str, words, classes, n: int, threshold: int,
-           block_tile: int, weights, trace):
+           block_tile: int, weights, trace, pairs, cross_amr_only: bool):
     if mesh_layout(mesh) != layout:
         raise ValueError(
             f"a {mesh_layout(mesh)} mesh {mesh.axis_names}: this sweep "
             f"takes the {layout} layout"
         )
-    dispatch, finalize = sharded_sweep_async(mesh, words, classes, n,
-                                             threshold, block_tile, weights,
-                                             trace)
+    dispatch, finalize = sharded_sweep_async(
+        mesh, words, classes, n, threshold, block_tile, weights, trace,
+        pairs=pairs, cross_amr_only=cross_amr_only)
     return finalize(dispatch())
 
 
@@ -889,6 +936,8 @@ def sharded_sweep_async(
     block_tile: int = 128,
     weights=None,
     trace: Optional[dict] = None,
+    pairs=None,
+    cross_amr_only: bool = True,
 ):
     """Stage and check the inputs once; return ``(dispatch, finalize)``
     for sweeps of the mesh's own layout (flat, 2-D or k-axis).
@@ -899,12 +948,20 @@ def sharded_sweep_async(
     ``finalize(handles)`` fetches them and returns what
     :func:`sharded_pairwise_similarity` returns. The arguments are its
     (``ops.bitmul.sweep_mxu_async`` is the single-device form); every
-    sweep dispatched counts into ``trace``."""
+    sweep dispatched counts into ``trace``.
+
+    With ``pairs`` (:func:`new_sweep_pairs`) every K1 launch also
+    appends its sub-step's survivors (cross-class only under
+    ``cross_amr_only``, else every class) to its card's buffers there,
+    which then go to :func:`sharded_extract_pairs` as ``appended``; what
+    ``finalize`` returns is the same either way."""
     st = _stage_inputs(mesh, words, classes, weights, n, block_tile, trace)
 
     def dispatch():
         row_stats, hits, _ = _pass(mesh, st, n=n, threshold=threshold,
-                                   block_tile=block_tile, stats=True)
+                                   block_tile=block_tile, stats=True,
+                                   cross_amr_only=cross_amr_only,
+                                   pairs=pairs)
         return row_stats, hits
 
     def finalize(handles):
@@ -922,6 +979,8 @@ def sharded_pairwise_similarity(
     block_tile: int = 128,
     weights=None,
     trace: Optional[dict] = None,
+    pairs=None,
+    cross_amr_only: bool = True,
 ):
     """The flat ring sweep on a mesh: (row_stats np[N_pad, 8] int64,
     tile_hits np[nT, 2], tiles) in the single-chip engine format.
@@ -930,9 +989,11 @@ def sharded_pairwise_similarity(
     the BLOSUM-weighted score. The statistics are K1's on every sub-step
     (the JAX package's ``stats_engine`` choices are bit-identical and not
     carried). The pass counts into ``trace`` (a :data:`last_trace` dict;
-    a fresh one when None), which becomes :data:`last_trace`."""
+    a fresh one when None), which becomes :data:`last_trace`. With
+    ``pairs`` K1 also appends the survivors there
+    (:func:`sharded_sweep_async`)."""
     return _sweep(mesh, "flat", words, classes, n, threshold, block_tile,
-                  weights, trace)
+                  weights, trace, pairs, cross_amr_only)
 
 
 def sharded_pairwise_similarity_2d(
@@ -944,13 +1005,15 @@ def sharded_pairwise_similarity_2d(
     block_tile: int = 128,
     weights=None,
     trace: Optional[dict] = None,
+    pairs=None,
+    cross_amr_only: bool = True,
 ):
     """The hierarchical (hosts × chips) ring sweep on a mesh of two axes
     (``parallel.make_mesh_2d``; its axis names are the host and chip
     axes): as :func:`sharded_pairwise_similarity`, N_pad a multiple of
     H × C × block_tile."""
     return _sweep(mesh, "2d", words, classes, n, threshold, block_tile,
-                  weights, trace)
+                  weights, trace, pairs, cross_amr_only)
 
 
 def sharded_pairwise_similarity_kaxis(
@@ -962,13 +1025,15 @@ def sharded_pairwise_similarity_kaxis(
     block_tile: int = 128,
     weights=None,
     trace: Optional[dict] = None,
+    pairs=None,
+    cross_amr_only: bool = True,
 ):
     """The k-axis sweep on a mesh whose one axis is ``"k"``: the packed
     words column-sharded (W divisible by D), one K1 launch a row strip
     (module doc); output as :func:`sharded_pairwise_similarity`, with the
     row stats credited to the smaller index."""
     return _sweep(mesh, "kaxis", words, classes, n, threshold, block_tile,
-                  weights, trace)
+                  weights, trace, pairs, cross_amr_only)
 
 
 def sharded_extract_pairs(
@@ -984,25 +1049,46 @@ def sharded_extract_pairs(
     tile_cap: Optional[int] = None,
     expected_total: Optional[int] = None,
     trace: Optional[dict] = None,
+    appended=None,
 ):
-    """Mesh-parallel exact pair extraction on any layout: the mesh's
-    schedule once more, compacting survivors into pair buffers — each
-    ring shard into its own (so no device ever holds the whole matrix),
-    the k-axis strips into the first device's — gathered on the first
-    device and sorted by (i, j). Returns int32 [M, 3], equal to the
+    """Mesh-parallel exact pair extraction on any layout, gathered on the
+    first device and sorted by (i, j). Returns int32 [M, 3], equal to the
     single-chip extractor's list on every mesh.
 
-    ``cap`` bounds the GLOBAL survivor count; more raises "overflow".
+    ``appended`` (the buffers an appending sweep appended to,
+    :func:`new_sweep_pairs`; what the pipeline's ``extract="auto"``
+    passes): the survivors K1 appended are gathered, sorted and fetched
+    after one host read of the cursors, and nothing is recomputed. Where
+    no card's cursor passed its slots but their sum differs from
+    ``expected_total`` (the sweep's exact total) it raises, as
+    ``ops.pairlist.check_cursor`` does: the list is never truncated.
+
+    Without ``appended``, or when a card's cursor passed its slots: the
+    second pass, the mesh's schedule once more, compacting survivors into
+    pair buffers — each ring shard into its own (so no device ever holds
+    the whole matrix), the k-axis strips into the first device's. ``cap``
+    bounds the GLOBAL survivor count; more raises "overflow".
     ``tile_cap`` (the densest tile's survivors, from the sweep's tile
     hits) selects per-sub-tile ``torch.topk`` compaction at a width
     bucketed from it: a sub-tile over that width is dropped whole, and
-    ``expected_total`` (the sweep's exact total) turns the shortfall into
-    a raise. None appends the whole mask (what the pipeline runs).
-    ``trace`` as for the sweeps."""
+    ``expected_total`` turns the shortfall into a raise. None appends the
+    whole mask (what the pipeline's second pass runs). ``trace`` as for
+    the sweeps; it gains ``epilogue_pairs`` (the cursors' sum) with
+    ``appended``, and ``second_passes`` counts the second pass."""
+    if appended is not None:
+        trace = _begin_trace(trace)
+        arr, m = _gather_pairs(mesh, appended, EPILOGUE_PAIR_CAP, trace,
+                               per_card=True)
+        trace["epilogue_pairs"] = m
+        if arr is not None:
+            if expected_total is not None:
+                check_cursor(m, expected_total)
+            return arr
     k = 0
     if tile_cap is not None:
         k = bucket_pow2(tile_cap, 128, block_tile * block_tile)
     st = _stage_inputs(mesh, words, classes, weights, n, block_tile, trace)
+    st.trace["second_passes"] += 1
     _, _, bufs = _pass(
         mesh, st, n=n, threshold=threshold, block_tile=block_tile,
         stats=False, cap=cap, k=k, cross_amr_only=cross_amr_only,

@@ -433,17 +433,23 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
     to devices × 128-row tiles with class −1 rows; the matrix staged once
     — built on the devices from the index's incidence lists under
     ``stream_source="csr"`` (packless), else copied from the packed host
-    matrix — then one fused pass, or the layout's sweep and a
-    mesh-parallel extraction sized by the sweep's exact tile hits. Under
-    a profiler the staging, the sweep (its host reads included), the
-    extraction and the fused pass are the spans ``ukc.ring.stage``,
-    ``.sweep``, ``.extract`` and ``.fused``, and
-    ``parallel.sharded.last_trace`` holds the call's counts."""
+    matrix — then one fused pass (``extract="fused"``), or the layout's
+    sweep and the extraction checked against the sweep's exact tile hits:
+    under ``auto`` every sub-step's K1 appends its survivors to its
+    card's pair buffers and extraction gathers them, with the second pass
+    only where a card's survivors pass its slots; under ``two_pass`` the
+    second pass, sized by those tile hits. Under a profiler the staging,
+    the sweep (its appends and host reads included), the extraction (the
+    cursor read, gather, sort and fetch, and any second pass) and the
+    fused pass are the spans ``ukc.ring.stage``, ``.sweep``, ``.extract``
+    and ``.fused``, and ``parallel.sharded.last_trace`` holds the call's
+    counts."""
     from uniprot_kmer_based_clustering_tpu_torch.parallel.mesh import (
         mesh_layout,
         pad_for_mesh,
     )
     from uniprot_kmer_based_clustering_tpu_torch.parallel.sharded import (
+        new_sweep_pairs,
         new_trace,
         sharded_extract_pairs,
         sharded_pairwise_fused,
@@ -523,9 +529,12 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
             row_stats, pairs, cross_amr_only=config.cross_amr_only
         )
     with span("ring.sweep"):
+        appended = (new_sweep_pairs(mesh) if config.extract == "auto"
+                    else None)
         row_stats, tile_hits, _ = sweep(
             mesh, words, classes, bitset.n, threshold, block_tile,
-            weights=weights, trace=trace,
+            weights=weights, trace=trace, pairs=appended,
+            cross_amr_only=config.cross_amr_only,
         )
     total = survivor_total(tile_hits, config.cross_amr_only, trace)
     with span("ring.extract"):
@@ -534,6 +543,7 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
             block_tile=block_tile, weights=weights,
             cross_amr_only=config.cross_amr_only,
             cap=max(1 << 18, total), expected_total=total, trace=trace,
+            appended=appended,
         )
     return PairwiseResult.from_row_stats(
         row_stats, pairs, cross_amr_only=config.cross_amr_only
