@@ -1119,6 +1119,71 @@ def test_device_index_on_card_matches_host(cuda, synth_fasta, k,
                           host.bitset.words)
 
 
+def test_device_index_k7_at_10619_keeps_the_words_on_the_card(cuda,
+                                                             tmp_path):
+    """The ``arg10k.k7dev`` deployment on the card: ``run_pipeline(k=7,
+    index_engine="device")`` on the benchmark's 10,619-protein corpus
+    gives the plain reference's pairs, counters and components, and the
+    job copies the packed words to the host at no point: no
+    device-to-host copy in its trace is as large as the words, and the
+    bitset's host copy is never made."""
+    import json
+    import os
+    import sys
+
+    from uniprot_kmer_based_clustering_tpu_torch.kmers import index_device
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    sys.path.insert(0, bench)
+    import corpus
+    from reference import kmer_pairs
+
+    with open(os.path.join(bench, "configs",
+                           "arg_k7_n10619_devindex.json")) as f:
+        config = json.load(f)
+    seq_buf, offsets, classes = corpus.synth_proteins(config["corpus"],
+                                                      2**31 + 24)
+    fasta = str(tmp_path / "corpus.fasta")
+    corpus.write_fasta(fasta, seq_buf, offsets, classes)
+    cfg = PipelineConfig(**config["pipeline"])
+    assert cfg.k == 7 and cfg.index_engine == "device"
+    run_pipeline(fasta, cfg, device=cuda)  # builds the kernels
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = run_pipeline(fasta, cfg, device=cuda)
+        torch.cuda.synchronize()
+    trace_path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    dtoh = [e["args"]["bytes"] for e in events
+            if e.get("name", "").startswith("Memcpy DtoH")]
+    words_bytes = res.bitset.device_words.nbytes
+    assert words_bytes == index_device.last_trace["words_bytes"] > 0
+    assert dtoh and max(dtoh) < words_bytes // 10
+    assert res.bitset._host_words is None
+    assert tpw.last_trace["upload_bytes"] == res.bitset.n_pad * 4
+    assert index_device.last_trace["host_bytes"] < 60e6
+
+    ref = kmer_pairs.answer(seq_buf, offsets, classes, k=7,
+                            threshold=cfg.threshold,
+                            cross_amr_only=cfg.cross_amr_only,
+                            with_components=True)
+    assert np.array_equal(np.asarray(res.pairwise.pairs, np.int64),
+                          ref["pairs"])
+    got = np.array([getattr(res.pairwise, f)
+                    for f in kmer_pairs.COUNTER_NAMES], np.int64)
+    assert np.array_equal(got, ref["counters"])
+    smallest = np.full(res.table.n, res.table.n, np.int64)
+    np.minimum.at(smallest, res.cluster_labels,
+                  np.arange(res.table.n))
+    assert np.array_equal(smallest[res.cluster_labels], ref["labels"])
+    assert index_device.last_trace["repeated"] == res.bitset.n_bits
+    assert len(ref["pairs"]) > 0
+
+
 def _sw_batch(seed, b=96, lo=20, hi=300, alphabet=21):
     rng = np.random.default_rng(seed)
     lq = rng.integers(lo, hi, b)

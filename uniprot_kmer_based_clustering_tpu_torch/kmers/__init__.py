@@ -14,6 +14,7 @@ from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (  # noqa: F401
 )
 from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (  # noqa: F401
     BitsetMatrix,
+    DeviceBitsetMatrix,
     VirtualBitsetMatrix,
     pack_bitsets,
     pack_bitsets_device,

@@ -17,6 +17,8 @@ The port's own copy of the JAX package's ``kmers/bitset.py``:
 ``state.bitset_to_torch`` carries the words to a torch device, the stream
 engine reads them from the host block by block, and
 :func:`pack_bitsets_device` packs the incidences on the device instead.
+The device index build's bitset (:class:`DeviceBitsetMatrix`) keeps its
+words on the device and fetches a host copy only when one is read.
 """
 
 from __future__ import annotations
@@ -93,6 +95,36 @@ class VirtualBitsetMatrix(BitsetMatrix):
     @property
     def w_pad(self) -> int:
         return self.pad_words
+
+
+class DeviceBitsetMatrix(BitsetMatrix):
+    """A bitset built on a torch device (``kmers/index_device.py``):
+    ``device_words`` is its int32 tensor [N_pad, W_pad] of uint32 bit
+    patterns, which ``state.bitset_to_torch`` hands to the sweep without
+    a copy. ``.words``, the host uint32 matrix, is fetched the first
+    time something reads it (tree and agglomerative clustering, the host
+    engines, dumps) and then kept."""
+
+    def __init__(self, device_words, n: int, n_bits: int):
+        self.device_words = device_words
+        self.n = n
+        self.n_bits = n_bits
+        self._host_words = None
+
+    @property
+    def words(self) -> np.ndarray:
+        if self._host_words is None:
+            self._host_words = (
+                self.device_words.cpu().numpy().view(np.uint32))
+        return self._host_words
+
+    @property
+    def n_pad(self) -> int:
+        return int(self.device_words.shape[0])
+
+    @property
+    def w_pad(self) -> int:
+        return int(self.device_words.shape[1])
 
 
 def _row_bits_impl(bs: BitsetMatrix, i: int) -> np.ndarray:

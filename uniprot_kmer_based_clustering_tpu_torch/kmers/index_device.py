@@ -25,6 +25,13 @@ JAX device build and the host build.
 
 Words come back as int32 tensors holding the uint32 bit patterns (torch's
 uint32 lacks ops); ``numpy().view(np.uint32)`` gives the host layout.
+
+The pipeline's build (:func:`build_device_index`) sends the flat residue
+bytes up, makes the padded residue matrix on the device, and leaves the
+words there (``kmers.bitset.DeviceBitsetMatrix``): only the residues go
+up and only the codes and doc-freqs come down. Under a profiler its phases
+are the spans ``ukc.index.device.{residues,encode,sort,scatter,fetch}``
+(``utils.timing.span``); :data:`last_trace` counts what it moved.
 """
 
 from __future__ import annotations
@@ -32,14 +39,36 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+    DeviceBitsetMatrix,
+)
 from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
     encode_kmers_device,
+    residues_to_indices,
 )
 from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (
+    KmerIndex,
     doc_freq_dense_device,
 )
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 _SENT = 2**31 - 1  # sorts after every k-mer code (21^7 < 2^31)
+
+#: Counts of the most recent device build: ``k``; ``incidence_slots``,
+#: the per-row deduplicated window slots it ranks (padding included: the
+#: slots k=7's global sort orders); ``distinct`` and ``repeated`` codes;
+#: ``words_bytes``, the packed words it made; ``host_bytes``, the bytes
+#: it moved between host arrays and the device, both ways summed; and
+#: ``syncs``, its host waits. Times are the spans'.
+last_trace: dict = {}
+
+
+def _new_trace(k: int) -> dict:
+    """A fresh :data:`last_trace`, which the build then fills."""
+    global last_trace
+    last_trace = dict(k=k, incidence_slots=0, distinct=0, repeated=0,
+                      words_bytes=0, host_bytes=0, syncs=0)
+    return last_trace
 
 
 def _check_flat_index_space(n_pad: int, w_pad: int) -> None:
@@ -84,12 +113,43 @@ def _scatter_bits(rank, keep, n_pad: int, w_pad: int):
     return words.view(n_pad, w_pad)
 
 
-def _encode_padded(residue_idx, lengths, n: int, k: int, row_multiple: int,
-                   device):
+def _device_residues(seq_buf: np.ndarray, offsets: np.ndarray, device,
+                     trace: dict):
+    """(uint8 [N, Lmax] alphabet indices, int64 [N] lengths) on
+    ``device``, the padded residue matrix that the device encode reads:
+    the flat residue bytes, the offsets and the alphabet table go up, and
+    the lookup and the scatter into the matrix (padding 0) run there."""
+    offsets = np.asarray(offsets, np.int64)
+    n = offsets.shape[0] - 1
+    lmax = int(np.diff(offsets).max()) if n > 0 else 1
+    total = int(offsets[-1] - offsets[0]) if n > 0 else 0
+    table = residues_to_indices(np.arange(256, dtype=np.uint8))
+    buf, offs, table = _upload(
+        (np.asarray(seq_buf, np.uint8)[offsets[0] : offsets[0] + total],
+         offsets, table), device, trace)
+    lens = offs[1:] - offs[:-1]
+    shift = (torch.arange(n, dtype=torch.int64, device=device) * lmax
+             - (offs[:-1] - offs[0]))
+    flat = torch.arange(total, dtype=torch.int64, device=device) + \
+        torch.repeat_interleave(shift, lens, output_size=total)
+    mat = torch.zeros(n * lmax, dtype=torch.uint8, device=device)
+    mat[flat] = table[buf.to(torch.int64)]
+    return mat.view(n, lmax), lens
+
+
+def _upload(arrays, device, trace: dict) -> list:
+    """Host arrays as tensors on ``device``, their bytes counted."""
+    out = []
+    for a in arrays:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        trace["host_bytes"] += t.nbytes
+        out.append(t.to(device))
+    return out
+
+
+def _encode_padded(res, lens, n: int, k: int, row_multiple: int):
     """(codes, valid, n_pad): the device encode with rows padded to the
     row multiple (padding rows have no valid window)."""
-    res = torch.as_tensor(np.asarray(residue_idx, np.int32)).to(device)
-    lens = torch.as_tensor(np.asarray(lengths, np.int32)).to(device)
     codes, valid = encode_kmers_device(res, lens, k)
     n_pad = -(-max(n, 1) // row_multiple) * row_multiple
     if codes.shape[0] != n_pad:
@@ -103,6 +163,88 @@ def _w_pad(n_repeated: int, word_multiple: int) -> int:
     return -(-max(n_repeated, 1) // 32 // word_multiple) * word_multiple
 
 
+def _dense_build(res, lens, n: int, row_multiple: int, word_multiple: int,
+                 trace: dict):
+    """k=5 from the residues on the device: (words, freq, n_repeated)."""
+    universe = 21**5
+    with span("index.device.encode"):
+        codes, valid, n_pad = _encode_padded(res, lens, n, 5, row_multiple)
+    trace["incidence_slots"] = codes.numel()
+    with span("index.device.sort"):
+        freq = doc_freq_dense_device(codes, valid, 5)
+        repeated = freq >= 2
+        # rank of a code = #repeated codes before it (ascending-code rank,
+        # the host path's dense-rank hash)
+        rank = torch.cumsum(repeated.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+        n_distinct, n_repeated = torch.stack(
+            [torch.count_nonzero(freq), torch.count_nonzero(repeated)]
+        ).tolist()
+        trace["syncs"] += 1
+        # the rows deduped again, for each incidence's code
+        inc_code = _row_dedup(codes, valid, sent=universe)
+        del codes, valid
+        safe = torch.clamp(inc_code, max=universe - 1).to(torch.int64)
+        keep = (inc_code < universe) & repeated[safe]
+        inc_rank = rank[safe]
+        del inc_code, safe, rank, repeated
+    w_pad = _w_pad(n_repeated, word_multiple)
+    _check_flat_index_space(n_pad, w_pad)
+    with span("index.device.scatter"):
+        words = _scatter_bits(inc_rank, keep, n_pad, w_pad)
+    trace.update(distinct=n_distinct, repeated=n_repeated,
+                 words_bytes=words.nbytes)
+    return words, freq, n_repeated
+
+
+def _sorted_build(res, lens, n: int, k: int, row_multiple: int,
+                  word_multiple: int, trace: dict):
+    """Any k from the residues on the device: (words, codes, doc_freq,
+    n_repeated), codes and doc-freqs fetched to the host in one copy.
+    Two host waits: the size of ``unique_consecutive``'s output, and the
+    fetch, which also gives the number of repeated codes, so the ranks
+    need none."""
+    with span("index.device.encode"):
+        codes, valid, n_pad = _encode_padded(res, lens, n, k, row_multiple)
+        inc = _row_dedup(codes, valid)
+        del codes, valid
+    trace["incidence_slots"] = inc.numel()
+    with span("index.device.sort"):
+        s, order = torch.sort(inc.reshape(-1))
+        del inc
+        uniq, counts = torch.unique_consecutive(s, return_counts=True)
+        trace["syncs"] += 1
+        # the sentinel (padding and repeats within a row) sorts last;
+        # ascending-code rank over the repeated codes, per distinct code,
+        # then per sorted slot, then back at each slot's position
+        repeated = (counts >= 2) & (uniq != _SENT)
+        grank = torch.cumsum(repeated.to(torch.int32), 0,
+                             dtype=torch.int32) - 1
+        grank = torch.where(repeated, grank, -1)
+        rank = torch.empty_like(s)
+        rank[order] = torch.repeat_interleave(grank, counts,
+                                              output_size=s.numel())
+        del s, order, repeated, grank
+    with span("index.device.fetch"):
+        # 21^7 < 2^31 and a doc-freq <= N_pad * W: both fit int32
+        host = torch.stack([uniq, counts.to(torch.int32)]).cpu().numpy()
+        trace["host_bytes"] += host.nbytes
+        trace["syncs"] += 1
+        del uniq, counts
+    d = host.shape[1] - int(host[0, -1] == _SENT)
+    ucodes, dfreq = host[0, :d].astype(np.int64), host[1, :d].astype(np.int64)
+    n_repeated = int(np.count_nonzero(dfreq >= 2))
+    w_pad = _w_pad(n_repeated, word_multiple)
+    if d:
+        _check_flat_index_space(n_pad, w_pad)
+    with span("index.device.scatter"):
+        rank = rank.view(n_pad, -1)
+        words = _scatter_bits(torch.clamp(rank, min=0), rank >= 0, n_pad,
+                              w_pad)
+    trace.update(distinct=d, repeated=n_repeated, words_bytes=words.nbytes)
+    return words, ucodes, dfreq, n_repeated
+
+
 def build_bitset_device(
     residue_idx: np.ndarray,
     lengths: np.ndarray,
@@ -114,7 +256,7 @@ def build_bitset_device(
     """Full device index build for k=5.
 
     Args:
-      residue_idx: int32 [N, Lmax] alphabet indices (pad arbitrary).
+      residue_idx: int [N, Lmax] alphabet indices (pad arbitrary).
       lengths: int32 [N] true lengths.
       device: the torch device the build runs on.
 
@@ -124,24 +266,11 @@ def build_bitset_device(
     """
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 
-    device = resolve_device(device)
-    universe = 21**5
-    codes, valid, n_pad = _encode_padded(residue_idx, lengths, n, 5,
-                                         row_multiple, device)
-    freq = doc_freq_dense_device(codes, valid, 5)
-    repeated = freq >= 2
-    # rank of a code = #repeated codes before it (ascending-code rank, the
-    # host path's dense-rank hash)
-    rank = torch.cumsum(repeated.to(torch.int32), 0, dtype=torch.int32) - 1
-    n_repeated = int(rank[-1].item()) + 1
-    w_pad = _w_pad(n_repeated, word_multiple)
-    _check_flat_index_space(n_pad, w_pad)
-    # the rows deduped again, for each incidence's code
-    inc_code = _row_dedup(codes, valid, sent=universe)
-    safe = torch.clamp(inc_code, max=universe - 1).to(torch.int64)
-    keep = (inc_code < universe) & repeated[safe]
-    words = _scatter_bits(rank[safe], keep, n_pad, w_pad)
-    return words, freq, n_repeated
+    trace = _new_trace(5)
+    with span("index.device.residues"):
+        res, lens = _upload((residue_idx, lengths), resolve_device(device),
+                            trace)
+    return _dense_build(res, lens, n, row_multiple, word_multiple, trace)
 
 
 def build_bitset_device_sorted(
@@ -162,39 +291,40 @@ def build_bitset_device_sorted(
     """
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 
-    device = resolve_device(device)
-    codes, valid, n_pad = _encode_padded(residue_idx, lengths, n, k,
-                                         row_multiple, device)
-    inc = _row_dedup(codes, valid)
-    s, order = torch.sort(inc.reshape(-1))
-    # the sentinels sort last: the codes are a prefix of the sorted list
-    m_codes = int((s < _SENT).sum().item())
-    uniq, counts = torch.unique_consecutive(s[:m_codes], return_counts=True)
-    n_distinct = int(uniq.shape[0])
-    repeated = counts >= 2
-    n_repeated = int(repeated.sum().item())
-    w_pad = _w_pad(n_repeated, word_multiple)
-    if n_distinct == 0:
-        # every sequence shorter than k: empty index, all-zero bitset
-        return (
-            torch.zeros((n_pad, w_pad), dtype=torch.int32, device=device),
-            np.zeros(0, np.int64),
-            np.zeros(0, np.int64),
-            0,
-        )
-    _check_flat_index_space(n_pad, w_pad)
-    # ascending-code rank over the repeated codes, per distinct code, then
-    # per sorted incidence, then back at each incidence's position
-    grank = torch.cumsum(repeated.to(torch.int32), 0, dtype=torch.int32) - 1
-    grank = torch.where(repeated, grank, -1)
-    r_sorted = torch.repeat_interleave(grank, counts)
-    rank = torch.full((s.shape[0],), -1, dtype=torch.int32, device=device)
-    rank[order[:m_codes]] = r_sorted
-    rank = rank.view(inc.shape)
-    words = _scatter_bits(torch.clamp(rank, min=0), rank >= 0, n_pad, w_pad)
-    return (
-        words,
-        uniq.cpu().numpy().astype(np.int64),
-        counts.cpu().numpy().astype(np.int64),
-        n_repeated,
-    )
+    trace = _new_trace(k)
+    with span("index.device.residues"):
+        res, lens = _upload((residue_idx, lengths), resolve_device(device),
+                            trace)
+    return _sorted_build(res, lens, n, k, row_multiple, word_multiple,
+                         trace)
+
+
+def build_device_index(seq_buf: np.ndarray, offsets: np.ndarray, k: int,
+                       row_multiple: int = 512, device="cuda"):
+    """The pipeline's device build (``index_engine="device"``): the padded
+    residue matrix made on the device from the flat residue bytes, then
+    k=5's dense build or the sorted build of any other k.
+
+    Returns (KmerIndex with no incidence lists, DeviceBitsetMatrix whose
+    words stay on ``device``): the words never pass through the host.
+    """
+    from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+
+    trace = _new_trace(k)
+    with span("index.device.residues"):
+        res, lens = _device_residues(seq_buf, offsets,
+                                     resolve_device(device), trace)
+    n = lens.shape[0]
+    if k == 5:
+        words, freq, n_repeated = _dense_build(res, lens, n, row_multiple,
+                                               128, trace)
+        with span("index.device.fetch"):
+            freq = freq.cpu().numpy()
+            trace["host_bytes"] += freq.nbytes
+            trace["syncs"] += 1
+        index = KmerIndex.from_dense_freq(freq, k)
+    else:
+        words, codes, counts, n_repeated = _sorted_build(
+            res, lens, n, k, row_multiple, 128, trace)
+        index = KmerIndex.from_sparse_freq(codes, counts, k)
+    return index, DeviceBitsetMatrix(words, n=n, n_bits=n_repeated)

@@ -172,7 +172,8 @@ def run_pipeline(
 
     ``config.index_engine="device"`` builds the index and the bitset on
     ``device`` (``kmers/index_device.py``) instead of the host stages; such
-    an index carries no incidence lists and is not checkpointed.
+    an index carries no incidence lists and is not checkpointed, and its
+    bitset's words stay on ``device`` for the sweep.
     """
     if stop_after not in (None, "pack"):
         raise ValueError(f"unknown stop_after {stop_after!r}")
@@ -362,50 +363,26 @@ def _device_index(table: ProteinTable, config: PipelineConfig, device):
     k=5 takes the dense 21⁵ bincount, k=7 the global-sort build (the 21⁷
     universe has no dense form). Bit-identical to the host path; random10
     sampling stays on the host (the reference's sampler is positional,
-    src/protein.rs:83-94). The index carries no incidence lists.
+    src/protein.rs:83-94). The index carries no incidence lists; the
+    bitset's words stay on ``device``, where the sweep reads them, and
+    come to the host only if something reads ``bitset.words``.
     """
     if config.sampling != "all":
         raise ValueError("index_engine='device' supports sampling='all'")
-    from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import (
-        residues_to_indices,
-    )
     from uniprot_kmer_based_clustering_tpu_torch.kmers.index_device import (
-        build_bitset_device,
-        build_bitset_device_sorted,
+        build_device_index,
     )
 
-    lengths = table.lengths.astype(np.int32)
-    lmax = int(lengths.max()) if table.n else 1
-    # the padded [N, Lmax] residue matrix, by one offsets-based scatter
-    mat = np.zeros((table.n, lmax), np.int32)
-    res = residues_to_indices(table.seq_buf)
-    starts = np.asarray(table.offsets[:-1], np.int64)
-    rows = np.repeat(np.arange(table.n, dtype=np.int64), lengths)
-    cols = np.arange(res.shape[0], dtype=np.int64) - np.repeat(
-        starts, lengths
-    )
-    mat[rows, cols] = res
-    row_multiple = _row_multiple(config, table.n)
-    if config.k == 5:
-        words, freq, n_repeated = build_bitset_device(
-            mat, lengths, table.n, row_multiple=row_multiple, device=device,
+    with span("index.device"):
+        index, bitset = build_device_index(
+            table.seq_buf, table.offsets, config.k,
+            row_multiple=_row_multiple(config, table.n), device=device,
         )
-        index = KmerIndex.from_dense_freq(freq.cpu().numpy(), config.k)
-    else:
-        words, codes, counts, n_repeated = build_bitset_device_sorted(
-            mat, lengths, table.n, config.k, row_multiple=row_multiple,
-            device=device,
-        )
-        index = KmerIndex.from_sparse_freq(codes, counts, config.k)
-    if index.n_repeated != n_repeated:
+    if index.n_repeated != bitset.n_bits:
         raise AssertionError(
             f"device index: {index.n_repeated} repeated codes in the "
-            f"doc-freqs, {n_repeated} in the rank space"
+            f"doc-freqs, {bitset.n_bits} in the rank space"
         )
-    bitset = BitsetMatrix(
-        words=words.cpu().numpy().view(np.uint32), n=table.n,
-        n_bits=n_repeated,
-    )
     return index, bitset
 
 

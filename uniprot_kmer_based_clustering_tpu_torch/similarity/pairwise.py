@@ -41,7 +41,10 @@ import torch
 from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
 from uniprot_kmer_based_clustering_tpu_torch.io import native
-from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import BitsetMatrix
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+    BitsetMatrix,
+    DeviceBitsetMatrix,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     FusedCandidates,
     int8_gemm,
@@ -72,7 +75,8 @@ from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 #: Counts of the most recent :func:`pairwise_similarity` call that swept
 #: on the device (engines ``mxu``, ``popcount``, ``xla``), the
 #: ``ops.stream.last_trace`` convention: ``upload_bytes`` (the words,
-#: classes, weights and the fused keep mask sent to the device),
+#: classes, weights and the fused keep mask copied to the device; not
+#: the words of a bitset built there),
 #: ``hit_tiles``, ``extract_products`` (pass-2 ``int8_gemm`` calls, one a
 #: run of adjacent hit tiles), ``extract_syncs`` (every host wait of
 #: extraction: a boolean-mask compaction of the fused scan, and the
@@ -604,8 +608,11 @@ def pairwise_similarity(
         words = bitset_to_torch(bitset, device)
         classes = classes_to_torch(classes_np, n_pad, device)
         wts = None if weights is None else weights_to_torch(weights, device)
+    # a bitset built on the device hands over its own words: no copy
+    held = (bitset.device_words if isinstance(bitset, DeviceBitsetMatrix)
+            else None)
     trace["upload_bytes"] = sum(t.nbytes for t in (words, classes, wts)
-                                if t is not None)
+                                if t is not None and t is not held)
     fused = appended = None
     with span("pairwise.sweep"):
         if engine == "mxu":

@@ -3,7 +3,8 @@
 This system has no weights; its device state is the packed presence
 matrix, the per-protein AMR classes and the optional BLOSUM column
 weights. All three are built by the host stages (numpy / C++) and cross
-over here unchanged.
+over here unchanged, unless the index was built on the device, whose
+words stay there.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import BitsetMatrix
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+    BitsetMatrix,
+    DeviceBitsetMatrix,
+)
 
 
 def bitset_to_torch(bitset: BitsetMatrix, device) -> torch.Tensor:
@@ -19,7 +23,11 @@ def bitset_to_torch(bitset: BitsetMatrix, device) -> torch.Tensor:
 
     ``view(np.int32)`` reinterprets the same bits without a copy (torch's
     uint32 support is thin: ``>>`` is missing on the CPU); on the CPU the
-    tensor shares the numpy buffer."""
+    tensor shares the numpy buffer. A bitset built on the device
+    (``DeviceBitsetMatrix``) gives its own tensor, with no copy when it
+    already lies on ``device``, and never passes through the host."""
+    if isinstance(bitset, DeviceBitsetMatrix):
+        return bitset.device_words.to(device)
     words = np.ascontiguousarray(bitset.words).view(np.int32)
     return torch.from_numpy(words).to(device)
 
