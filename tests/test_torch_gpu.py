@@ -1119,6 +1119,21 @@ def test_device_index_on_card_matches_host(cuda, synth_fasta, k,
                           host.bitset.words)
 
 
+def _bench_modules():
+    """The benchmark's corpus generator and plain reference."""
+    import os
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import corpus
+    from reference import kmer_pairs
+
+    return bench, corpus, kmer_pairs
+
+
 def test_device_index_k7_at_10619_keeps_the_words_on_the_card(cuda,
                                                              tmp_path):
     """The ``arg10k.k7dev`` deployment on the card: ``run_pipeline(k=7,
@@ -1129,16 +1144,10 @@ def test_device_index_k7_at_10619_keeps_the_words_on_the_card(cuda,
     bitset's host copy is never made."""
     import json
     import os
-    import sys
 
     from uniprot_kmer_based_clustering_tpu_torch.kmers import index_device
 
-    bench = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "benchmark")
-    sys.path.insert(0, bench)
-    import corpus
-    from reference import kmer_pairs
-
+    bench, corpus, kmer_pairs = _bench_modules()
     with open(os.path.join(bench, "configs",
                            "arg_k7_n10619_devindex.json")) as f:
         config = json.load(f)
@@ -2009,6 +2018,178 @@ def test_stream_server_on_a_second_card(cuda, served, monkeypatch):
             source, recorded)
         assert torch.cuda.current_device() == 0
 
+
+
+def _htod(prof, tmp_path):
+    """(name, bytes) of every host-to-device copy in a profile."""
+    import json
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], e["args"]["bytes"]) for e in events
+            if e.get("name", "").startswith("Memcpy HtoD")]
+
+
+def test_sweep_at_10619_uploads_the_words_from_pinned_memory(cuda,
+                                                             tmp_path):
+    """The ``arg10k.sweep`` job on the card: the pipeline packs the
+    benchmark's 10,619-protein corpus into page-locked memory, and one
+    profiled ``pairwise_similarity`` sends the words by a pinned DMA, with
+    no pageable host-to-device copy a tenth of their size; every byte of
+    the upload leaves page-locked memory, and the pairs and counters are
+    the plain reference's."""
+    import json
+    import os
+
+    bench, corpus, kmer_pairs = _bench_modules()
+    with open(os.path.join(bench, "configs", "arg_k5_n10619.json")) as f:
+        config = json.load(f)
+    seq_buf, offsets, classes = corpus.synth_proteins(config["corpus"],
+                                                      2**31 + 25)
+    fasta = str(tmp_path / "corpus.fasta")
+    corpus.write_fasta(fasta, seq_buf, offsets, classes)
+    cfg = PipelineConfig(**config["pipeline"])
+    pre = run_pipeline(fasta, cfg, stop_after="pack", device=cuda)
+    bitset = pre.bitset
+    assert bitset.pinned is not None and bitset.pinned.is_pinned()
+    assert bitset.pinned.data_ptr() == bitset.words.ctypes.data
+    tpw.pairwise_similarity(bitset, pre.table.amr_class_ids, cfg,
+                            index=pre.index, device=cuda)  # warm
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # a profile that follows another in one process may drop its
+        # first device activity (seen after the k = 7 test's profile), so
+        # a throwaway fill goes first and the job's copies come after it
+        torch.ones(1, device=cuda).add_(1)
+        torch.cuda.synchronize()
+        r = tpw.pairwise_similarity(bitset, pre.table.amr_class_ids, cfg,
+                                    index=pre.index, device=cuda)
+        torch.cuda.synchronize()
+    copies = _htod(prof, tmp_path)
+    words_bytes = bitset.words.nbytes
+    assert words_bytes == 313_786_368
+    assert (("Memcpy HtoD (Pinned -> Device)", words_bytes) in copies), (
+        copies)
+    assert not [b for name, b in copies
+                if "Pageable" in name and b >= words_bytes // 10], copies
+    t = tpw.last_trace
+    assert t["pinned_bytes"] == t["upload_bytes"] == 313_829_376
+
+    ref = kmer_pairs.answer(seq_buf, offsets, classes, k=cfg.k,
+                            threshold=cfg.threshold,
+                            cross_amr_only=cfg.cross_amr_only,
+                            with_components=False)
+    assert np.array_equal(np.asarray(r.pairs, np.int64), ref["pairs"])
+    got = np.array([getattr(r, f) for f in kmer_pairs.COUNTER_NAMES],
+                   np.int64)
+    assert np.array_equal(got, ref["counters"])
+    assert len(ref["pairs"]) > 0
+
+
+@pytest.mark.parametrize("weighting", ["none", "blosum62"])
+def test_pinned_upload_does_not_synchronise(cuda, synth_fasta, weighting):
+    """The sweep stage's upload of page-locked words, the classes and the
+    weights queues its DMAs and never waits for the card."""
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
+        blosum_weights,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.state import (
+        bitset_to_torch,
+        classes_to_torch,
+        weights_to_torch,
+    )
+
+    cfg = PipelineConfig(weighting=weighting)
+    pre = run_pipeline(synth_fasta, cfg, stop_after="pack", device=cuda)
+    bitset = pre.bitset
+    assert bitset.pinned is not None
+    weights = blosum_weights(pre.index, cfg, bitset)
+    assert (weights is None) == (weighting == "none")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        words = bitset_to_torch(bitset, cuda)
+        classes = classes_to_torch(pre.table.amr_class_ids, bitset.n_pad,
+                                   cuda)
+        wts = None if weights is None else weights_to_torch(weights, cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(words.cpu(), bitset.pinned)
+    assert np.array_equal(classes.cpu().numpy()[: bitset.n],
+                          pre.table.amr_class_ids)
+    assert (classes.cpu().numpy()[bitset.n:] == -1).all()
+    if wts is not None:
+        assert np.array_equal(wts.cpu().numpy(), weights)
+
+
+def test_back_to_back_corpora_reuse_the_pinned_block(cuda, synth_fasta,
+                                                     tmp_path):
+    """Two corpora of one shape packed and swept one after the other: the
+    second pack takes the first's freed page-locked block, left dirty on
+    purpose, and each sweep gives the CPU run's pairs and counters."""
+    import gc
+
+    from bench_scale import synth_proteins
+
+    seq_buf, offsets, classes = synth_proteins(1200, seed=4)
+    other = str(tmp_path / "other.fasta")
+    with open(other, "w") as f:
+        for i in range(1200):
+            seq = seq_buf[offsets[i] : offsets[i + 1]].tobytes().decode()
+            f.write(f">S{i:05d}|FEATURES|UNIPROT|c{classes[i]}|g{i}\n"
+                    f"{seq}\n")
+    cfg = PipelineConfig()
+    blocks = []
+    for fasta in (synth_fasta, other):
+        pre = run_pipeline(fasta, cfg, stop_after="pack", device=cuda)
+        bitset = pre.bitset
+        assert bitset.pinned is not None
+        blocks.append(bitset.pinned.data_ptr())
+        r = tpw.pairwise_similarity(bitset, pre.table.amr_class_ids, cfg,
+                                    index=pre.index, device=cuda)
+        assert tpw.last_trace["pinned_bytes"] == (
+            tpw.last_trace["upload_bytes"])
+        want = run_pipeline(fasta, cfg, device="cpu").pairwise
+        assert np.array_equal(r.pairs, want.pairs) and len(r.pairs) > 0
+        assert r.parity_counters() == want.parity_counters()
+        torch.cuda.synchronize()
+        bitset.pinned.fill_(-1)  # what the next pack must not keep
+        del pre, bitset
+        gc.collect()
+    assert blocks[0] == blocks[1]
+
+
+def test_four_card_ring_stages_from_pinned_memory(cuda, synth_fasta):
+    """``cli run --devices 4``'s sweep stage on four distinct cards: every
+    words shard is staged by DMA from the page-locked words, and the
+    ring's pairs and counters are byte-equal to one card's."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import make_mesh
+    from uniprot_kmer_based_clustering_tpu_torch.parallel import (
+        sharded as tsh,
+    )
+    from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
+        _sharded_similarity,
+    )
+
+    cfg = PipelineConfig()
+    mesh = make_mesh(4)
+    pre = run_pipeline(synth_fasta, cfg, stop_after="pack", device=mesh.home)
+    bitset = pre.bitset
+    assert bitset.pinned is not None
+    r = _sharded_similarity(bitset, pre.table, cfg, mesh, index=pre.index)
+    t = tsh.last_trace
+    assert t["stage_pinned_bytes"] == bitset.words.nbytes
+    assert t["stage_bytes"] == bitset.words.nbytes + bitset.n_pad * 4
+    one = tpw.pairwise_similarity(bitset, pre.table.amr_class_ids, cfg,
+                                  index=pre.index, device=mesh.home)
+    assert r.pairs.tobytes() == one.pairs.tobytes() and len(r.pairs) > 0
+    assert r.parity_counters() == one.parity_counters()
 
 if __name__ == "__main__":
     import sys

@@ -216,7 +216,8 @@ def test_last_trace_is_its_closed_forms(job, layout, extract):
     # every shift moves all four shards' words and classes
     shifted = passes * (_steps(layout, mesh) - 1) * (words + classes)
     tiles = {(i // 128, j // 128) for i, j, _ in ref["pairs"]}
-    assert t == {"stage_bytes": staged, "shift_bytes": shifted,
+    assert t == {"stage_bytes": staged, "stage_pinned_bytes": 0,
+                 "shift_bytes": shifted,
                  "substeps": passes * _substeps(layout, mesh, n_pad),
                  "hit_tiles": len(tiles), "pairs": len(r.pairs),
                  "epilogue_pairs": len(r.pairs) if extract == "auto" else 0,
@@ -238,6 +239,7 @@ def test_last_trace_is_replaced_by_each_call(job):
     # a sweep alone: the staging, one pass, no extraction
     n_pad, w_pad = pre.bitset.n_pad, pre.bitset.w_pad
     assert t == {"stage_bytes": n_pad * w_pad * 4 + n_pad * 4,
+                 "stage_pinned_bytes": 0,
                  "shift_bytes": 2 * (n_pad * w_pad * 4 + n_pad * 4),
                  "substeps": tsh.count_substeps(4, n_pad),
                  "hit_tiles": 0, "pairs": 0, "epilogue_pairs": 0,

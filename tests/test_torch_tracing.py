@@ -202,12 +202,14 @@ def test_the_two_pass_counts_are_the_inputs(packed, weighting, extract):
     runs = list(tpw._tile_runs(ti[hit], tj[hit]))
     assert 0 < len(runs) < len(hit)
     if extract == "two_pass":
-        assert t == {"upload_bytes": upload, "hit_tiles": len(hit),
+        assert t == {"upload_bytes": upload, "pinned_bytes": 0,
+                     "hit_tiles": len(hit),
                      "extract_products": len(runs),
                      "extract_syncs": 1, "epilogue_pairs": 0,
                      "pairs": len(r.pairs)}
     else:
-        assert t == {"upload_bytes": upload, "hit_tiles": len(hit),
+        assert t == {"upload_bytes": upload, "pinned_bytes": 0,
+                     "hit_tiles": len(hit),
                      "extract_products": 0, "extract_syncs": 1,
                      "epilogue_pairs": len(r.pairs), "pairs": len(r.pairs)}
     assert len(r.pairs) == int(tile_hits[:, 0].sum())

@@ -177,12 +177,24 @@ def pack_bits(
     incidence_rank: np.ndarray,
     n_pad: int,
     w_pad: int,
+    out: Optional[np.ndarray] = None,
 ) -> Optional[np.ndarray]:
-    """Native bitset packing; None when unavailable."""
+    """Native bitset packing into a fresh pageable array, or into ``out``
+    (C-contiguous uint32 [n_pad, w_pad], zeroed by the caller: the packer
+    ORs each bit into its word), which may be a view of page-locked
+    memory (``kmers.bitset.pinned_words``). Returns the words; None when
+    the library is unavailable."""
     lib = _load()
     if lib is None:
         return None
-    words = np.zeros((n_pad, w_pad), np.uint32)
+    if out is None:
+        words = np.zeros((n_pad, w_pad), np.uint32)
+    elif (out.shape != (n_pad, w_pad) or out.dtype != np.uint32
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous uint32 [{n_pad}, "
+                         f"{w_pad}], got {out.shape} {out.dtype}")
+    else:
+        words = out
     lib.ukc_pack_bits(
         np.ascontiguousarray(incidence_protein, np.int32),
         np.ascontiguousarray(incidence_rank, np.int32),

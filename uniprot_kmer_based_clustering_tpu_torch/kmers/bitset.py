@@ -17,6 +17,8 @@ The port's own copy of the JAX package's ``kmers/bitset.py``:
 ``state.bitset_to_torch`` carries the words to a torch device, the stream
 engine reads them from the host block by block, and
 :func:`pack_bitsets_device` packs the incidences on the device instead.
+Words bound for a CUDA device may be packed into page-locked host memory
+(:func:`pinned_words`), so that their upload is an asynchronous DMA.
 The device index build's bitset (:class:`DeviceBitsetMatrix`) keeps its
 words on the device and fetches a host copy only when one is read.
 """
@@ -24,6 +26,8 @@ words on the device and fetches a host copy only when one is read.
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -32,13 +36,61 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def padded_shape(n: int, n_bits: int, row_multiple: int = 512,
+                 word_multiple: int = 128) -> Tuple[int, int]:
+    """``(N_pad, W_pad)`` of the packed matrix of ``n`` proteins over
+    ``n_bits`` ranks."""
+    n_pad = _round_up(max(n, 1), row_multiple)
+    w_pad = _round_up(_round_up(max(n_bits, 1), 32) // 32, word_multiple)
+    return n_pad, w_pad
+
+
+def wants_pinned(device, nbytes: int) -> bool:
+    """Whether host words of ``nbytes`` bound for ``device`` are packed
+    into page-locked memory: only for a CUDA device, whose upload then is
+    a DMA, and only while the block that holds them takes at most a
+    quarter of the host's physical memory, which page-locking withholds
+    from the rest of the host. Torch's caching host allocator rounds a
+    block up to a power of two."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return False
+    block = 1 << max(nbytes - 1, 0).bit_length()
+    physical = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return block <= physical // 4
+
+
+def pinned_words(shape: Tuple[int, int], device):
+    """A page-locked int32 tensor of ``shape`` from torch's caching host
+    allocator, to pack words bound for ``device`` into
+    (``pack_bitsets(out=)``); None where :func:`wants_pinned` says no or
+    the allocation fails, and the words then take plain pageable memory.
+    The block may hold an earlier user's bytes: the pack zeroes it."""
+    import torch
+
+    if not wants_pinned(device, shape[0] * shape[1] * 4):
+        return None
+    try:
+        return torch.empty(shape, dtype=torch.int32, pin_memory=True)
+    except RuntimeError:
+        return None
+
+
 @dataclasses.dataclass
 class BitsetMatrix:
-    """Packed presence matrix plus its true (unpadded) dimensions."""
+    """Packed presence matrix plus its true (unpadded) dimensions.
+
+    ``pinned``, when the words were packed into page-locked memory, is
+    the int32 tensor of torch's caching host allocator that owns them
+    (``words`` is a uint32 view of it): uploads copy from it
+    asynchronously, and the allocator, which records each such copy,
+    hands the block out again only after the copies have read it."""
 
     words: np.ndarray  # uint32 [N_pad, W_pad]
     n: int             # true protein count
     n_bits: int        # true k-mer (rank-space) count
+    pinned: Optional["torch.Tensor"] = None  # noqa: F821
 
     @property
     def n_pad(self) -> int:
@@ -51,6 +103,13 @@ class BitsetMatrix:
     def row_bits(self, i: int) -> np.ndarray:
         """Unpacked bool row (testing/debug only)."""
         return _row_bits_impl(self, i)
+
+
+def pinned_of(bitset):
+    """The page-locked tensor that owns ``bitset``'s words, or None: for
+    pageable words, and for any object with ``.words`` (the JAX package's
+    bitsets carry no ``pinned``)."""
+    return getattr(bitset, "pinned", None)
 
 
 class _NeverWords:
@@ -83,8 +142,7 @@ class VirtualBitsetMatrix(BitsetMatrix):
     @classmethod
     def make(cls, n: int, n_bits: int, row_multiple: int = 512,
              word_multiple: int = 128) -> "VirtualBitsetMatrix":
-        n_pad = _round_up(max(n, 1), row_multiple)
-        w_pad = _round_up(_round_up(max(n_bits, 1), 32) // 32, word_multiple)
+        n_pad, w_pad = padded_shape(n, n_bits, row_multiple, word_multiple)
         return cls(words=_NeverWords(), n=n, n_bits=n_bits,
                    pad_rows=n_pad, pad_words=w_pad)
 
@@ -142,33 +200,54 @@ def pack_bitsets(
     row_multiple: int = 512,
     word_multiple: int = 128,
     chunk_rows: int = 2048,
+    out=None,
 ) -> BitsetMatrix:
     """Pack (protein, rank) incidences into the uint32 presence matrix.
 
-    Chunked over protein rows so the transient bool matrix stays small
-    (``chunk_rows × n_bits`` bytes).
+    The words live in a fresh pageable numpy array, or in ``out``: a
+    contiguous CPU int32 tensor [N_pad, W_pad] (:func:`pinned_words`
+    gives a page-locked one), zeroed here by a parallel fill whatever it
+    held, whose uint32 view becomes ``words``. A page-locked ``out``
+    becomes the result's ``pinned``, and ``state.bitset_to_torch`` then
+    uploads it asynchronously.
+
+    The numpy fallback is chunked over protein rows so the transient bool
+    matrix stays small (``chunk_rows × n_bits`` bytes).
     """
-    n_pad = _round_up(max(n, 1), row_multiple)
-    w = _round_up(max(n_bits, 1), 32) // 32
-    w_pad = _round_up(w, word_multiple)
+    import torch
+
+    n_pad, w_pad = padded_shape(n, n_bits, row_multiple, word_multiple)
+    pinned = None
+    if out is None:
+        words = np.zeros((n_pad, w_pad), dtype=np.uint32)
+    else:
+        if (tuple(out.shape) != (n_pad, w_pad) or out.dtype != torch.int32
+                or out.device.type != "cpu" or not out.is_contiguous()):
+            raise ValueError(
+                f"out must be a contiguous CPU int32 tensor [{n_pad}, "
+                f"{w_pad}], got {tuple(out.shape)} {out.dtype}")
+        out.zero_()
+        words = out.numpy().view(np.uint32)
+        if out.is_pinned():
+            pinned = out
 
     # Native scatter packer when built (csrc/ukc_native.cpp) — an order
     # of magnitude faster than the chunked packbits fallback below.
     try:
         from uniprot_kmer_based_clustering_tpu_torch.io import native
 
-        words = native.pack_bits(
+        packed = native.pack_bits(
             np.asarray(incidence_protein, np.int32),
             np.asarray(incidence_rank, np.int32),
             n_pad,
             w_pad,
+            out=words,
         )
-        if words is not None:
-            return BitsetMatrix(words=words, n=n, n_bits=n_bits)
+        if packed is not None:
+            return BitsetMatrix(words=words, n=n, n_bits=n_bits,
+                                pinned=pinned)
     except Exception:
         pass
-
-    words = np.zeros((n_pad, w_pad), dtype=np.uint32)
 
     bit_cols = w_pad * 32
     order = np.argsort(incidence_protein, kind="stable")
@@ -185,8 +264,7 @@ def pack_bitsets(
         bits[ip[s:e] - lo, ir[s:e]] = 1
         packed = np.packbits(bits, axis=1, bitorder="little")
         words[lo:hi] = packed.view(np.uint32)
-    return BitsetMatrix(words=words, n=n, n_bits=n_bits)
-
+    return BitsetMatrix(words=words, n=n, n_bits=n_bits, pinned=pinned)
 
 
 # The JAX package's refusal size, set for one 16 GB TPU (~15.75 GB with
@@ -221,9 +299,7 @@ def pack_bitsets_device(
     from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
     from uniprot_kmer_based_clustering_tpu_torch.ops.stream import _BIT
 
-    n_pad = _round_up(max(n, 1), row_multiple)
-    w = _round_up(max(n_bits, 1), 32) // 32
-    w_pad = _round_up(w, word_multiple)
+    n_pad, w_pad = padded_shape(n, n_bits, row_multiple, word_multiple)
     gb = n_pad * w_pad * 4 / 2**30
     if gb > _DEVICE_PACK_LIMIT_GB:
         raise ValueError(

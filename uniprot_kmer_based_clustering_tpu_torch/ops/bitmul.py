@@ -60,6 +60,7 @@ from uniprot_kmer_based_clustering_tpu_torch.ops.stats import (  # noqa: F401
     stats_tiles,
     survivor_mask,
 )
+from uniprot_kmer_based_clustering_tpu_torch.state import to_device
 from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 
 
@@ -431,18 +432,6 @@ def _strip_sweep(words, classes, weights, *, strip: int, n: int,
     return row_stats, block_hits
 
 
-def _to_device(x, dtype, dev):
-    """``x`` (a tensor or numpy array) as a ``dtype`` tensor on ``dev``,
-    with no host sync: host data goes up from pinned memory (a pageable
-    copy to the card blocks)."""
-    t = torch.as_tensor(x, dtype=dtype)
-    if t.device == dev:
-        return t
-    if dev.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
 @span("sweep.dispatch")
 def sweep_mxu_async(
     words,
@@ -512,9 +501,9 @@ def sweep_mxu_async(
     if word_chunk >= w_words:
         word_chunk = 0
     dev = words.device
-    classes = _to_device(classes, torch.int32, dev)
+    classes = to_device(classes, torch.int32, dev)
     if weights is not None:
-        weights = _to_device(weights, torch.int8, dev)
+        weights = to_device(weights, torch.int8, dev)
         if weights.shape != (w_words * 32,):
             raise ValueError("weights must be int8 [W*32]")
 

@@ -164,7 +164,10 @@ KAXIS_STRIP_BYTES = 2 << 30
 #: over this rank's shards, in every layout (the
 #: ``similarity.pairwise.last_trace`` convention): ``stage_bytes`` (the
 #: words and classes :func:`stage_mesh_inputs` or
-#: :func:`stage_mesh_inputs_csr` put on the devices), ``shift_bytes``
+#: :func:`stage_mesh_inputs_csr` put on the devices),
+#: ``stage_pinned_bytes`` (those of ``stage_bytes`` copied to CUDA
+#: devices from page-locked host words, as asynchronous DMAs),
+#: ``shift_bytes``
 #: (the moving words and classes of every ring shift; 0 on the k axis),
 #: ``substeps`` (products: ring sub-steps, or k-axis strips, of every
 #: pass), ``hit_tiles`` (tiles holding a survivor, set by
@@ -180,8 +183,9 @@ last_trace: dict = {}
 
 
 def new_trace() -> dict:
-    return dict(stage_bytes=0, shift_bytes=0, substeps=0, hit_tiles=0,
-                pairs=0, epilogue_pairs=0, second_passes=0)
+    return dict(stage_bytes=0, stage_pinned_bytes=0, shift_bytes=0,
+                substeps=0, hit_tiles=0, pairs=0, epilogue_pairs=0,
+                second_passes=0)
 
 
 def _begin_trace(trace: Optional[dict]) -> dict:
@@ -461,10 +465,14 @@ def stage_mesh_inputs(mesh: Mesh, words, classes, trace=None):
     order) take row shards, shard d on device d; the k-axis layout takes
     column shards ``[N_pad, W/D]`` and the classes whole on every device.
     The words become int32 bits (from numpy uint32, or an int32 tensor),
-    the classes int32. Staged inputs (a list or tuple of shards each)
-    pass through unchanged; ``trace`` (a :data:`last_trace` dict) gains
-    the bytes of the shards made here. Returns ``(words_shards,
-    classes_shards)``."""
+    the classes int32. Words given as a page-locked tensor (the pipeline
+    passes ``BitsetMatrix.pinned``) go to each CUDA device as an
+    asynchronous DMA on that device's stream, so the devices load at
+    once and the call returns before the copies end. Staged inputs (a
+    list or tuple of shards each) pass through unchanged; ``trace`` (a
+    :data:`last_trace` dict) gains the bytes of the shards made here, and
+    of those the bytes sent from page-locked words. Returns
+    ``(words_shards, classes_shards)``."""
     staged = isinstance(words, (list, tuple))
     staged_classes = isinstance(classes, (list, tuple))
     if not staged:
@@ -473,18 +481,26 @@ def stage_mesh_inputs(mesh: Mesh, words, classes, trace=None):
         classes = _as_int32(classes)
         if mesh_layout(mesh) == "kaxis":
             classes = _replicate(mesh, classes)
+    # the rings' row shards are contiguous views of the host words, so
+    # page-locked words reach each card by DMA; the k axis's column
+    # shards are strided, and torch gathers them in pageable memory first
+    pinned = False
     if mesh_layout(mesh) == "kaxis":
         if not staged:
             _check_kaxis_width(words.shape[1], mesh.size)
             words = _shard_cols(mesh, words)
         words_s, classes_s = list(words), list(classes)
     else:
+        pinned = not staged and words.is_pinned()
         words_s = shard_rows(mesh, words)
         classes_s = shard_rows(mesh, classes)
     made = ([] if staged else words_s) + ([] if staged_classes
                                           else classes_s)
     if trace is not None:
         trace["stage_bytes"] += _nbytes(made)
+        if pinned:
+            trace["stage_pinned_bytes"] += _nbytes(
+                t for t in words_s if t is not None and t.is_cuda)
     return words_s, classes_s
 
 

@@ -34,6 +34,9 @@ from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
     BitsetMatrix,
     VirtualBitsetMatrix,
     pack_bitsets,
+    padded_shape,
+    pinned_of,
+    pinned_words,
 )
 from uniprot_kmer_based_clustering_tpu_torch.kmers.encode import encode_kmers
 from uniprot_kmer_based_clustering_tpu_torch.kmers.index import (
@@ -254,12 +257,17 @@ def run_pipeline(
                     row_multiple=_row_multiple(config, table.n),
                 )
             else:
+                # words bound for a CUDA device are packed page-locked, so
+                # the sweep's upload and the mesh's staging are DMAs
+                row_multiple = _row_multiple(config, table.n)
                 bitset = pack_bitsets(
                     index.incidence_protein,
                     index.incidence_rank,
                     table.n,
                     index.n_repeated,
-                    row_multiple=_row_multiple(config, table.n),
+                    row_multiple=row_multiple,
+                    out=pinned_words(padded_shape(
+                        table.n, index.n_repeated, row_multiple), device),
                 )
 
     if stop_after == "pack":
@@ -415,7 +423,10 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
     under ``auto`` every sub-step's K1 appends its survivors to its
     card's pair buffers and extraction gathers them, with the second pass
     only where a card's survivors pass its slots; under ``two_pass`` the
-    second pass, sized by those tile hits. Under a profiler the staging,
+    second pass, sized by those tile hits. Page-locked words
+    (``bitset.pinned``) are staged by DMA to every card at once, so the
+    staging returns before the copies end and the sweep's first products
+    wait for them on each card's stream. Under a profiler the staging,
     the sweep (its appends and host reads included), the extraction (the
     cursor read, gather, sort and fetch, and any second pass) and the
     fused pass are the spans ``ukc.ring.stage``, ``.sweep``, ``.extract``
@@ -488,7 +499,11 @@ def _sharded_similarity(bitset, table, config, mesh, weights=None,
                 bitset.w_pad, classes, trace=trace,
             )
         else:
-            words = bitset.words
+            # page-locked words go as the allocator's int32 tensor, whose
+            # row shards each card then loads by DMA, all at once
+            words = pinned_of(bitset)
+            if words is None:
+                words = bitset.words
             if n_pad != bitset.n_pad:
                 words = np.zeros((n_pad, bitset.w_pad), dtype=np.uint32)
                 words[: bitset.n_pad] = bitset.words

@@ -44,6 +44,7 @@ from uniprot_kmer_based_clustering_tpu_torch.io import native
 from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
     BitsetMatrix,
     DeviceBitsetMatrix,
+    pinned_of,
 )
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     FusedCandidates,
@@ -76,9 +77,12 @@ from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
 #: on the device (engines ``mxu``, ``popcount``, ``xla``), the
 #: ``ops.stream.last_trace`` convention: ``upload_bytes`` (the words,
 #: classes, weights and the fused keep mask copied to the device; not
-#: the words of a bitset built there),
-#: ``hit_tiles``, ``extract_products`` (pass-2 ``int8_gemm`` calls, one a
-#: run of adjacent hit tiles), ``extract_syncs`` (every host wait of
+#: the words of a bitset built there), ``pinned_bytes`` (those of
+#: ``upload_bytes`` sent from page-locked host memory as asynchronous
+#: DMAs: on a CUDA device the classes and weights always, the words when
+#: they were packed page-locked; 0 on the CPU), ``hit_tiles``,
+#: ``extract_products`` (pass-2 ``int8_gemm`` calls, one a run of
+#: adjacent hit tiles), ``extract_syncs`` (every host wait of
 #: extraction: a boolean-mask compaction of the fused scan, and the
 #: fetch), ``epilogue_pairs`` (the survivors K1 appended, 0 off
 #: the epilogue route) and ``pairs``. Times are the spans'
@@ -87,8 +91,9 @@ last_trace: dict = {}
 
 
 def _new_trace() -> dict:
-    return dict(upload_bytes=0, hit_tiles=0, extract_products=0,
-                extract_syncs=0, epilogue_pairs=0, pairs=0)
+    return dict(upload_bytes=0, pinned_bytes=0, hit_tiles=0,
+                extract_products=0, extract_syncs=0, epilogue_pairs=0,
+                pairs=0)
 
 
 @dataclasses.dataclass
@@ -611,8 +616,13 @@ def pairwise_similarity(
     # a bitset built on the device hands over its own words: no copy
     held = (bitset.device_words if isinstance(bitset, DeviceBitsetMatrix)
             else None)
-    trace["upload_bytes"] = sum(t.nbytes for t in (words, classes, wts)
-                                if t is not None and t is not held)
+    sent = [t for t in (words, classes, wts)
+            if t is not None and t is not held]
+    trace["upload_bytes"] = sum(t.nbytes for t in sent)
+    if device.type == "cuda":
+        trace["pinned_bytes"] = sum(
+            t.nbytes for t in sent
+            if t is not words or pinned_of(bitset) is not None)
     fused = appended = None
     with span("pairwise.sweep"):
         if engine == "mxu":
