@@ -2,17 +2,18 @@
 
 Every job of the window answers the same question about the same corpus,
 so each job's answer is held against the reference's: the pair list row
-for row, the eight parity counters, and in a cell that clusters, the
-partition. Each number compared counts what differs, so the limit of each
-is 0: the configuration states exact answers.
+for row, the eight parity counters, in a cell that clusters the
+partition, and whatever further numbers the configuration's reference
+declares (its ``CHECKS``, such as the dendrogram's ``merges_wrong``).
+The reference's answer decides which are compared: a number is compared
+exactly when the answer holds the key it reads. Each number counts what
+differs, so the limit of each is 0: the configurations state exact
+answers.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-LIMITS = {"jobs_failed": 0, "pair_rows_wrong": 0, "counters_wrong": 0,
-          "labels_wrong": 0}
 
 
 def _rows(a: np.ndarray) -> np.ndarray:
@@ -47,27 +48,42 @@ def labels_wrong(got, want: np.ndarray) -> int:
     return int(np.count_nonzero(smallest[got] != want))
 
 
-def judge(answers: list, failed: int, ref: dict):
+def counters_wrong(got, want: np.ndarray) -> int:
+    """Parity counters that differ from the reference's."""
+    got = np.asarray(got, np.int64)
+    if got.shape != want.shape:
+        return len(want)
+    return int(np.count_nonzero(got != want))
+
+
+# name -> (the key of the answer it reads, the function that counts what
+# differs); a reference module's ``CHECKS`` add to these
+CHECKS = {"pair_rows_wrong": ("pairs", pair_rows_wrong),
+          "counters_wrong": ("counters", counters_wrong),
+          "labels_wrong": ("labels", labels_wrong)}
+
+
+def judge(answers: list, failed: int, ref: dict, extra: dict = None):
     """The numbers compared, each the worst over the window's jobs, with
-    its limit, ``{name: {"value": v, "limit": l}}``, and the number of
+    its limit 0, ``{name: {"value": v, "limit": 0}}``, and the number of
     jobs whose answer was wrong. ``answers`` holds one dict a completed
-    job (``pairs``, ``counters`` and, where the cell clusters,
-    ``labels``); a window that completed no job fails."""
+    job; ``extra`` holds the reference module's ``CHECKS``. A number is
+    compared where ``ref`` holds the key it reads; a job whose answer
+    lacks that key counts as wrong in all of it. A window that completed
+    no job fails."""
+    checks = {name: c for name, c in {**CHECKS, **(extra or {})}.items()
+              if c[0] in ref}
     worst = {"jobs_failed": failed if answers else max(failed, 1),
-             "pair_rows_wrong": 0, "counters_wrong": 0}
-    if "labels" in ref:
-        worst["labels_wrong"] = 0
+             **{name: 0 for name in checks}}
     wrong_jobs = 0
     for a in answers:
-        got = {"pair_rows_wrong": pair_rows_wrong(a["pairs"], ref["pairs"]),
-               "counters_wrong": int(np.count_nonzero(
-                   np.asarray(a["counters"], np.int64) != ref["counters"]))}
-        if "labels" in ref:
-            got["labels_wrong"] = labels_wrong(a["labels"], ref["labels"])
-        wrong_jobs += any(v > LIMITS[k] for k, v in got.items())
+        got = {name: fn(a[key], ref[key]) if key in a
+               else max(1, len(ref[key]))
+               for name, (key, fn) in checks.items()}
+        wrong_jobs += any(v > 0 for v in got.values())
         for k, v in got.items():
             worst[k] = max(worst[k], v)
-    return ({k: {"value": v, "limit": LIMITS[k]} for k, v in worst.items()},
+    return ({k: {"value": v, "limit": 0} for k, v in worst.items()},
             wrong_jobs)
 
 

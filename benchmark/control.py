@@ -2,7 +2,8 @@
 
     python benchmark/control.py --workload <cell> --seeds 1 2 3
 
-puts the reference in the program's place, with its counts narrowed to
+puts the configuration's reference (``harness.reference_of``) in the
+program's place, with its counts narrowed to
 int8 (saturating at 127, as an 8-bit accumulator of the epilogue would
 hold them), and prints, a seed a line, the numbers that the comparison
 of ``compare.py`` reads for it against the exact reference: the control
@@ -29,17 +30,14 @@ import harness
 
 def control_checks(config: dict, traffic: dict, seed: int):
     """(checks, correct) of the int8 control against the reference for
-    ``config`` and ``seed``."""
+    ``config`` and ``seed``: the configuration's own reference, taken as
+    the harness takes it."""
     seq_buf, offsets, classes = corpus.synth_proteins(config["corpus"], seed)
-    p = config["pipeline"]
-    ref_impl = harness.load_module("reference", "kmer_pairs")
-    args = dict(k=p["k"], threshold=p["threshold"],
-                cross_amr_only=p["cross_amr_only"],
-                with_components=traffic["entry"] == "pipeline")
-    ref = ref_impl.answer(seq_buf, offsets, classes, **args)
+    ref_impl, kwargs = harness.reference_of(config, traffic)
+    ref = ref_impl.answer(seq_buf, offsets, classes, **kwargs)
     ctl = ref_impl.answer(seq_buf, offsets, classes, count_dtype=np.int8,
-                          **args)
-    checks, _ = compare.judge([ctl], 0, ref)
+                          **kwargs)
+    checks, _ = compare.judge([ctl], 0, ref, getattr(ref_impl, "CHECKS", {}))
     return checks, compare.passes(checks)
 
 

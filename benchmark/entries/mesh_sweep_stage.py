@@ -9,9 +9,9 @@ the k-mer index and the packed matrix with ``run_pipeline(fasta, config,
 stop_after="pack")`` on the mesh's first card. Each job is the call that
 the pipeline's sweep stage makes on a mesh,
 ``pipeline._sharded_similarity(bitset, table, config, mesh, index=)``:
-the packed rows staged card by card, the layout's sweep, the
-mesh-parallel two-pass extraction and the pairs gathered on the first
-card. ``cards`` are all the mesh's cards, so that the peak memory and
+the packed rows staged to all the cards at once, the layout's sweep
+(under ``auto`` K1 appends each sub-step's survivors on its card), one
+read of the cards' cursors and the pairs gathered on the first card. ``cards`` are all the mesh's cards, so that the peak memory and
 the trace cover each.
 """
 

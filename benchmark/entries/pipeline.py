@@ -3,8 +3,9 @@
 Set-up only writes the corpus (done by the harness). Each job is
 ``pipeline.run_pipeline(fasta, config)`` with no checkpoint directory:
 FASTA ingest, k-mer encode, document-frequency index, bit packing, the
-sweep stage and the connected components, with the stage seconds of its
-``StageTimers`` (``PipelineResult.timings``).
+sweep stage and the configuration's clustering, with the stage seconds
+of its ``StageTimers`` (``PipelineResult.timings``). The answer holds
+the dendrogram (``merges``) where the clustering makes one.
 """
 
 from __future__ import annotations
@@ -30,8 +31,11 @@ class Entry:
         )
 
         r = run_pipeline(self.fasta, self.config, device=self.device)
-        return {"pairs": r.pairwise.pairs, "counters": counters(r.pairwise),
-                "labels": r.cluster_labels, "timings": r.timings}
+        out = {"pairs": r.pairwise.pairs, "counters": counters(r.pairwise),
+               "labels": r.cluster_labels, "timings": r.timings}
+        if r.dendrogram is not None:
+            out["merges"] = r.dendrogram
+        return out
 
     def close(self) -> None:
         pass

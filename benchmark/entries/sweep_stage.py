@@ -4,8 +4,10 @@ Set-up builds the protein table, the k-mer index and the packed matrix
 with ``run_pipeline(fasta, config, stop_after="pack")``. Each job is the
 call that the pipeline's sweep stage makes,
 ``similarity.pairwise.pairwise_similarity``: the upload of the packed
-matrix, the sweep on the schedule the corpus takes (strips with K1, or
-the block-pair scan with K2) and the two-pass extraction of the pairs.
+matrix, the sweep on the schedule the corpus takes (strips with K1,
+which appends the survivors, or the block-pair scan with K2) and the
+extraction of the pairs (on the strips, one sort and fetch of what K1
+appended).
 """
 
 from __future__ import annotations

@@ -147,33 +147,68 @@ def forbidden_modules() -> list:
                   & set(FORBIDDEN_MODULES))
 
 
+def reference_of(config: dict, traffic: dict):
+    """The plain reference of ``config``: (its module, the keyword
+    arguments of its ``answer``).
+
+    A configuration names its reference with ``"reference": "<name>"``,
+    the module ``reference/<name>.py``, whose answer is called one way
+    for every reference: ``answer(seq_buf, offsets, classes,
+    pipeline=<the pipeline block>, with_clusters=<whether the entry
+    clusters>)``. A configuration without the key has
+    ``reference/kmer_pairs.py``'s answer, with the arguments it has
+    always had. Both also take ``count_dtype``, the control's
+    narrowing. A module may add numbers to the comparison
+    (``CHECKS``, see ``compare.judge``)."""
+    p = config["pipeline"]
+    with_clusters = traffic["entry"] == "pipeline"
+    name = config.get("reference")
+    if name is None:
+        return (load_module("reference", "kmer_pairs"),
+                dict(k=p["k"], threshold=p["threshold"],
+                     cross_amr_only=p["cross_amr_only"],
+                     with_components=with_clusters))
+    return (load_module("reference", name),
+            dict(pipeline=p, with_clusters=with_clusters))
+
+
+def reference_cache_path(config: dict, traffic: dict, seed: int) -> str:
+    """Where the reference's answer for ``config`` and ``seed`` is kept:
+    under a digest of the configuration, of whether the entry clusters
+    and of the sources that make the corpus and the answer:
+    ``kmer_pairs.py`` for a configuration that names no reference, every
+    file of ``reference/`` for one that does."""
+    import hashlib
+
+    files = [os.path.join("reference", "kmer_pairs.py")]
+    if config.get("reference") is not None:
+        files = sorted(os.path.join("reference", f)
+                       for f in os.listdir(os.path.join(HERE, "reference"))
+                       if f.endswith(".py"))
+    h = hashlib.sha256(json.dumps([config, traffic["entry"] == "pipeline"],
+                                  sort_keys=True).encode())
+    for src in ["corpus.py"] + files:
+        with open(os.path.join(HERE, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(CACHE_DIR,
+                        f"{config['name']}.{seed}.{h.hexdigest()[:16]}.npz")
+
+
 def reference_answer(config: dict, traffic: dict, seed: int, seq_buf,
                      offsets, classes) -> dict:
     """The plain reference's answer for this corpus. It is kept in
-    ``.cache/reference`` inside the benchmark's folder, under the seed and
-    a digest of the configuration and of the sources that make the corpus
-    and the answer, so that a later run of the same configuration and
-    seed reads it instead of computing it again; only this function
-    writes there."""
-    import hashlib
-
+    ``.cache/reference`` inside the benchmark's folder
+    (:func:`reference_cache_path`), so that a later run of the same
+    configuration and seed reads it instead of computing it again; only
+    this function writes there."""
     import numpy as np
 
-    p = config["pipeline"]
-    with_components = traffic["entry"] == "pipeline"
-    h = hashlib.sha256(json.dumps([config, with_components],
-                                  sort_keys=True).encode())
-    for src in ("corpus.py", os.path.join("reference", "kmer_pairs.py")):
-        with open(os.path.join(HERE, src), "rb") as f:
-            h.update(f.read())
-    path = os.path.join(CACHE_DIR,
-                        f"{config['name']}.{seed}.{h.hexdigest()[:16]}.npz")
+    path = reference_cache_path(config, traffic, seed)
     if os.path.exists(path):
         with np.load(path) as z:
             return {k: z[k] for k in z.files}
-    ref = load_module("reference", "kmer_pairs").answer(
-        seq_buf, offsets, classes, k=p["k"], threshold=p["threshold"],
-        cross_amr_only=p["cross_amr_only"], with_components=with_components)
+    mod, kwargs = reference_of(config, traffic)
+    ref = mod.answer(seq_buf, offsets, classes, **kwargs)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp.npz"
     np.savez(tmp, **ref)
@@ -284,7 +319,9 @@ def measure(spec: dict, workload: str, seed: int, seconds: float,
         ref = reference_answer(config, traffic, seed, seq_buf, offsets,
                                classes)
         reference_s = time.perf_counter() - t
-        checks, wrong_jobs = compare.judge(answers, len(failures), ref)
+        checks, wrong_jobs = compare.judge(
+            answers, len(failures), ref,
+            getattr(reference_of(config, traffic)[0], "CHECKS", {}))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,8 +1,10 @@
-"""``extract_ms.sweep``: the two-pass extraction of a sweep job
-(``similarity.pairwise.extract_pairs``: the plan, the window unpack, the
-hit tiles' products and ``nonzero`` compactions, the fetch), the summed
-milliseconds of its ``ukc.pairwise.extract`` spans on the profiler's
-clock inside the window, a job."""
+"""``extract_ms.sweep``: the extraction of a sweep job
+(``similarity.pairwise.extract_pairs``: on the strip schedule the plan
+and one sort and fetch of the survivors that K1 appended; the second
+pass over the hit tiles only under ``two_pass``, on the scan or past the
+pair buffer's slots), the summed milliseconds of its
+``ukc.pairwise.extract`` spans on the profiler's clock inside the
+window, a job."""
 
 from _spans import span_seconds
 from _util import per_job_ms

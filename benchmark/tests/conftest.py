@@ -15,6 +15,13 @@ sys.path.insert(0, BENCH)
 
 import harness  # noqa: E402
 
+# the port's counters that readers read, by the key a recorded fixture
+# keeps them under: the module (under the port) whose ``last_trace`` the
+# window's last job left
+PORT_COUNTERS = {"pairwise": "similarity.pairwise",
+                 "sharded": "parallel.sharded",
+                 "index_device": "kmers.index_device"}
+
 # the corpus cut to 300 proteins: the classes in the same proportions
 # and a family of two classes, so that cross-class pairs pass the
 # threshold

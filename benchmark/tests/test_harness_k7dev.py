@@ -3,7 +3,7 @@ found by name like every cell, its comparison fails the int8 control, a
 traced run on the CPU reads its span and counter metrics, its readers
 read a hand-built trace right and a port without the spans and counters
 as None, and they read again on the CPU what they read on the card
-(``record_k7dev_trace.py``)."""
+(``record_trace.py``)."""
 
 from __future__ import annotations
 

@@ -1,15 +1,17 @@
 """Each layer reader on a profiler trace recorded on the card
-(``record_trace.py``): it reads again what it read there, its shares lie
-in (0, 100], and the breakdown sums what the trace holds."""
+(``record_trace.py``), with the port's counters as the window's last job
+left them there: it reads again what it read there, its shares lie in
+(0, 100], and the breakdown sums what the trace holds."""
 
 from __future__ import annotations
 
 import glob
+import importlib
 import json
 import os
 
 import pytest
-from conftest import BENCH, harness, spec
+from conftest import BENCH, PORT_COUNTERS, harness, spec
 
 import tracing
 
@@ -34,8 +36,11 @@ def test_every_cell_kind_has_a_recorded_trace():
 
 
 @pytest.mark.parametrize("path", FIXTURES, ids=os.path.basename)
-def test_each_reader_reads_again_what_it_read_on_the_card(path):
+def test_each_reader_reads_again_what_it_read_on_the_card(path, monkeypatch):
     run, rec = _load(path)
+    for short, mod in PORT_COUNTERS.items():
+        monkeypatch.setattr(importlib.import_module(f"{harness.PORT}.{mod}"),
+                            "last_trace", rec["last_trace"].get(short, {}))
     metrics = harness.metrics_of(spec(), run.cell, "per_layer")
     assert {m["name"] for m in metrics} == set(rec["metrics"])
     for m in metrics:

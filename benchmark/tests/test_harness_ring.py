@@ -3,7 +3,7 @@ like every cell, its comparison fails the int8 control and a wrong pair
 planted on one shard, a traced run on a CPU mesh reads its span
 metrics, its readers read a hand-built trace right and a port without
 the spans and counters as None, and they read again on the CPU what they
-read on the cards (``record_ring_trace.py``)."""
+read on the cards (``record_trace.py``)."""
 
 from __future__ import annotations
 
@@ -151,7 +151,7 @@ def test_the_readers_read_again_what_they_read_on_the_cards(monkeypatch):
     run, rec = _fixture()
     assert run.cell["name"] == CELL and sorted(run.trace.cards) == [0, 1, 2, 3]
     monkeypatch.setattr(importlib.import_module(SHARDED), "last_trace",
-                        rec["last_trace"])
+                        rec["last_trace"]["sharded"])
     assert set(rec["metrics"]) == set(SPANS) | {PEER}
     for name, want in rec["metrics"].items():
         got = _read(name, run)
@@ -159,4 +159,5 @@ def test_the_readers_read_again_what_they_read_on_the_cards(monkeypatch):
     # the peer rate's bytes are the job's shifts times the jobs
     seconds = run.trace.device_seconds(name_has=("Memcpy PtoP",))
     assert rec["metrics"][PEER] == pytest.approx(
-        rec["last_trace"]["shift_bytes"] * run.jobs / seconds / 1e9)
+        rec["last_trace"]["sharded"]["shift_bytes"] * run.jobs / seconds
+        / 1e9)
