@@ -1,7 +1,8 @@
 """The port's spans and counters (``utils.timing.span``,
-``similarity.pairwise.last_trace``) on the CPU at 300 proteins: under
-``torch.profiler`` the pipeline and the sweep stage emit their ``ukc.*``
-spans with the parents the call tree gives them; with no profiler no
+``similarity.pairwise.last_trace``, ``models.agglomerative.last_trace``)
+on the CPU at 300 proteins: under ``torch.profiler`` the pipeline, the
+sweep stage and the agglomerative rounds emit their ``ukc.*`` spans with
+the parents the call tree gives them; with no profiler no
 ``record_function`` is entered; the counts are what the inputs give; and
 ``StageTimers`` keeps its API and its seconds.
 """
@@ -14,6 +15,9 @@ import torch
 
 from uniprot_kmer_based_clustering_tpu_torch.config import PipelineConfig
 from uniprot_kmer_based_clustering_tpu_torch.kmers import index as kindex
+from uniprot_kmer_based_clustering_tpu_torch.models import (
+    agglomerative as tagg,
+)
 from uniprot_kmer_based_clustering_tpu_torch.pipeline import (
     blosum_weights,
     run_pipeline,
@@ -262,3 +266,116 @@ def test_stage_timers_keep_their_api_and_seconds(profiled, capsys):
     assert 0.03 <= got["a"] < 1.0 and 0 <= got["b"] < got["a"]
     assert got is not timers.seconds and got == timers.seconds
     assert capsys.readouterr().err.count("[stage] a:") == 2
+
+
+# the agglomerative rounds: the host loop on its one-shot plan and on
+# the strip plan (a 1 MiB budget), and the loop with its state on the
+# device
+AGGLO_LOOPS = [
+    pytest.param("host", 13 << 30, id="host"),
+    pytest.param("host", 1 << 20, id="host-strips"),
+    pytest.param("device", None, id="device"),
+]
+AGGLO_PARENTS = {
+    "ukc.agglo.round": None,
+    "ukc.agglo.argmax": "ukc.agglo.round",
+    "ukc.agglo.fetch": "ukc.agglo.round",
+    "ukc.agglo.merge": "ukc.agglo.round",
+}
+
+
+def _agglo(packed, loop, budget, **kw):
+    b = packed.bitset
+    if loop == "device":
+        return tagg.agglomerative_cluster_device(b, b.n, device="cpu", **kw)
+    return tagg.agglomerative_cluster(b, b.n, hbm_budget_bytes=budget,
+                                      device="cpu", **kw)
+
+
+def _agglo_plan(packed, loop, budget):
+    b = packed.bitset
+    return None if loop == "device" else tagg._argmax_plan(b.n_pad, b.w_pad,
+                                                           budget)
+
+
+@pytest.mark.parametrize("loop,budget", AGGLO_LOOPS)
+def test_the_agglomerative_spans_nest_as_the_rounds(packed, loop, budget):
+    plain = _agglo(packed, loop, budget)
+    r, spans = _profiled(lambda: _agglo(packed, loop, budget))
+    agglo = [(s, p) for s, p in spans if s.startswith("ukc.agglo.")]
+    assert dict(agglo) == AGGLO_PARENTS
+    names = [s for s, _ in agglo]
+    plan = _agglo_plan(packed, loop, budget)
+    strips = 1 if plan is None else -(-packed.bitset.n_pad // plan[0])
+    assert r.rounds > 2
+    assert names.count("ukc.agglo.round") == r.rounds
+    assert names.count("ukc.agglo.argmax") == r.rounds * strips
+    assert names.count("ukc.agglo.fetch") == r.rounds
+    assert names.count("ukc.agglo.merge") == r.rounds
+    # the profiler changes nothing of the result
+    assert r.rounds == plain.rounds
+    assert r.merges.tobytes() == plain.merges.tobytes()
+    assert r.labels.tobytes() == plain.labels.tobytes()
+
+
+@pytest.mark.parametrize("loop,budget", AGGLO_LOOPS)
+def test_the_agglomerative_counts_are_the_inputs(packed, loop, budget):
+    b = packed.bitset
+    n_pad, w, n = b.n_pad, b.w_pad, b.n
+    k = 32 * w
+    one_round = _agglo(packed, loop, budget, max_rounds=1)
+    _agglo(packed, loop, budget, max_rounds=2)
+    two_rounds = tagg.last_trace
+    r = _agglo(packed, loop, budget)
+    t = tagg.last_trace
+    assert t is not two_rounds  # each call starts its own counts
+    assert t["rounds"] == r.rounds and t["merges"] == len(r.merges)
+    plan = _agglo_plan(packed, loop, budget)
+    if plan is None:
+        assert t["plan"] == "one_shot" and t["products"] == r.rounds
+        assert t["product_ops"] == r.rounds * 2 * n_pad**2 * k
+    else:
+        strip, chunk = plan
+        strips, chunks = -(-n_pad // strip), w // chunk
+        assert t["plan"] == "strip" and chunks > 1
+        assert t["products"] == r.rounds * strips * chunks
+        assert t["product_ops"] == r.rounds * strips * 2 * strip * n_pad * k
+    # a merge retires one row: the first round takes all n, the second
+    # those the first left
+    assert two_rounds["active_rows"] == n + (n - len(one_round.merges))
+    assert n + (r.rounds - 1) * (n - len(r.merges)) < t["active_rows"] \
+        < r.rounds * n
+    words = n_pad * w * 4
+    if loop == "host":
+        # one fetch a round (best_j, best_c as int32); the active mask
+        # once; a merging round's partner (int64) and two bool masks
+        assert t["syncs"] == r.rounds
+        assert t["host_bytes"] == (words + n_pad + r.rounds * 8 * n_pad
+                                   + (r.rounds - 1) * 10 * n_pad)
+    else:
+        # a round's merge count; each pointer-jumping step's test; the
+        # labels and the merges (int32) at the end
+        jumps = t["syncs"] - r.rounds - 2
+        assert jumps >= 1
+        assert t["host_bytes"] == (words + 8 * r.rounds + jumps + 4 * n
+                                   + 12 * len(r.merges))
+
+
+def test_the_host_loop_reads_the_device_once_a_round(packed, monkeypatch):
+    """The counters read nothing of the device: the round's one fetch is
+    the host loop's only read."""
+    calls = {"cpu": 0}
+    real_cpu = torch.Tensor.cpu
+
+    def counted_cpu(self, *a, **k):
+        calls["cpu"] += 1
+        return real_cpu(self, *a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a device read beside the round's fetch")
+
+    monkeypatch.setattr(torch.Tensor, "cpu", counted_cpu)
+    for name in ("item", "tolist", "__bool__", "__int__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    r = _agglo(packed, "host", 13 << 30)
+    assert calls["cpu"] == r.rounds == tagg.last_trace["syncs"]

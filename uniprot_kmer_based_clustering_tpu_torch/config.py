@@ -123,8 +123,9 @@ class PipelineConfig:
 
     # --- clustering (reference src/tree.rs) ---
     cluster: str = "components"     # "components" | "tree" |
-                                    # "agglomerative" (batched MXU
-                                    # mutual-argmax merges) | "none"
+                                    # "agglomerative" (batched int8-GEMM
+                                    # mutual-argmax merges on the
+                                    # device) | "none"
     min_shared: int = 1             # agglomerative merge gate: minimum
                                     # shared k-mers between cluster
                                     # intersection signatures (tree.rs

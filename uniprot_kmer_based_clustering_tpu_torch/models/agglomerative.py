@@ -23,6 +23,13 @@ rounds on the device:
 
 Returns both a flat partition and the dendrogram (one merge edge per
 round entry), the hierarchical structure the reference's tree encodes.
+
+Under a profiler each round is the span ``ukc.agglo.round``
+(``utils.timing.span``) with the children ``ukc.agglo.argmax`` (the
+unpack, the product, the mask and the argmax: once a round on the
+one-shot plan, once a strip on the strip plan), ``ukc.agglo.fetch``
+(the round's one host wait) and ``ukc.agglo.merge``; :data:`last_trace`
+counts what the last call did.
 """
 
 from __future__ import annotations
@@ -34,12 +41,78 @@ import numpy as np
 import torch
 
 from uniprot_kmer_based_clustering_tpu_torch.device import resolve_device
+from uniprot_kmer_based_clustering_tpu_torch.kmers.bitset import (
+    DeviceBitsetMatrix,
+    pinned_of,
+)
 from uniprot_kmer_based_clustering_tpu_torch.ops.bitmul import (
     counts_window_pair,
     int8_gemm,
     unpack_words_to_int8,
 )
-from uniprot_kmer_based_clustering_tpu_torch.state import bitset_to_torch
+from uniprot_kmer_based_clustering_tpu_torch.state import (
+    bitset_to_torch,
+    to_device,
+)
+from uniprot_kmer_based_clustering_tpu_torch.utils.timing import span
+
+#: Counts of the most recent :func:`agglomerative_cluster` or
+#: :func:`agglomerative_cluster_device` call, all from values the host
+#: holds anyway (no counter reads the device): ``rounds`` and ``merges``
+#: as the result gives them; ``plan``, ``"one_shot"`` or ``"strip"``;
+#: ``products``, the int8 products launched, and ``product_ops``, their
+#: Σ 2·M·N·K; ``active_rows``, the active rows that went into each
+#: round, summed over the rounds; ``host_bytes``, the bytes moved
+#: between host arrays and the device, both ways summed (the words'
+#: upload unless they were built on the device, the masks, the fetches);
+#: and ``syncs``, the host's waits on the device (one a round on the
+#: host loop; one more for words copied to a CUDA device from pageable
+#: memory). Times are the spans'.
+last_trace: dict = {}
+
+
+def _new_trace(plan) -> dict:
+    """A fresh :data:`last_trace`, which the call then fills."""
+    global last_trace
+    last_trace = dict(
+        rounds=0, merges=0, plan="one_shot" if plan is None else "strip",
+        products=0, product_ops=0, active_rows=0, host_bytes=0, syncs=0)
+    return last_trace
+
+
+def _upload_words(bitset, device, trace):
+    """The signatures' words on ``device`` (``state.bitset_to_torch``),
+    counted in ``trace``: words built on the device move no bytes, and
+    pageable words bound for a CUDA device are a wait."""
+    sigs = bitset_to_torch(bitset, device)
+    if not isinstance(bitset, DeviceBitsetMatrix):
+        trace["host_bytes"] += sigs.nbytes
+        trace["syncs"] += int(device.type == "cuda"
+                              and pinned_of(bitset) is None)
+    return sigs
+
+
+def _product_work(n_pad: int, w: int, plan) -> Tuple[int, int]:
+    """(products, Σ 2·M·N·K) of one round's argmax on ``plan``: one
+    [N_pad, K]·[K, N_pad] product, or on the strip plan one
+    [strip, chunk]·[chunk, N_pad] product a strip and word chunk (the
+    last strip re-covers the tail, a whole strip too)."""
+    k = w * 32
+    if plan is None:
+        return 1, 2 * n_pad * n_pad * k
+    strip, word_chunk = plan
+    chunks = w // word_chunk if 0 < word_chunk < w else 1
+    strips = -(-n_pad // strip)
+    return strips * chunks, strips * 2 * strip * n_pad * k
+
+
+def _count_round(trace, work, active_rows: int) -> None:
+    """One more round in ``trace``: its products and their operations
+    (``work``, :func:`_product_work`'s pair) and its active rows."""
+    trace["rounds"] += 1
+    trace["products"] += work[0]
+    trace["product_ops"] += work[1]
+    trace["active_rows"] += active_rows
 
 
 def _best_of(counts, ok):
@@ -82,13 +155,14 @@ def _round_argmax_strip(sigs, active, i0: int, *, strip: int,
     return _best_of(counts, ok)
 
 
-def _round_argmax_any(sigs, active, plan):
+def _round_argmax_any(sigs, active, plan, trace):
     """Round argmax through the path ``plan`` selected (see
     :func:`_argmax_plan`): the one-shot product, or the strips written
     into one device pair of outputs. Fetched in one copy as numpy
     (best_j int32 [N_pad], best_c int32 [N_pad])."""
     if plan is None:
-        bj, bc = _round_argmax(sigs, active)
+        with span("agglo.argmax"):
+            bj, bc = _round_argmax(sigs, active)
     else:
         strip, word_chunk = plan
         n_pad = sigs.shape[0]
@@ -98,9 +172,14 @@ def _round_argmax_any(sigs, active, plan):
             # the final strip re-covers the tail from n_pad − strip (its
             # rows are written again with the same values)
             ic = min(i0, max(0, n_pad - strip))
-            bj[ic : ic + strip], bc[ic : ic + strip] = _round_argmax_strip(
-                sigs, active, ic, strip=strip, word_chunk=word_chunk)
-    both = torch.stack([bj.to(torch.int32), bc]).cpu().numpy()
+            with span("agglo.argmax"):
+                bj[ic : ic + strip], bc[ic : ic + strip] = \
+                    _round_argmax_strip(sigs, active, ic, strip=strip,
+                                        word_chunk=word_chunk)
+    with span("agglo.fetch"):
+        both = torch.stack([bj.to(torch.int32), bc]).cpu().numpy()
+    trace["syncs"] += 1
+    trace["host_bytes"] += both.nbytes
     return both[0], both[1]
 
 
@@ -164,7 +243,9 @@ def agglomerative_cluster(
     device = resolve_device(device)
     n_pad, w = np.asarray(bitset.words).shape
     plan = _argmax_plan(n_pad, w, hbm_budget_bytes)
-    sigs = bitset_to_torch(bitset, device)
+    trace = _new_trace(plan)
+    work = _product_work(n_pad, w, plan)
+    sigs = _upload_words(bitset, device, trace)
     active_np = np.zeros(n_pad, bool)
     active_np[:n] = True
     parent = np.arange(n_pad, dtype=np.int64)  # union-find for labels
@@ -175,38 +256,49 @@ def agglomerative_cluster(
             x = parent[x]
         return x
 
-    def up(a):
-        return torch.from_numpy(a).to(device)
+    def up(a, dtype):
+        # page-locked and asynchronous on a CUDA device: the round's
+        # fetch stays its one wait
+        trace["host_bytes"] += a.nbytes
+        return to_device(a, dtype, device)
 
+    active = up(active_np, torch.bool)
     merges: List[Tuple[int, int, int]] = []
     rounds = 0
     while rounds < max_rounds:
         rounds += 1
-        best_j, best_c = _round_argmax_any(sigs, up(active_np), plan)
-        # mutual argmax pairs over the gate; i < j canonical
-        i_idx = np.arange(n_pad)
-        mutual = (
-            active_np
-            & (best_c >= min_shared)
-            & (best_j[best_j] == i_idx)
-            & (i_idx < best_j)
-        )
-        winners = i_idx[mutual]
-        losers = best_j[mutual]
-        if winners.size == 0:
-            break
-        partner = np.arange(n_pad, dtype=np.int64)
-        partner[winners] = losers
-        is_winner = np.zeros(n_pad, bool)
-        is_winner[winners] = True
-        is_loser = np.zeros(n_pad, bool)
-        is_loser[losers] = True
-        sigs = _merge_signatures(sigs, up(partner), up(is_winner),
-                                 up(is_loser))
-        for wi, lo, c in zip(winners, losers, best_c[winners]):
-            merges.append((int(wi), int(lo), int(c)))
-            parent[find(int(lo))] = find(int(wi))
-        active_np[losers] = False
+        _count_round(trace, work, n - len(merges))
+        with span("agglo.round"):
+            best_j, best_c = _round_argmax_any(sigs, active, plan, trace)
+            with span("agglo.merge"):
+                # mutual argmax pairs over the gate; i < j canonical
+                i_idx = np.arange(n_pad)
+                mutual = (
+                    active_np
+                    & (best_c >= min_shared)
+                    & (best_j[best_j] == i_idx)
+                    & (i_idx < best_j)
+                )
+                winners = i_idx[mutual]
+                losers = best_j[mutual]
+                if winners.size == 0:
+                    break
+                partner = np.arange(n_pad, dtype=np.int64)
+                partner[winners] = losers
+                is_winner = np.zeros(n_pad, bool)
+                is_winner[winners] = True
+                is_loser = np.zeros(n_pad, bool)
+                is_loser[losers] = True
+                is_loser_t = up(is_loser, torch.bool)
+                sigs = _merge_signatures(sigs, up(partner, torch.int64),
+                                         up(is_winner, torch.bool),
+                                         is_loser_t)
+                active = active & ~is_loser_t
+                for wi, lo, c in zip(winners, losers, best_c[winners]):
+                    merges.append((int(wi), int(lo), int(c)))
+                    parent[find(int(lo))] = find(int(wi))
+                active_np[losers] = False
+    trace["merges"] = len(merges)
 
     labels = np.full(n, -1, np.int32)
     roots: dict = {}
@@ -238,8 +330,10 @@ def agglomerative_cluster_device(
     ``mode="drop"``).
     """
     device = resolve_device(device)
-    sigs = bitset_to_torch(bitset, device)
-    n_pad = sigs.shape[0]
+    trace = _new_trace(None)
+    sigs = _upload_words(bitset, device, trace)
+    n_pad, w = sigs.shape
+    work = _product_work(n_pad, w, None)
     iota = torch.arange(n_pad, device=device)
     active = torch.zeros(n_pad + 1, dtype=torch.bool, device=device)
     active[:n] = True
@@ -249,29 +343,43 @@ def agglomerative_cluster_device(
     rounds = 0
     while rounds < max_rounds:
         rounds += 1
-        act = active[:n_pad]
-        best_j, best_c = _round_argmax(sigs, act)
-        m = (act & (best_c >= min_shared) & (best_j[best_j] == iota)
-             & (iota < best_j))
-        sigs = torch.where(m[:, None], sigs & sigs[best_j], sigs)
-        loser = torch.where(m, best_j, n_pad)
-        active[loser] = False
-        parent[loser] = iota
-        pos = torch.where(m, mcount + torch.cumsum(m, 0) - 1, n_pad)
-        merges[pos] = torch.stack([iota, best_j, best_c], dim=1).to(
-            torch.int32)
-        nmerge = int(m.sum())
+        _count_round(trace, work, n - mcount)
+        with span("agglo.round"):
+            act = active[:n_pad]
+            with span("agglo.argmax"):
+                best_j, best_c = _round_argmax(sigs, act)
+            with span("agglo.merge"):
+                m = (act & (best_c >= min_shared) & (best_j[best_j] == iota)
+                     & (iota < best_j))
+                sigs = torch.where(m[:, None], sigs & sigs[best_j], sigs)
+                loser = torch.where(m, best_j, n_pad)
+                active[loser] = False
+                parent[loser] = iota
+                pos = torch.where(m, mcount + torch.cumsum(m, 0) - 1, n_pad)
+                merges[pos] = torch.stack([iota, best_j, best_c], dim=1).to(
+                    torch.int32)
+            with span("agglo.fetch"):
+                nmerge = int(m.sum())
+            trace["syncs"] += 1
+            trace["host_bytes"] += 8  # the int64 merge count
         mcount += nmerge
         if nmerge == 0:
             break
     parent = parent[:n_pad]
     while True:
         jumped = parent[parent]
+        trace["syncs"] += 1
+        trace["host_bytes"] += 1
         if not bool((jumped != parent).any()):
             break
         parent = jumped
+    labels = parent[:n].to(torch.int32).cpu().numpy()
+    merged = merges[:mcount].cpu().numpy()
+    trace.update(merges=mcount, syncs=trace["syncs"] + 2,
+                 host_bytes=trace["host_bytes"] + labels.nbytes
+                 + merged.nbytes)
     return AgglomerativeResult(
-        labels=parent[:n].to(torch.int32).cpu().numpy(),
-        merges=merges[:mcount].cpu().numpy().astype(np.int64),
+        labels=labels,
+        merges=merged.astype(np.int64),
         rounds=rounds,
     )
